@@ -1,0 +1,124 @@
+"""Flash attention: the hand-written CUDA kernel and its plain version.
+
+``flash_attention`` launches ``csrc/flash_attention.cu`` on CUDA tensors
+and counts each launch in :data:`launches`; on CPU tensors it runs
+:func:`attention_torch`, the plain PyTorch version.  There is no fallback
+between the two: a CUDA tensor the kernel cannot take raises.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
+(``_kernel``, launched by ``flash_attention``).  The source note in the
+``.cu`` file says what bounds the kernel on the card and how its design
+answers that.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+#: launches of the CUDA kernel since import (or since a caller reset it).
+launches = 0
+
+HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
+                       ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: int | None = None):
+    """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+
+    Queries are the last Sq of the Skv positions.  On a CUDA tensor this
+    launches the kernel; on a CPU tensor it runs :func:`attention_torch`.
+    """
+    if not q.is_cuda:
+        return attention_torch(q, k, v, causal=causal, window=window)
+    return _launch(q, k, v, causal, window)
+
+
+def _launch(q, k, v, causal, window):
+    global launches
+    if not (k.is_cuda and v.is_cuda and q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v must be on one CUDA device")
+    if q.dtype not in _DTYPE_CODE or not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"flash_attention: q, k, v must share one dtype of "
+                        f"float32/bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, Dk = k.shape
+    if k.shape[0] != B or Dk != D or Hq % Hkv or Sq > Skv:
+        raise ValueError(f"flash_attention: incompatible q{tuple(q.shape)} "
+                         f"and k/v{tuple(k.shape)}")
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention kernel: head dim {D} "
+                                  f"not in {HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k, v must be contiguous")
+    lib = _lib()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[q.dtype], B, Sq, Skv, Hq, Hkv, D, int(causal),
+        -1 if window is None else int(window), 1.0 / math.sqrt(D), stream)
+    _build.check(lib, code, "flash_attention")
+    launches += 1
+    return out
+
+
+def attention_torch(q, k, v, *, causal: bool = True,
+                    window: int | None = None, block_kv: int = 1024):
+    """Plain PyTorch twin of ``repro``'s ``_attention_xla``: the same
+    blocked online softmax, as a loop over kv tiles of ``block_kv``.
+
+    Masked scores get probability 0 (not ``exp(-1e30 - m)``), so a query
+    with no live key returns 0 as the oracle does; every other row is the
+    same sum as ``_attention_xla``'s.
+    """
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, Dv = v.shape
+    group = Hq // Hkv
+    block_kv = int(min(block_kv, Skv))
+    dev = q.device
+    qg = (q.float() / math.sqrt(D)).reshape(B, Sq, Hkv, group, D)
+    q_pos = torch.arange(Sq, device=dev) + (Skv - Sq)
+    m = torch.full((B, Sq, Hkv, group), -1e30, device=dev)
+    l = torch.zeros((B, Sq, Hkv, group), device=dev)
+    acc = torch.zeros((B, Sq, Hkv, group, Dv), device=dev)
+    for k0 in range(0, Skv, block_kv):
+        kb = k[:, k0:k0 + block_kv].float()
+        vb = v[:, k0:k0 + block_kv].float()
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kb)
+        k_pos = torch.arange(k0, k0 + kb.shape[1], device=dev)
+        mask = torch.ones((Sq, kb.shape[1]), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        s = s.masked_fill(~mask[None, :, None, None, :], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bqhgk,bkhe->bqhge",
+                                                    p, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(B, Sq, Hq, Dv).to(q.dtype)

@@ -1,0 +1,64 @@
+"""Dispatching wrappers: one call site per op (counterpart of
+``repro/kernels/ops.py``).
+
+Backends:
+
+  * ``cuda``  — the hand-written Hopper kernel; CUDA tensors only.
+  * ``torch`` — the plain PyTorch version beside the kernel (the twin of
+                ``repro``'s ``_attention_xla`` / ``_decode_xla``); runs on
+                any device.
+  * ``ref``   — the naive oracle in :mod:`repro_torch.kernels.ref`.
+  * ``auto``  — by the tensor's device: a CUDA tensor always takes the
+                kernel, a CPU tensor takes ``torch``.
+
+There is no fallback: a kernel that fails to build or launch raises.
+"""
+from __future__ import annotations
+
+from typing import Literal
+
+from . import decode_attention as _dec
+from . import flash_attention as _fa
+from . import ref as _ref
+
+Backend = Literal["auto", "cuda", "torch", "ref"]
+BACKENDS = ("auto", "cuda", "torch", "ref")
+
+
+def _resolve(backend: str, x) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
+    if backend == "auto":
+        return "cuda" if x.is_cuda else "torch"
+    if backend == "cuda" and not x.is_cuda:
+        raise ValueError("backend='cuda' needs CUDA tensors; this one is on "
+                         f"{x.device}")
+    return backend
+
+
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              block_kv: int = 1024, backend: Backend = "auto"):
+    """Multi-head GQA attention. q: (B,Sq,Hq,D); k,v: (B,Skv,Hkv,D).
+
+    ``block_kv`` is the kv tile of the ``torch`` version; the kernel
+    fixes its own tiles."""
+    b = _resolve(backend, q)
+    if b == "ref":
+        return _ref.attention(q, k, v, causal=causal, window=window)
+    if b == "cuda":
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _fa.attention_torch(q, k, v, causal=causal, window=window,
+                               block_kv=block_kv)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *,
+                     backend: Backend = "auto"):
+    """One query token per sequence over a (B, S, Hkv, D) cache; sequence
+    b attends over its first ``lengths[b]`` positions."""
+    b = _resolve(backend, q)
+    if b == "ref":
+        return _ref.attention(q, k_cache, v_cache, causal=True,
+                              lengths=lengths)
+    if b == "cuda":
+        return _dec.decode_attention(q, k_cache, v_cache, lengths)
+    return _dec.decode_attention_torch(q, k_cache, v_cache, lengths)

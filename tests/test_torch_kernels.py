@@ -1,0 +1,221 @@
+"""Port parity: repro_torch attention ops vs repro's Pallas kernels.
+
+The same inputs, made with numpy from a seed, go through
+``repro.kernels.ops`` (Pallas kernels in interpret mode, as
+``tests/test_kernels.py`` runs them on the CPU), ``repro.kernels.ref``
+and the port's plain PyTorch versions.  Tolerances are
+``tests/test_kernels.py``'s: atol = rtol = 2e-5 in float32, 2e-2 in
+bfloat16 (both packages round the same f32 draws to bf16 with
+round-to-nearest-even, so the inputs are identical).
+
+Tests marked ``cuda`` hold the hand-written kernels against their plain
+versions and skip on hosts without a CUDA device.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import decode_attention as tdec
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+ATTN_SHAPES = [                    # tests/test_kernels.py:22-28
+    # (B, Sq, Skv, Hq, Hkv, D)
+    (1, 128, 128, 4, 4, 64),       # MHA
+    (2, 256, 256, 8, 2, 64),       # GQA 4:1
+    (1, 64, 64, 4, 1, 128),        # MQA
+    (2, 96, 96, 4, 2, 32),         # non-128 seq (masked tail tiles)
+]
+MASKS = [(True, None), (False, None), (True, 48)]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def tol(name):
+    return (dict(atol=2e-2, rtol=2e-2) if name == "bfloat16"
+            else dict(atol=2e-5, rtol=2e-5))
+
+
+def draw(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def both(x, dtype_name):
+    jd, td = DTYPES[dtype_name]
+    return jnp.asarray(x).astype(jd), torch.from_numpy(x).to(td)
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+class TestAttentionParity:
+    @pytest.mark.parametrize("shape", ATTN_SHAPES)
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("causal,window", MASKS)
+    def test_plain_vs_pallas_and_oracle(self, shape, dtype, causal, window):
+        B, Sq, Skv, Hq, Hkv, D = shape
+        qn, kn, vn = draw(0, (B, Sq, Hq, D), (B, Skv, Hkv, D),
+                          (B, Skv, Hkv, D))
+        (qj, qt), (kj, kt), (vj, vt) = (both(x, dtype) for x in (qn, kn, vn))
+        got = tops.attention(qt, kt, vt, causal=causal, window=window,
+                             block_kv=64, backend="torch")
+        assert got.dtype == qt.dtype and got.shape == qt.shape
+        pallas = jops.attention(qj, kj, vj, causal=causal, window=window,
+                                backend="pallas_interpret", block_q=64,
+                                block_kv=64)
+        oracle = jref.attention(qj, kj, vj, causal=causal, window=window)
+        np.testing.assert_allclose(f32(got), f32(pallas), **tol(dtype))
+        np.testing.assert_allclose(f32(got), f32(oracle), **tol(dtype))
+        mine = tref.attention(qt, kt, vt, causal=causal, window=window)
+        np.testing.assert_allclose(f32(mine), f32(oracle), **tol(dtype))
+
+    def test_offset_queries(self):
+        """Sq < Skv: queries are the last Sq positions (chunked prefill)."""
+        qn, kn, vn = draw(1, (2, 32, 4, 64), (2, 128, 4, 64), (2, 128, 4, 64))
+        got = tops.attention(*(torch.from_numpy(x) for x in (qn, kn, vn)),
+                             causal=True, block_kv=32, backend="torch")
+        want = jref.attention(*(jnp.asarray(x) for x in (qn, kn, vn)),
+                              causal=True)
+        np.testing.assert_allclose(f32(got), f32(want), atol=2e-5, rtol=2e-5)
+
+
+DECODE_CASES = [
+    # (B, S, Hq, Hkv, D, lengths): 0, 1, full, non-multiples of 512
+    (4, 1100, 8, 2, 64, (0, 1, 1100, 513)),
+    (3, 600, 4, 4, 32, (600, 37, 512)),
+    (2, 256, 4, 1, 128, (255, 256)),
+]
+
+
+class TestDecodeParity:
+    @pytest.mark.parametrize("case", DECODE_CASES)
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_plain_vs_pallas_and_oracle(self, case, dtype):
+        B, S, Hq, Hkv, D, lens = case
+        qn, kn, vn = draw(2, (B, 1, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))
+        (qj, qt), (kj, kt), (vj, vt) = (both(x, dtype) for x in (qn, kn, vn))
+        lj = jnp.asarray(lens, jnp.int32)
+        lt = torch.tensor(lens, dtype=torch.int32)
+        got = tops.decode_attention(qt, kt, vt, lt, backend="torch")
+        assert got.dtype == qt.dtype and got.shape == qt.shape
+        pallas = jops.decode_attention(qj, kj, vj, lj,
+                                       backend="pallas_interpret")
+        oracle = jref.attention(qj, kj, vj, causal=True, lengths=lj)
+        np.testing.assert_allclose(f32(got), f32(pallas), **tol(dtype))
+        np.testing.assert_allclose(f32(got), f32(oracle), **tol(dtype))
+        mine = tops.decode_attention(qt, kt, vt, lt, backend="ref")
+        np.testing.assert_allclose(f32(mine), f32(oracle), **tol(dtype))
+        if 0 in lens:                      # empty sequence -> 0, not NaN
+            assert not got[list(lens).index(0)].float().any()
+
+    def test_nan_past_length_is_guarded(self):
+        """Cache rows past the length may hold anything, NaN included."""
+        qn, kn, vn = draw(3, (2, 1, 4, 32), (2, 64, 2, 32), (2, 64, 2, 32))
+        kn[:, 40:] = np.nan
+        vn[:, 40:] = np.nan
+        lt = torch.tensor([40, 7], dtype=torch.int32)
+        got = tops.decode_attention(*(torch.from_numpy(x)
+                                      for x in (qn, kn, vn)), lt)
+        clean = (jnp.asarray(np.nan_to_num(x)) for x in (qn, kn, vn))
+        want = jref.attention(*clean, causal=True,
+                              lengths=jnp.asarray([40, 7], jnp.int32))
+        np.testing.assert_allclose(f32(got), f32(want), atol=2e-5, rtol=2e-5)
+
+
+class TestDispatch:
+    def test_auto_on_cpu_takes_plain_version(self, monkeypatch):
+        def boom(*a, **k):
+            raise AssertionError("kernel launched for a CPU tensor")
+        monkeypatch.setattr(tfa, "_launch", boom)
+        monkeypatch.setattr(tdec, "_launch", boom)
+        q = torch.randn(1, 8, 2, 32)
+        out = tops.attention(q, q, q)
+        assert out.shape == q.shape
+        lens = torch.tensor([5], dtype=torch.int32)
+        assert tops.decode_attention(q[:, :1], q, q, lens).shape == (1, 1, 2,
+                                                                     32)
+
+    def test_cuda_backend_refuses_cpu_tensors(self):
+        q = torch.randn(1, 8, 2, 32)
+        with pytest.raises(ValueError, match="CUDA"):
+            tops.attention(q, q, q, backend="cuda")
+        with pytest.raises(ValueError, match="CUDA"):
+            tops.decode_attention(q[:, :1], q, q,
+                                  torch.tensor([3], dtype=torch.int32),
+                                  backend="cuda")
+
+    def test_unknown_backend(self):
+        q = torch.randn(1, 8, 2, 32)
+        with pytest.raises(ValueError, match="unknown backend"):
+            tops.attention(q, q, q, backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# card only: the hand-written kernels vs their plain versions
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are built with nvcc "
+                    "for sm_90a)")
+    return torch.device("cuda")
+
+
+def _card(x, dtype, dev):
+    return torch.from_numpy(x).to(dev).to(DTYPES[dtype][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATTN_SHAPES + [(1, 100, 300, 32, 32, 64)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_kernel_vs_plain(cuda_device, shape, dtype, causal, window):
+    B, Sq, Skv, Hq, Hkv, D = shape
+    q, k, v = (_card(x, dtype, cuda_device) for x in draw(
+        4, (B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    before = tfa.launches
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    want = tfa.attention_torch(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()), **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_kernel_vs_plain(cuda_device, case, dtype):
+    B, S, Hq, Hkv, D, lens = case
+    q, k, v = (_card(x, dtype, cuda_device) for x in draw(
+        5, (B, 1, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = tdec.launches
+    got = tdec.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert tdec.launches == before + 1
+    want = tdec.decode_attention_torch(q, k, v, lengths)
+    np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()), **tol(dtype))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_ignores_nan_past_length(cuda_device):
+    """Cache rows past the length may hold anything, NaN included: the
+    kernel zeroes K there and never reads V (the 0 * NaN guard)."""
+    qn, kn, vn = draw(6, (2, 1, 4, 64), (2, 300, 2, 64), (2, 300, 2, 64))
+    kn[:, 140:] = np.nan
+    vn[:, 140:] = np.nan
+    q, k, v = (_card(x, "float32", cuda_device) for x in (qn, kn, vn))
+    lengths = torch.tensor([140, 3], dtype=torch.int32, device=cuda_device)
+    got = tdec.decode_attention(q, k, v, lengths)
+    want = tdec.decode_attention_torch(q, k, v, lengths)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()),
+                               **tol("float32"))
