@@ -6,13 +6,16 @@ Run from the repository root (``src/`` is put on ``sys.path`` here).
 Phases, each fatal on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: both CUDA kernels from ``src/repro_torch/kernels/csrc/`` for
+2. build: all four CUDA kernels from ``src/repro_torch/kernels/csrc/`` for
    ``sm_90a``, one ``nvcc`` per source, started together;
 3. kernels: each kernel against its plain PyTorch version on the card
-   (float32 at atol = rtol = 2e-5, bfloat16 at 2e-2: the tolerances of
-   ``tests/test_kernels.py``), then timed (CUDA events, L2 flushed before
-   each call, median) beside its plain version, its roofline bound and
-   ``F.scaled_dot_product_attention`` as the library yardstick;
+   (attention: float32 at atol = rtol = 2e-5, bfloat16 at 2e-2, the
+   tolerances of ``tests/test_kernels.py``; PCCS slowdown: float64 at
+   atol = rtol = 1e-12, float32 at 5e-6; annealing select: bit for bit,
+   with poisoned lanes), then timed (CUDA events, L2 flushed before each
+   call, median) beside its plain version, its roofline bound and, for
+   attention, ``F.scaled_dot_product_attention`` as the library yardstick
+   (no single PyTorch call computes the other two);
 4. serve: full-width stablelm-1.6b with random weights from a seeded
    generator, 4 requests through ``ServingEngine``; every request must get
    its 16 tokens, both kernels must have launched (24 flash launches per
@@ -23,12 +26,21 @@ Phases, each fatal on failure:
    float32 weights, activations and KV cache, kernel path against plain
    path (same argmax, relative logits error <= E2E_F32_REL_TOL).  With no
    bf16 rounding to amplify, this is the check that can tell a kernel
-   fault from rounding.
+   fault from rounding;
+6. search: the schedule search of ``repro_torch.core`` on the card under
+   the paper's PCCS surface, ``Scheduler(..., evaluator="torch").solve(
+   ..., solver="anneal")``, on the three golden Table-6 fixtures.  The
+   orin fixture in float64 at population 4096 must give on the card the
+   incumbent the same search gives on the CPU (where the plain versions
+   run), and its device objective must match the scalar re-simulation;
+   every fixture at population 1024 (128 steps) must be no worse than
+   greedy; both search kernels must have launched in each solve.
 
 The last line is the contract line ``{"ok": true, "device": {...}}``;
-before it come one ``{"kernels": [...]}`` line and the card's
-``nvidia-smi`` name and power limit.  Without a CUDA device the script
-exits non-zero before printing any result.
+before it come the ``{"serve": ...}`` and ``{"search": ...}`` lines, one
+``{"kernels": [...]}`` line and the card's ``nvidia-smi`` name and power
+limit.  Without a CUDA device the script exits non-zero before printing
+any result.
 """
 from __future__ import annotations
 
@@ -49,6 +61,11 @@ PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bytes/s
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+#: PCCS slowdown kernel vs plain version (tests/test_kernels.py:185 for
+#: float32; float64 differs only in summation order)
+SLOWDOWN_TOL = {torch.float64: 1e-12, torch.float32: 5e-6}
+KERNEL_SOURCES = ("flash_attention", "decode_attention", "slowdown",
+                  "search")
 E2E_REL_TOL = 2e-2
 E2E_F32_REL_TOL = 1e-4
 PROMPT_LENS = (8, 100, 513, 1000)
@@ -220,6 +237,141 @@ def time_decode(da, timer, gen, dev) -> dict:
             qt, kt, vt, attn_mask=mask)))
 
 
+PCCS_KNOTS = (0.1, 0.3, 0.5, 0.7, 0.9)
+# the Fig.-6-shaped PCCS surface of repro/profiling/virtual.py:42-50
+PCCS_TABLE = ((1.00, 1.02, 1.06, 1.12, 1.20),
+              (1.02, 1.08, 1.18, 1.32, 1.50),
+              (1.05, 1.15, 1.32, 1.55, 1.82),
+              (1.08, 1.24, 1.48, 1.80, 2.18),
+              (1.12, 1.34, 1.64, 2.05, 2.60))
+
+
+def pccs_tensors(dev, dtype=torch.float64):
+    knots = torch.tensor(PCCS_KNOTS, dtype=dtype, device=dev)
+    return knots, knots, torch.tensor(PCCS_TABLE, dtype=dtype, device=dev)
+
+
+def demands(n, gen, dev, dtype):
+    """Demands over [-0.1, 1.1): zeros, negatives, values outside the
+    knots, and a quarter exactly on knots."""
+    own, ext = ((torch.rand(n, generator=gen, device=dev,
+                            dtype=torch.float64) * 1.2 - 0.1).to(dtype)
+                for _ in range(2))
+    knots = torch.tensor(PCCS_KNOTS, dtype=dtype, device=dev)
+    on = torch.arange(n // 4, device=dev)
+    own[on] = knots[on % 5]
+    ext[on[::2]] = knots[(on[::2] // 5) % 5]
+    own[n // 4:n // 4 + n // 16] = 0.0
+    ext[-(n // 16) - 1:] = 0.0
+    return own, ext
+
+
+def slowdown_checks(sd, gen, dev) -> float:
+    worst = 0.0
+    for dtype in (torch.float64, torch.float32):
+        ok, ek, tab = pccs_tensors(dev, dtype)
+        for n in (1, 1000, 1 << 20):
+            own, ext = demands(n, gen, dev, dtype)
+            got = sd.piecewise_slowdown(own, ext, ok, ek, tab)
+            want = sd.piecewise_slowdown_torch(own, ext, ok, ek, tab)
+            torch.cuda.synchronize()
+            tol = SLOWDOWN_TOL[dtype]
+            err = (got - want).abs()
+            good = bool((err <= tol + tol * want.abs()).all())
+            mae = float(err.max())
+            worst = max(worst, mae)
+            print(f"  slowdown {str(dtype)[6:]} N={n}: max_abs_err={mae:.3e} "
+                  f"(atol=rtol={tol:g}) {'ok' if good else 'FAIL'}")
+            require(good, "slowdown: kernel disagrees with its plain version")
+    return worst
+
+
+def select_inputs(P, L, gen, dev, dtype):
+    cur, prop, best = (torch.randint(0, 3, (P, L), generator=gen, device=dev,
+                                     dtype=torch.int32) for _ in range(3))
+    cur_obj, prop_obj, best_obj = (
+        (torch.rand(P, generator=gen, device=dev, dtype=torch.float64) * 9
+         + 1).to(dtype) for _ in range(3))
+    prop_obj[::7] = float("inf")               # error-poisoned proposals
+    cur_obj[::14] = float("inf")               # inf - inf = NaN delta
+    prop_obj[3::11] = float("nan")
+    prop_obj[5::13] = -float("inf")
+    prop_obj[1::17] = best_obj[1::17]          # ties: strict < keeps best
+    u = torch.rand(P, generator=gen, device=dev,
+                   dtype=torch.float64).to(dtype)
+    return cur, prop, best, cur_obj, prop_obj, best_obj, u
+
+
+def bit_equal(a, b) -> bool:
+    if a.dtype.is_floating_point:
+        a, b = a.view(torch.int64 if a.dtype == torch.float64
+                      else torch.int32), b.view(
+            torch.int64 if b.dtype == torch.float64 else torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def select_checks(se, gen, dev, L: int) -> int:
+    n = 0
+    for dtype in (torch.float64, torch.float32):
+        for P in (32, 4096, 65536):
+            for temp in (0.37, 1e-40):         # 1e-40 takes the 1e-30 clamp
+                args = select_inputs(P, L, gen, dev, dtype)
+                got = se.anneal_select(*args, temp)
+                want = se.anneal_select_torch(*args, temp)
+                torch.cuda.synchronize()
+                same = all(bit_equal(g, w) for g, w in zip(got, want))
+                print(f"  select {str(dtype)[6:]} P={P} L={L} temp={temp:g}:"
+                      f" bitwise {'equal' if same else 'DIFFERENT'}")
+                require(same, "select: kernel differs from its plain version")
+                n += 1
+    return n
+
+
+def time_slowdown(sd, timer, gen, dev, n) -> dict:
+    """Search shape: one wave of the float64 search, N = chains x
+    workloads demand pairs."""
+    dtype = torch.float64
+    ok, ek, tab = pccs_tensors(dev, dtype)
+    own, ext = demands(n, gen, dev, dtype)
+    err = float((sd.piecewise_slowdown(own, ext, ok, ek, tab)
+                 - sd.piecewise_slowdown_torch(own, ext, ok, ek, tab))
+                .abs().max())
+    b_ms, b_by = bound(0.0, 3 * n * 8)             # own, ext in; s out
+    return dict(
+        name="piecewise_slowdown", route="cuda",
+        source="src/repro_torch/kernels/csrc/slowdown.cu",
+        replaces="src/repro/kernels/slowdown.py:75",
+        shape=f"N={n} float64, 5x5 PCCS table",
+        max_abs_err=err,
+        ms=timer(lambda: sd.piecewise_slowdown(own, ext, ok, ek, tab)),
+        plain_ms=timer(lambda: sd.piecewise_slowdown_torch(own, ext, ok, ek,
+                                                           tab)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def time_select(se, timer, gen, dev, P, L) -> dict:
+    """Search shape: one step of the float64 search, P chains of L =
+    workloads x padded groups."""
+    dtype = torch.float64
+    args = select_inputs(P, L, gen, dev, dtype)
+    got = se.anneal_select(*args, 0.37)
+    want = se.anneal_select_torch(*args, 0.37)
+    diff = sum(int((g != w).sum()) for g, w in zip(got[::2], want[::2]))
+    diff += sum(int((~((g == w) | (g.isnan() & w.isnan()))).sum())
+                for g, w in zip(got[1::2], want[1::2]))
+    nbytes = 3 * P * L * 4 + 4 * P * 8 + 2 * P * L * 4 + 2 * P * 8
+    b_ms, b_by = bound(0.0, nbytes)
+    return dict(
+        name="anneal_select", route="cuda",
+        source="src/repro_torch/kernels/csrc/search.cu",
+        replaces="src/repro/kernels/search.py:76",
+        shape=f"P={P} L={L} float64",
+        max_abs_err=float(diff),
+        ms=timer(lambda: se.anneal_select(*args, 0.37)),
+        plain_ms=timer(lambda: se.anneal_select_torch(*args, 0.37)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # serve
 # ---------------------------------------------------------------------------
@@ -356,6 +508,19 @@ def e2e_f32(dev) -> list[float]:
     return rels
 
 
+def device_ms_by_kernel(prof) -> tuple[dict, int]:
+    """Device ms by kernel name, and the number of kernels, of a
+    ``torch.profiler`` window."""
+    kernels, count = {}, 0
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total",
+                    getattr(evt, "self_cuda_time_total", 0))
+        if t > 0 and evt.device_type.name == "CUDA":
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + t / 1e3
+            count += evt.count
+    return kernels, count
+
+
 def profile_decode(eng, prompts, steps: int = 4) -> dict:
     """Device busy share and top kernels over a few steady decode steps
     (torch.profiler; "not measured" if it records no device time)."""
@@ -373,12 +538,7 @@ def profile_decode(eng, prompts, steps: int = 4) -> dict:
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total",
-                    getattr(evt, "self_cuda_time_total", 0))
-        if t > 0 and evt.device_type.name == "CUDA":
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + t / 1e3
+    kernels, _ = device_ms_by_kernel(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps}
@@ -391,6 +551,161 @@ def profile_decode(eng, prompts, steps: int = 4) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# search
+# ---------------------------------------------------------------------------
+SEARCH_STEPS = 64
+#: the fixtures' 1024-chain solves run 128 steps: at 64 the orin fixture
+#: stops at 4.2745 ms under PCCS, above greedy's 4.2663 ms (the same
+#: chains on the CPU); 128 steps reach 4.1500 ms
+FIXTURE_STEPS = 128
+ORIN = "scenario4-exp8-orin-resnet101-googlenet-inception"
+
+
+def fixture_requests() -> dict:
+    """The golden Table-6 requests, loaded by the port, under PCCS."""
+    from repro_torch.core import Plan
+    from repro_torch.core.contention import PiecewiseModel
+
+    pccs = PiecewiseModel(PCCS_KNOTS, PCCS_KNOTS, PCCS_TABLE)
+    out = {}
+    for path in sorted((ROOT / "tests" / "fixtures" / "plans")
+                       .glob("*.json")):
+        req = Plan.load(path).request
+        out[path.stem] = (req, pccs)
+    require(len(out) == 3 and ORIN in out, f"fixtures: {sorted(out)}")
+    return out
+
+
+def solve(sd, se, req, model, device, **knobs) -> tuple:
+    """One ``Scheduler.solve`` with the kernel counts read around it."""
+    from repro_torch.core import Scheduler
+
+    sched = Scheduler(req.platform, model=model, evaluator="torch",
+                      device=device)
+    sd.launches = se.launches = 0
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = sched.solve(list(req.graphs), req.objective,
+                       max_transitions=req.max_transitions,
+                       iterations=list(req.iterations),
+                       depends_on=list(req.depends_on), **knobs)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"piecewise_slowdown": sd.launches,
+                "anneal_select": se.launches}
+    row = dict(device=device.type, solver=plan.solver,
+               objective=plan.objective,
+               assignments=[list(a) for a in plan.assignments], wall_s=wall,
+               launches=launches)
+    if plan.solver == "anneal":
+        p = plan.solver_params
+        evaluated = p["population"] * (p["steps"] + 1)
+        row.update(device_objective=p["device_objective"], chain=p["chain"],
+                   population=p["population"], steps=p["steps"],
+                   precision=p["precision"], evaluated=evaluated,
+                   cands_per_s=evaluated / wall)
+    print(f"  {req.graphs[0].name}+.. {plan.solver} on {device.type}: "
+          f"{req.objective} {plan.objective:.12g} in {wall:.2f} s, "
+          f"launches {launches}"
+          + (f", {row['evaluated']} candidates, "
+             f"{row['cands_per_s']:.0f}/s" if "evaluated" in row else ""))
+    return plan, row
+
+
+def search(sd, se, dev) -> dict:
+    reqs = fixture_requests()
+    cpu = torch.device("cpu")
+    req, model = reqs[ORIN]
+    x64 = dict(solver="anneal", precision="x64", population=4096,
+               steps=SEARCH_STEPS, seed=0)
+    gpu_plan, gpu = solve(sd, se, req, model, dev, **x64)
+    require(gpu["launches"]["piecewise_slowdown"] > 0
+            and gpu["launches"]["anneal_select"] == SEARCH_STEPS,
+            f"search kernels did not launch: {gpu['launches']}")
+    cpu_plan, cpu_row = solve(sd, se, req, model, cpu, **x64)
+    require(cpu_row["launches"] == {"piecewise_slowdown": 0,
+                                    "anneal_select": 0},
+            "a kernel launched for CPU tensors")
+    d_gpu, d_cpu = gpu["device_objective"], cpu_row["device_objective"]
+    rel = abs(d_gpu - d_cpu) / abs(d_cpu)
+    same = gpu_plan.assignments == cpu_plan.assignments
+    print(f"  orin x64 cuda vs cpu: chain {gpu['chain']} vs "
+          f"{cpu_row['chain']}, same assignment {same}, device objective "
+          f"{d_gpu!r} vs {d_cpu!r} (rel {rel:.2e})")
+    if not same:
+        print(f"  tie: cuda {gpu['assignments']}\n       cpu  "
+              f"{cpu_row['assignments']}")
+    require(rel <= 1e-9, f"cuda and cpu incumbents differ: rel {rel}")
+    resim = abs(gpu_plan.objective - d_gpu) / abs(gpu_plan.objective)
+    print(f"  device objective vs scalar re-simulation: rel {resim:.2e}")
+    require(resim <= 1e-6, f"device objective off the scalar one: {resim}")
+
+    fixtures = {}
+    for name, (req_i, model_i) in reqs.items():
+        _, row = solve(sd, se, req_i, model_i, dev, solver="anneal",
+                       precision="x64", population=1024,
+                       steps=FIXTURE_STEPS, seed=0)
+        require(row["launches"]["anneal_select"] == FIXTURE_STEPS,
+                f"{name}: select launches {row['launches']}")
+        _, greedy = solve(sd, se, req_i, model_i, dev, solver="greedy")
+        ok = row["objective"] <= greedy["objective"] \
+            + 1e-9 * abs(greedy["objective"])
+        print(f"  {name}: anneal {row['objective']:.12g} vs greedy "
+              f"{greedy['objective']:.12g} {'ok' if ok else 'WORSE'}")
+        require(ok, f"{name}: anneal worse than greedy")
+        fixtures[name] = dict(anneal=row, greedy=greedy)
+
+    _, f32 = solve(sd, se, req, model, dev, solver="anneal",
+                   precision="float32", population=4096,
+                   steps=SEARCH_STEPS, seed=0)
+    return dict(model="PCCS 5x5 (repro/profiling/virtual.py:42-50)",
+                steps=SEARCH_STEPS, fixture_steps=FIXTURE_STEPS, orin_x64_cuda=gpu, orin_x64_cpu=cpu_row,
+                same_assignment=same, device_objective_rel=rel,
+                scalar_resim_rel=resim, fixtures=fixtures, orin_float32=f32,
+                profile=profile_search(req, model, dev))
+
+
+def profile_search(req, model, dev, steps: int = 8) -> dict:
+    """Device busy share of one short float32 solve (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import Scheduler
+
+    sched = Scheduler(req.platform, model=model, evaluator="torch",
+                      device=dev)
+    kw = dict(max_transitions=req.max_transitions,
+              iterations=list(req.iterations),
+              depends_on=list(req.depends_on), solver="anneal",
+              precision="float32", population=1024, steps=steps, seed=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.solve(list(req.graphs), req.objective, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, launches = device_ms_by_kernel(prof)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    out = {"population": 1024, "steps": steps, "precision": "float32",
+           "wall_ms": wall_ms, "device_kernels": launches}
+    if busy == 0:
+        out["device_busy_share"] = "not measured"
+    else:
+        out["device_busy_share"] = busy / wall_ms
+        out["device_ms"] = busy
+        out["top_kernels_ms"] = {k[:60]: v for k, v in top}
+        # the two hand-written search kernels' share of the device time
+        out["search_kernels_ms"] = {
+            name: sum(v for k, v in kernels.items() if name in k)
+            for name in ("slowdown_kernel", "select_kernel")}
+    print(f"  profiled one solve: {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -398,40 +713,55 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import search as se
+    from repro_torch.kernels import slowdown as sd
     from repro_torch.runtime import resolve_device
 
     dev = resolve_device("cuda")
-    print("[1/5] environment")
+    print("[1/6] environment")
     print(f"  card: {card_line()}")
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    print("[2/5] build")
+    print("[2/6] build")
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:      # one nvcc per source, at once
-        list(pool.map(_build.load, ("flash_attention", "decode_attention")))
-    print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}: both kernels built in "
-          f"{time.perf_counter() - t0:.1f} s")
+        list(pool.map(_build.load, KERNEL_SOURCES))
+    build_s = time.perf_counter() - t0
+    print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}: {len(KERNEL_SOURCES)} "
+          f"kernels built in {build_s:.1f} s")
 
-    print("[3/5] kernels vs plain versions")
+    print("[3/6] kernels vs plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
     n = flash_checks(fa, gen, dev) + decode_checks(da, gen, dev)
+    slowdown_checks(sd, gen, dev)
+    n += 6 + select_checks(se, gen, dev, L=2 * 32)
     timer = Timer(dev)
+    # the orin fixture's search: 4096 chains x 2 workloads x 32 groups
     kernels = [time_flash(fa, timer, gen, dev),
-               time_decode(da, timer, gen, dev)]
+               time_decode(da, timer, gen, dev),
+               time_slowdown(sd, timer, gen, dev, n=4096 * 2),
+               time_select(se, timer, gen, dev, P=4096, L=2 * 32)]
     for kr in kernels:
+        lib = ("none" if kr["library_ms"] is None
+               else f"{kr['library_ms']:.4f} ms")
         print(f"  {kr['name']} at {kr['shape']}: {kr['ms']:.4f} ms, plain "
-              f"{kr['plain_ms']:.4f} ms, library {kr['library_ms']:.4f} ms, "
+              f"{kr['plain_ms']:.4f} ms, library {lib}, "
               f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']})")
     print(f"  {n} comparisons passed")
 
-    print("[4/5] serve full-width stablelm-1.6b")
+    print("[4/6] serve full-width stablelm-1.6b")
     result = serve(fa, da, dev)
-    print("[5/5] float32 end to end, kernel path vs plain path")
+    print("[5/6] float32 end to end, kernel path vs plain path")
     result["e2e_f32_logits_rel_err"] = e2e_f32(dev)
+    print("[6/6] schedule search under PCCS on the golden fixtures")
+    found = search(sd, se, dev)
+    launches = dict(result["launches"], **found["orin_x64_cuda"]["launches"])
     for kr in kernels:
-        kr["launches"] = result["launches"][kr["name"]]
+        kr["launches"] = launches[kr["name"]]
+    found["build_s"] = build_s
     print(json.dumps({"serve": result}))
+    print(json.dumps({"search": found}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -50,6 +50,18 @@ def test_no_jax_or_repro_imports(path):
 MODULES = sorted(
     ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
         [str(PKG)], prefix="repro_torch.")])
+#: the subpackages each slice added; walk_packages must reach all of them
+SUBPACKAGES = ("configs", "core", "kernels", "launch", "models", "obs",
+               "serve")
+
+
+def test_module_list_covers_every_subpackage():
+    for sub in SUBPACKAGES:
+        assert f"repro_torch.{sub}" in MODULES
+    for path in SOURCES[:-1]:
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        name = ".".join(rel.parts).removesuffix(".__init__")
+        assert name in MODULES, name
 
 _PROBE = """
 import importlib, json, sys
@@ -85,10 +97,10 @@ def test_imports_without_jax_repro_triton_nvcc(blocked_imports, module):
 
 def test_kernel_sources_present():
     csrc = PKG / "kernels" / "csrc"
-    assert {p.name for p in csrc.glob("*.cu")} == {"flash_attention.cu",
-                                                  "decode_attention.cu"}
+    names = ("flash_attention", "decode_attention", "slowdown", "search")
+    assert {p.name for p in csrc.glob("*.cu")} == {f"{n}.cu" for n in names}
     from repro_torch.kernels import _build
-    for name in ("flash_attention", "decode_attention"):
+    for name in names:
         lib = _build.library_path(name)
         assert lib.parent == _build.BUILD_DIR and name in lib.name
 
