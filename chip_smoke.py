@@ -6,16 +6,20 @@ Run from the repository root (``src/`` is put on ``sys.path`` here).
 Phases, each fatal on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: all four CUDA kernels from ``src/repro_torch/kernels/csrc/`` for
+2. build: all five CUDA kernels from ``src/repro_torch/kernels/csrc/`` for
    ``sm_90a``, one ``nvcc`` per source, started together;
 3. kernels: each kernel against its plain PyTorch version on the card
    (attention: float32 at atol = rtol = 2e-5, bfloat16 at 2e-2, the
    tolerances of ``tests/test_kernels.py``; PCCS slowdown: float64 at
-   atol = rtol = 1e-12, float32 at 5e-6; annealing select: bit for bit,
-   with poisoned lanes), then timed (CUDA events, L2 flushed before each
-   call, median) beside its plain version, its roofline bound and, for
-   attention, ``F.scaled_dot_product_attention`` as the library yardstick
-   (no single PyTorch call computes the other two);
+   atol = rtol = 1e-12, float32 at 5e-6; annealing select and the
+   streaming antagonist: bit for bit, with poisoned lanes, special values
+   and offset views), then timed (CUDA events, L2 flushed before each
+   call, median) beside its plain version, its roofline bound and a
+   library yardstick where one PyTorch call computes the same function
+   (``F.scaled_dot_product_attention`` for attention, ``torch.add(y, x,
+   alpha=c)`` for the stream; none for the other two).  The stream is
+   timed at the probe's 32 MB pass and at a 1 GB pass, whose rate must
+   not exceed 105% of the card's memory rate;
 4. serve: full-width stablelm-1.6b with random weights from a seeded
    generator, 4 requests through ``ServingEngine``; every request must get
    its 16 tokens, both kernels must have launched (24 flash launches per
@@ -34,13 +38,22 @@ Phases, each fatal on failure:
    incumbent the same search gives on the CPU (where the plain versions
    run), and its device objective must match the scalar re-simulation;
    every fixture at population 1024 (128 steps) must be no worse than
-   greedy; both search kernels must have launched in each solve.
+   greedy; both search kernels must have launched in each solve;
+7. characterize: the port's profiling CLI (``repro_torch.launch.profile
+   --executor torch --arch stablelm-1.6b --fit piecewise --solve --solver
+   anneal``) measures the 8 layer groups of full-width stablelm-1.6b
+   through the flash kernel (3 x (warmup + repeats) launches in each),
+   calibrates PCCS from co-runs of the streaming antagonist (which must
+   launch in the peak measurement and at every demand level), writes a
+   bundle that must round-trip, and solves from it; then
+   ``Scheduler.from_bundle(bundle, evaluator="torch")`` must solve on the
+   card through both search kernels, no worse than greedy.
 
 The last line is the contract line ``{"ok": true, "device": {...}}``;
-before it come the ``{"serve": ...}`` and ``{"search": ...}`` lines, one
-``{"kernels": [...]}`` line and the card's ``nvidia-smi`` name and power
-limit.  Without a CUDA device the script exits non-zero before printing
-any result.
+before it come the ``{"serve": ...}``, ``{"search": ...}`` and
+``{"characterize": ...}`` lines, one ``{"kernels": [...]}`` line and the
+card's ``nvidia-smi`` name and power limit.  Without a CUDA device the
+script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -48,6 +61,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -58,6 +72,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bytes/s
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -65,7 +80,15 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
 #: float32; float64 differs only in summation order)
 SLOWDOWN_TOL = {torch.float64: 1e-12, torch.float32: 5e-6}
 KERNEL_SOURCES = ("flash_attention", "decode_attention", "slowdown",
-                  "search")
+                  "search", "stream")
+#: stream kernel checks: lengths, the last a 1 GB operand
+STREAM_NS = (1, 3, 4097, (1 << 20) + 3, 1 << 28)
+#: the probe's peak pass (repro/profiling/probes.py:95) and a pass larger
+#: than the 50 MB L2
+STREAM_TIMED_MB = (32.0, 1000.0)
+#: the antagonist's and the co-run target's pass (probes.py:121), checked
+#: bitwise with the timed passes
+STREAM_CORUN_MB = 8.0
 E2E_REL_TOL = 2e-2
 E2E_F32_REL_TOL = 1e-4
 PROMPT_LENS = (8, 100, 513, 1000)
@@ -115,8 +138,9 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float,
+          peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -310,6 +334,13 @@ def bit_equal(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+def max_abs_diff(got, want) -> float:
+    """Largest |got - want|, counting equal values (equal infinities, NaN
+    against NaN) as no difference."""
+    same = (got == want) | (got.isnan() & want.isnan())
+    return float(torch.where(same, 0.0, (got - want).abs()).max())
+
+
 def select_checks(se, gen, dev, L: int) -> int:
     n = 0
     for dtype in (torch.float64, torch.float32):
@@ -370,6 +401,90 @@ def time_select(se, timer, gen, dev, P, L) -> dict:
         ms=timer(lambda: se.anneal_select(*args, 0.37)),
         plain_ms=timer(lambda: se.anneal_select_torch(*args, 0.37)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def stream_operands(n, gen, dev):
+    """Signed float32 values over twelve decades; the first ten slots of x
+    and y hold +-0, subnormals, +-inf, NaN and values near the largest."""
+    x, y = (torch.randn(n, generator=gen, device=dev)
+            * 10.0 ** torch.randint(-6, 7, (n,), generator=gen, device=dev)
+            for _ in range(2))
+    specials = torch.tensor([0.0, -0.0, 1e-40, -1e-40, 1e-45, float("inf"),
+                             -float("inf"), float("nan"), 3.4e38, -3.4e38],
+                            device=dev)
+    k = min(n, specials.numel())
+    x[:k] = specials[:k]
+    y[:k] = specials.flip(0)[:k]
+    return x, y
+
+
+def stream_checks(st, gen, dev) -> int:
+    """The stream kernel equals its plain version bit for bit: aligned,
+    at a 4-byte offset (x[1:], y[1:]: the float4 path after a scalar
+    head), and with x and y at different offsets (the scalar path)."""
+    n_checks = 0
+    for n in STREAM_NS:
+        x, y = stream_operands(n + 2, gen, dev)
+        cases = [("aligned", x[:n], y[:n]), ("offset 1", x[1:n + 1],
+                                             y[1:n + 1])]
+        if n == STREAM_NS[2]:
+            cases.append(("offsets 1/2", x[1:n + 1], y[2:n + 2]))
+        for label, a, b in cases:
+            got = st.stream(a, b)
+            want = st.stream_torch(a, b)
+            torch.cuda.synchronize()
+            same = bit_equal(got, want)
+            print(f"  stream N={n} {label}: bitwise "
+                  f"{'equal' if same else 'DIFFERENT'}")
+            require(same, "stream: kernel differs from its plain version")
+            n_checks += 1
+        del x, y, got, want
+        torch.cuda.empty_cache()
+    return n_checks
+
+
+def time_stream(st, probes, timer, dev) -> dict:
+    """Probe shapes: the 32 MB peak pass of the main path, and a 1 GB pass
+    (past the L2), through the probe's own buffers."""
+    x, y = probes.make_buffers(STREAM_CORUN_MB, device=dev)
+    same = bit_equal(st.stream(x, y), st.stream_torch(x, y))
+    print(f"  stream N={x.numel()} ({STREAM_CORUN_MB:g} MB co-run pass): "
+          f"bitwise {'equal' if same else 'DIFFERENT'}")
+    require(same, "stream: kernel differs from its plain version at the "
+            "co-run pass")
+    rows = {}
+    for mb in STREAM_TIMED_MB:
+        x, y = probes.make_buffers(mb, device=dev)
+        n = x.numel()
+        want = st.stream_torch(x, y)
+        got = st.stream(x, y)
+        require(bit_equal(got, want),
+                f"stream {mb} MB: kernel differs from its plain version")
+        err = max_abs_diff(got, want)
+        lib_err = max_abs_diff(torch.add(y, x, alpha=st.SCALE), want)
+        b_ms, b_by = bound(2.0 * n, 3 * n * 4, PEAK_F32_FLOPS)
+        ms = timer(lambda: st.stream(x, y))
+        rows[mb] = dict(
+            shape=f"N={n} float32 ({mb:g} MB pass)", max_abs_err=err, ms=ms,
+            plain_ms=timer(lambda: st.stream_torch(x, y)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=timer(lambda: torch.add(y, x, alpha=st.SCALE)),
+            library_max_abs_err=lib_err,
+            bytes_per_s=3 * n * 4 / (ms * 1e-3))
+        del x, y, got, want
+    big = rows[STREAM_TIMED_MB[1]]
+    print(f"  stream at {big['shape']}: {big['ms']:.4f} ms = "
+          f"{big['bytes_per_s'] / 1e9:.1f} GB/s (bound {PEAK_BYTES / 1e9:g}"
+          f" GB/s), plain {big['plain_ms']:.4f} ms, library "
+          f"{big['library_ms']:.4f} ms (max abs diff "
+          f"{big['library_max_abs_err']:.3e})")
+    require(big["bytes_per_s"] <= 1.05 * PEAK_BYTES,
+            f"stream reads {big['bytes_per_s'] / 1e9:.1f} GB/s, above 105% "
+            f"of {PEAK_BYTES / 1e9:g} GB/s: a timing fault")
+    return dict(name="stream", route="cuda",
+                source="src/repro_torch/kernels/csrc/stream.cu",
+                replaces="src/repro/profiling/probes.py:51",
+                **rows[STREAM_TIMED_MB[0]], at_1GB=big)
 
 
 # ---------------------------------------------------------------------------
@@ -706,6 +821,137 @@ def profile_search(req, model, dev, steps: int = 8) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# characterize
+# ---------------------------------------------------------------------------
+def characterize(fa, da, sd, se, st) -> dict:
+    """The port's profiling CLI on full-width stablelm-1.6b, then a solve
+    from its bundle through ``Scheduler.from_bundle``."""
+    from repro_torch.core import Scheduler
+    from repro_torch.launch.profile import main as profile_main
+    from repro_torch.profiling import ProfileBundle, harness
+
+    # the flash count where each group's runner is made: the CLI drives
+    # the groups one after another, so the differences are per group
+    marks = []
+    make_runner = harness._group_runner
+
+    def marked_runner(*args, **kwargs):
+        marks.append(fa.launches)
+        return make_runner(*args, **kwargs)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "stablelm-1.6b.json"
+        argv = ["--executor", "torch", "--arch", "stablelm-1.6b", "--fit",
+                "piecewise", "--solve", "--solver", "anneal", "--out",
+                str(path)]
+        print(f"  python -m repro_torch.launch.profile {' '.join(argv)}")
+        harness._group_runner = marked_runner
+        fa.launches = da.launches = sd.launches = se.launches = 0
+        st.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            rc = profile_main(argv)
+        finally:
+            harness._group_runner = make_runner
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"flash_attention": fa.launches,
+                    "decode_attention": da.launches,
+                    "piecewise_slowdown": sd.launches,
+                    "anneal_select": se.launches, "stream": st.launches}
+        require(rc == 0, f"profile CLI exited {rc}")
+        bundle = ProfileBundle.load(path)
+    prov = bundle.provenance
+    calls = prov["timer"]["warmup"] + prov["timer"]["repeats"]
+    per_group = [b - a for a, b in zip(marks, marks[1:] + [fa.launches])]
+    for g, n in zip(prov["groups"], per_group):
+        print(f"  {g['name']}: {g['median_ms']:.4f} ms (n={g['n_kept']}/"
+              f"{g['n_total']}, std {g['std_ms']:.4f}), {n} flash launches")
+    print(f"  probe peak {prov['peak_stream_bytes_per_s'] / 1e9:.2f} GB/s "
+          f"(32 MB pass); target pass {prov['stream_base_ms']:.4f} ms")
+    for c in prov["corun"]:
+        print(f"  demand {c['ext']:g}: co-run {c['co_ms']:.4f} ms, ratio "
+              f"{c['ratio']:.4f}, slowdown {c['slowdown']:.4f}, "
+              f"antagonist {c['probe_passes']} passes x "
+              f"{c['probe_bytes_per_pass'] / 1e6:.1f} MB in "
+              f"{c['probe_s']:.3f} s = {c['probe_bytes_per_s'] / 1e9:.2f} "
+              f"GB/s")
+    fit = prov["fit"]
+    print(f"  fit {type(bundle.model).__name__}: rmse {fit['rmse']:.4f}, "
+          f"max_rel {fit['max_rel_err']:.2%}, {fit['steps']} Adam steps; "
+          f"bundle {bundle.bundle_hash()}; launches {launches}; "
+          f"{wall:.1f} s")
+    layers = 3                          # per group: 24 layers in 8 groups
+    require(len(bundle.graphs) == 1 and len(bundle.graphs[0]) == 8
+            and len(per_group) == 8,
+            f"expected 8 measured groups, got {per_group}")
+    require(all(n == layers * calls for n in per_group),
+            f"flash launches per group {per_group} != {layers} x {calls}")
+    stream_calls = 2 * calls + sum(calls + c["probe_passes"]
+                                   for c in prov["corun"])
+    require(all(c["probe_passes"] > 0 for c in prov["corun"]),
+            "the antagonist made no pass at some demand level")
+    require(launches["stream"] == stream_calls,
+            f"stream launches {launches['stream']} != {stream_calls} "
+            f"(peak and target {calls} each, plus each level's target "
+            f"calls and antagonist passes)")
+    require(launches["piecewise_slowdown"] > 0
+            and launches["anneal_select"] > 0,
+            f"the CLI's anneal solve launched no search kernel: {launches}")
+    again = ProfileBundle.from_json(bundle.to_json())
+    require(again.bundle_hash() == bundle.bundle_hash(),
+            "bundle did not round-trip")
+    # each sample is its level's measured co-run over the standalone pass,
+    # floored at 1 (a co-run read faster than standalone is noise)
+    want = [(c["ext"], max(1.0, c["co_ms"] / prov["stream_base_ms"]))
+            for c in prov["corun"]]
+    require(len(bundle.samples) == len(want) and all(
+        s[1] == e and s[2] == w >= 1.0
+        for s, (e, w) in zip(bundle.samples, want)),
+        f"co-run samples {bundle.samples} are not the measured slowdowns "
+        f"{want}")
+    print(f"  fit warning: {prov['fit_warning']}")
+
+    sched = Scheduler.from_bundle(bundle, evaluator="torch")
+    require(sched.device.type == "cuda", f"solved on {sched.device}")
+    sd.launches = se.launches = 0
+    steps = 64
+    t0 = time.perf_counter()
+    plan = sched.solve(list(bundle.graphs), "latency", solver="anneal",
+                       max_transitions=2, population=1024, steps=steps,
+                       seed=0)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    search_launches = {"piecewise_slowdown": sd.launches,
+                       "anneal_select": se.launches}
+    greedy = sched.solve(list(bundle.graphs), "latency", solver="greedy",
+                         max_transitions=2)
+    print(f"  from_bundle(evaluator='torch') on cuda: {plan.summary()}")
+    print(f"  anneal {plan.objective!r} in {solve_s:.2f} s (launches "
+          f"{search_launches}) vs greedy {greedy.objective!r}")
+    require(search_launches["piecewise_slowdown"] > 0
+            and search_launches["anneal_select"] == steps,
+            f"search kernels did not launch: {search_launches}")
+    require(plan.objective <= greedy.objective
+            + 1e-9 * abs(greedy.objective), "anneal worse than greedy")
+    return dict(argv=argv, wall_s=wall, launches=launches,
+                flash_per_group=per_group, groups=prov["groups"],
+                peak_stream_bytes_per_s=prov["peak_stream_bytes_per_s"],
+                stream_base_ms=prov["stream_base_ms"], corun=prov["corun"],
+                samples=[list(x) for x in bundle.samples], fit=fit,
+                model=type(bundle.model).__name__,
+                bundle_hash=bundle.bundle_hash(),
+                search_cands_per_s=prov.get("search_cands_per_s"),
+                device=prov.get("device"),
+                from_bundle=dict(objective=plan.objective,
+                                 assignments=[list(a) for a in
+                                              plan.assignments],
+                                 solve_s=solve_s, launches=search_launches,
+                                 greedy_objective=greedy.objective))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -715,15 +961,17 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import search as se
     from repro_torch.kernels import slowdown as sd
+    from repro_torch.kernels import stream as st
+    from repro_torch.profiling import probes
     from repro_torch.runtime import resolve_device
 
     dev = resolve_device("cuda")
-    print("[1/6] environment")
+    print("[1/7] environment")
     print(f"  card: {card_line()}")
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    print("[2/6] build")
+    print("[2/7] build")
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:      # one nvcc per source, at once
         list(pool.map(_build.load, KERNEL_SOURCES))
@@ -731,17 +979,19 @@ def main() -> int:
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}: {len(KERNEL_SOURCES)} "
           f"kernels built in {build_s:.1f} s")
 
-    print("[3/6] kernels vs plain versions")
+    print("[3/7] kernels vs plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
     n = flash_checks(fa, gen, dev) + decode_checks(da, gen, dev)
     slowdown_checks(sd, gen, dev)
     n += 6 + select_checks(se, gen, dev, L=2 * 32)
+    n += stream_checks(st, gen, dev)
     timer = Timer(dev)
     # the orin fixture's search: 4096 chains x 2 workloads x 32 groups
     kernels = [time_flash(fa, timer, gen, dev),
                time_decode(da, timer, gen, dev),
                time_slowdown(sd, timer, gen, dev, n=4096 * 2),
-               time_select(se, timer, gen, dev, P=4096, L=2 * 32)]
+               time_select(se, timer, gen, dev, P=4096, L=2 * 32),
+               time_stream(st, probes, timer, dev)]
     for kr in kernels:
         lib = ("none" if kr["library_ms"] is None
                else f"{kr['library_ms']:.4f} ms")
@@ -750,18 +1000,25 @@ def main() -> int:
               f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']})")
     print(f"  {n} comparisons passed")
 
-    print("[4/6] serve full-width stablelm-1.6b")
+    print("[4/7] serve full-width stablelm-1.6b")
     result = serve(fa, da, dev)
-    print("[5/6] float32 end to end, kernel path vs plain path")
+    print("[5/7] float32 end to end, kernel path vs plain path")
     result["e2e_f32_logits_rel_err"] = e2e_f32(dev)
-    print("[6/6] schedule search under PCCS on the golden fixtures")
+    print("[6/7] schedule search under PCCS on the golden fixtures")
     found = search(sd, se, dev)
-    launches = dict(result["launches"], **found["orin_x64_cuda"]["launches"])
+    print("[7/7] characterize full-width stablelm-1.6b, calibrate, solve")
+    t0 = time.perf_counter()
+    measured = characterize(fa, da, sd, se, st)
+    measured["phase_s"] = time.perf_counter() - t0
+    print(f"  characterize phase {measured['phase_s']:.1f} s")
+    launches = dict(result["launches"], **found["orin_x64_cuda"]["launches"],
+                    stream=measured["launches"]["stream"])
     for kr in kernels:
         kr["launches"] = launches[kr["name"]]
     found["build_s"] = build_s
     print(json.dumps({"serve": result}))
     print(json.dumps({"search": found}))
+    print(json.dumps({"characterize": measured}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -115,14 +115,13 @@ class Scheduler:
 
     @classmethod
     def from_bundle(cls, bundle, **kwargs) -> "Scheduler":
-        """Scheduler solving from a measured :class:`~repro.profiling.
+        """Scheduler solving from a measured :class:`~repro_torch.profiling.
         ProfileBundle` (or a path to one): the bundle's platform plus its
         calibrated contention model.  Schedule the bundle's measured
-        graphs by passing them to :meth:`solve`."""
-        # repro_torch has no profiling package yet
-        raise NotImplementedError(
-            "Scheduler.from_bundle is not ported yet: profiling bundles "
-            "come with ROADMAP queue 1 'Characterization'")
+        graphs by passing them to :meth:`solve`.  ``evaluator`` and
+        ``device`` pass through ``kwargs``."""
+        from ..profiling.bundle import scheduler_from_bundle
+        return scheduler_from_bundle(bundle, **kwargs)
 
     # ------------------------------------------------------------------
     def graphs(self, dnns: Sequence[str | DNNGraph]) -> list[DNNGraph]:

@@ -1,11 +1,13 @@
-"""repro_torch.obs — zero-dependency observability: traces and metrics
-(copy of ``repro/obs/__init__.py``; the timeline module is not ported).
+"""repro_torch.obs — zero-dependency observability: traces, metrics,
+timelines (copy of ``repro/obs/__init__.py``).
 
 * :mod:`repro_torch.obs.trace` — span tracer with Chrome-trace/Perfetto
   export; clock-injectable so virtual-clock replays are byte-stable.
 * :mod:`repro_torch.obs.metrics` — counters/gauges/histograms registry
   with JSON snapshots and Prometheus text exposition; home of the
   canonical serving metric schemas.
+* :mod:`repro_torch.obs.timeline` — recorded Plan/simulation timelines
+  as per-accelerator Gantt charts (Perfetto JSON + ASCII).
 
 This module additionally owns the logger hierarchy: every module under
 ``src/repro_torch/`` obtains its logger via :func:`get_logger`, which pins

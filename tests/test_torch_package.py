@@ -52,7 +52,7 @@ MODULES = sorted(
         [str(PKG)], prefix="repro_torch.")])
 #: the subpackages each slice added; walk_packages must reach all of them
 SUBPACKAGES = ("configs", "core", "kernels", "launch", "models", "obs",
-               "serve")
+               "profiling", "serve")
 
 
 def test_module_list_covers_every_subpackage():
@@ -97,7 +97,8 @@ def test_imports_without_jax_repro_triton_nvcc(blocked_imports, module):
 
 def test_kernel_sources_present():
     csrc = PKG / "kernels" / "csrc"
-    names = ("flash_attention", "decode_attention", "slowdown", "search")
+    names = ("flash_attention", "decode_attention", "slowdown", "search",
+             "stream")
     assert {p.name for p in csrc.glob("*.cu")} == {f"{n}.cu" for n in names}
     from repro_torch.kernels import _build
     for name in names:
