@@ -6,18 +6,22 @@ Run from the repository root (``src/`` is put on ``sys.path`` here).
 Phases, each fatal on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: all five CUDA kernels from ``src/repro_torch/kernels/csrc/`` for
-   ``sm_90a``, one ``nvcc`` per source, started together;
+2. build: all seven CUDA kernels from ``src/repro_torch/kernels/csrc/``
+   for ``sm_90a``, one ``nvcc`` per source, started together;
 3. kernels: each kernel against its plain PyTorch version on the card
    (attention: float32 at atol = rtol = 2e-5, bfloat16 at 2e-2, the
    tolerances of ``tests/test_kernels.py``; PCCS slowdown: float64 at
    atol = rtol = 1e-12, float32 at 5e-6; annealing select and the
    streaming antagonist: bit for bit, with poisoned lanes, special values
-   and offset views), then timed (CUDA events, L2 flushed before each
+   and offset views; the RG-LRU scan at the attention tolerances and the
+   RWKV-6 scan at ``tests/test_kernels.py``'s 1e-4 / 5e-2, each with and
+   without its initial state, at lengths 1, odd and full width, and cut
+   in two with the state carried; attention also at recurrentgemma-9b's
+   head size 256), then timed (CUDA events, L2 flushed before each
    call, median) beside its plain version, its roofline bound and a
    library yardstick where one PyTorch call computes the same function
    (``F.scaled_dot_product_attention`` for attention, ``torch.add(y, x,
-   alpha=c)`` for the stream; none for the other two).  The stream is
+   alpha=c)`` for the stream; none for the other four).  The stream is
    timed at the probe's 32 MB pass and at a 1 GB pass, whose rate must
    not exceed 105% of the card's memory rate;
 4. serve: full-width stablelm-1.6b with random weights from a seeded
@@ -47,16 +51,30 @@ Phases, each fatal on failure:
    launch in the peak measurement and at every demand level), writes a
    bundle that must round-trip, and solves from it; then
    ``Scheduler.from_bundle(bundle, evaluator="torch")`` must solve on the
-   card through both search kernels, no worse than greedy.
+   card through both search kernels, no worse than greedy;
+8. serve the recurrent families: full-width rwkv6-7b (4 prompts) and
+   recurrentgemma-9b (5, one of 2300 tokens past its 2048 window), seeded
+   random weights with the PERTURBED parameters filled, through
+   ``ServingEngine``; every request gets its 16 tokens, every kernel of
+   the path launches exactly layers x prefills or steps times, each
+   prompt's prefill through the kernels matches the plain path (same
+   argmax; relative logits error within the limit FLOOR_MARGIN explains),
+   and zeroing the RG-LRU scan's output on the plain path must move
+   recurrentgemma-9b's logits by FAULT_MIN_REL or more;
+9. float32 end to end on both recurrent models: kernel path against plain
+   path, and prefill(n) plus one decode step against prefill(n + 1), each
+   within E2E_F32_REL_TOL with the same argmax.
 
-The last line is the contract line ``{"ok": true, "device": {...}}``;
-before it come the ``{"serve": ...}``, ``{"search": ...}`` and
-``{"characterize": ...}`` lines, one ``{"kernels": [...]}`` line and the
-card's ``nvidia-smi`` name and power limit.  Without a CUDA device the
+Each phase prints its seconds.  The last line is the contract line
+``{"ok": true, "device": {...}}``; before it come the ``{"phase_s": ...}``,
+``{"serve": ...}``, ``{"search": ...}``, ``{"characterize": ...}`` and
+``{"serve_recurrent": ...}`` lines, one ``{"kernels": [...]}`` line and
+the card's ``nvidia-smi`` name and power limit.  Without a CUDA device the
 script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -80,7 +98,10 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
 #: float32; float64 differs only in summation order)
 SLOWDOWN_TOL = {torch.float64: 1e-12, torch.float32: 5e-6}
 KERNEL_SOURCES = ("flash_attention", "decode_attention", "slowdown",
-                  "search", "stream")
+                  "search", "stream", "rglru", "rwkv6")
+#: RWKV-6 kernel vs plain version: tests/test_kernels.py:136-140
+RWKV_TOL = {torch.float32: dict(atol=1e-4, rtol=5e-2),
+            torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
 #: stream kernel checks: lengths, the last a 1 GB operand
 STREAM_NS = (1, 3, 4097, (1 << 20) + 3, 1 << 28)
 #: the probe's peak pass (repro/profiling/probes.py:95) and a pass larger
@@ -93,6 +114,28 @@ E2E_REL_TOL = 2e-2
 E2E_F32_REL_TOL = 1e-4
 PROMPT_LENS = (8, 100, 513, 1000)
 MAX_NEW = 16
+#: recurrentgemma-9b also serves a prompt past its 2048-token window, so
+#: the window mask and the ring cache both run
+RG_PROMPT_LENS = PROMPT_LENS + (2300,)
+RG_CAPACITY = 2400
+#: the recurrent parameters init leaves at zero (so every RG-LRU layer
+#: passes its input through and RWKV-6's decay is one constant) get
+#: seeded values drawn as the reference's dense_init draws a tensor of
+#: that shape, N(0, 1 / fan_in) with fan_in its first axis, as the CPU
+#: tests give them
+PERTURBED = ("conv_w", "conv_b", "u", "w_lora_b")
+#: the bf16 kernel-vs-plain logits limit of a recurrent model's prefill is
+#: E2E_REL_TOL, or, on a prompt where two correct implementations (the
+#: oracle path and the plain path) already differ by more, FLOOR_MARGIN
+#: times their difference: once two bf16 paths differ in one bit, every
+#: later rounding of the residual stream differs, and at recurrentgemma-
+#: 9b's 38 layers that alone separates them by 2.3-3.8e-2 (with or without
+#: the perturbed parameters).  The float32 phase (E2E_F32_REL_TOL) is the
+#: check that tells a kernel fault from rounding.
+FLOOR_MARGIN = 1.25
+#: the planted fault (RG-LRU scan output zeroed on the plain path) must
+#: move the logits by at least this much
+FAULT_MIN_REL = 10 * 2e-2
 
 
 def require(cond: bool, msg: str) -> None:
@@ -148,15 +191,15 @@ def bound(flops: float, nbytes: float,
 # ---------------------------------------------------------------------------
 # kernels vs plain versions
 # ---------------------------------------------------------------------------
-def compare(name, got, want, dtype) -> float:
-    tol = TOL[dtype]
+def compare(name, got, want, dtype, tol=None) -> float:
+    tol = tol or TOL[dtype]
     g, w = got.float(), want.float()
     require(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
     err = (g - w).abs()
     ok = bool((err <= tol["atol"] + tol["rtol"] * w.abs()).all())
     mae = float(err.max())
-    print(f"  {name}: max_abs_err={mae:.3e} "
-          f"(atol=rtol={tol['atol']:g}) {'ok' if ok else 'FAIL'}")
+    print(f"  {name}: max_abs_err={mae:.3e} (atol={tol['atol']:g}, "
+          f"rtol={tol['rtol']:g}) {'ok' if ok else 'FAIL'}")
     require(ok, f"{name}: kernel disagrees with its plain version")
     return mae
 
@@ -169,7 +212,12 @@ def flash_checks(fa, gen, dev) -> int:
     cases += [(1, 100, 513, 32, 32, 64, True, None),     # Sq < Skv offset
               (1, 513, 513, 24, 8, 128, True, None),     # GQA, D = 128
               (2, 300, 300, 8, 2, 64, True, 100),        # local window
-              (1, 513, 513, 32, 32, 64, False, None)]    # bidirectional
+              (1, 513, 513, 32, 32, 64, False, None),    # bidirectional
+              # recurrentgemma-9b's local layers: MQA, D = 256, past the
+              # 2048 window, and an odd size
+              (1, 2300, 2300, 16, 1, 256, True, None),
+              (1, 2300, 2300, 16, 1, 256, True, 2048),
+              (2, 77, 77, 16, 1, 256, True, 48)]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for B, Sq, Skv, Hq, Hkv, D, causal, window in cases:
@@ -188,7 +236,9 @@ def flash_checks(fa, gen, dev) -> int:
 
 def decode_checks(da, gen, dev) -> int:
     cases = [(4, 2048, 32, 32, 64, (9, 200, 514, 2047)),
-             (4, 2048, 24, 8, 128, (0, 1, 513, 2048))]
+             (4, 2048, 24, 8, 128, (0, 1, 513, 2048)),
+             # recurrentgemma-9b's ring cache: lengths past the window
+             (4, 2048, 16, 1, 256, (9, 2048, 2301, 4000))]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, Hq, Hkv, D, lens in cases:
@@ -205,60 +255,242 @@ def decode_checks(da, gen, dev) -> int:
     return n
 
 
-def time_flash(fa, timer, gen, dev) -> dict:
-    """Slice shape: one 1024-token causal prefill, 32 heads of 64, bf16."""
-    B, S, H, D = 1, 1024, 32, 64
-    q, k, v = (torch.randn(B, S, H, D, generator=gen, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
-    err = compare("flash timed shape", fa.flash_attention(q, k, v),
-                  fa.attention_torch(q, k, v), torch.bfloat16)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    pairs = S * (S + 1) // 2                           # live (q, k) pairs
-    flops = 4 * B * H * D * pairs
-    nbytes = 4 * B * S * H * D * 2                 # q, k, v read; o written
+def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window) -> dict:
+    """Time one causal bf16 prefill's attention, beside its plain version,
+    its bound and ``F.scaled_dot_product_attention`` (GQA expanded)."""
+    q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    err = compare(f"flash timed shape D{D}",
+                  fa.flash_attention(q, k, v, window=window),
+                  fa.attention_torch(q, k, v, window=window), torch.bfloat16)
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+              for x in (k, v))
+    w = S if window is None else window
+    pairs = sum(min(i + 1, w) for i in range(S))        # live (q, k) pairs
+    flops = 4 * B * Hq * D * pairs
+    nbytes = 2 * B * S * (Hq + Hkv) * D * 2        # q, k, v read; o written
     b_ms, b_by = bound(flops, nbytes)
+    if window is None:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    else:
+        pos = torch.arange(S, device=dev)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    return dict(
+        shape=f"B{B} S{S} H{Hq}/{Hkv} D{D} bf16 causal"
+              + ("" if window is None else f" window {window}"),
+        max_abs_err=err,
+        ms=timer(lambda: fa.flash_attention(q, k, v, window=window)),
+        plain_ms=timer(lambda: fa.attention_torch(q, k, v, window=window)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=timer(library))
+
+
+def time_flash(fa, timer, gen, dev) -> dict:
+    """Slice shapes: one 1024-token causal prefill, 32 heads of 64, bf16;
+    and recurrentgemma-9b's local layer at its 2300-token prompt (16 query
+    heads and one kv head of 256, window 2048)."""
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:113",
-        shape=f"B{B} S{S} H{H}/{H} D{D} bf16 causal",
-        max_abs_err=err,
-        ms=timer(lambda: fa.flash_attention(q, k, v, causal=True)),
-        plain_ms=timer(lambda: fa.attention_torch(q, k, v, causal=True)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=timer(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)))
+        **flash_timing(fa, timer, gen, dev, 1, 1024, 32, 32, 64, None),
+        at_d256=flash_timing(fa, timer, gen, dev, 1, 2300, 16, 1, 256, 2048))
 
 
-def time_decode(da, timer, gen, dev) -> dict:
-    """Slice shape: 4 sequences over a 2048-slot cache, 32 heads of 64,
-    bf16, lengths {9, 200, 514, 2047}."""
-    B, S, H, D = 4, 2048, 32, 64
-    lens = (9, 200, 514, 2047)
-    q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn(B, S, H, D, generator=gen, device=dev)
+def decode_timing(da, timer, gen, dev, B, S, Hq, Hkv, D, lens) -> dict:
+    """Time one bf16 decode step's attention over a cache of S slots."""
+    q = torch.randn(B, 1, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
             .to(torch.bfloat16) for _ in range(2))
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    err = compare("decode timed shape", da.decode_attention(q, k, v, lengths),
+    err = compare(f"decode timed shape D{D}",
+                  da.decode_attention(q, k, v, lengths),
                   da.decode_attention_torch(q, k, v, lengths), torch.bfloat16)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+              for x in (k, v))
     mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])
     mask = mask[:, None, None, :]
-    live = sum(lens)
-    flops = 4 * H * D * live
-    nbytes = 2 * live * H * D * 2 + 2 * B * H * D * 2 + B * 4
+    live = sum(min(n, S) for n in lens)
+    flops = 4 * Hq * D * live
+    nbytes = 2 * live * Hkv * D * 2 + 2 * B * Hq * D * 2 + B * 4
     b_ms, b_by = bound(flops, nbytes)
     return dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:72",
-        shape=f"B{B} S{S} H{H}/{H} D{D} bf16 lengths={list(lens)}",
+        shape=f"B{B} S{S} H{Hq}/{Hkv} D{D} bf16 lengths={list(lens)}",
         max_abs_err=err,
         ms=timer(lambda: da.decode_attention(q, k, v, lengths)),
         plain_ms=timer(lambda: da.decode_attention_torch(q, k, v, lengths)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask)))
+
+
+def time_decode(da, timer, gen, dev) -> dict:
+    """Slice shapes: 4 sequences over a 2048-slot cache, 32 heads of 64,
+    bf16, lengths {9, 200, 514, 2047}; and recurrentgemma-9b's local
+    layer, 16 query heads over one kv head of 256 in its 2048-slot ring,
+    one sequence past the window."""
+    return dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:72",
+        **decode_timing(da, timer, gen, dev, 4, 2048, 32, 32, 64,
+                        (9, 200, 514, 2047)),
+        at_d256=decode_timing(da, timer, gen, dev, 4, 2048, 16, 1, 256,
+                              (9, 200, 514, 2048)))
+
+
+# ---------------------------------------------------------------------------
+# recurrent scans vs plain versions
+# ---------------------------------------------------------------------------
+def scan_inputs(B, S, D, dtype, gen, dev):
+    a = torch.sigmoid(torch.randn(B, S, D, generator=gen, device=dev))
+    b = torch.randn(B, S, D, generator=gen, device=dev)
+    h0 = torch.randn(B, D, generator=gen, device=dev)
+    return a.to(dtype), b.to(dtype), h0
+
+
+def scan_checks(rg, gen, dev) -> int:
+    """The RG-LRU kernel against its plain version: S of 1 (decode), an
+    odd size, the full-width prefill shapes; with and without h0; h_last
+    float32; a scan cut in two with the carry passed on equals one pass."""
+    cases = [(4, 1, 4096), (3, 33, 128), (2, 17, 4099), (1, 1000, 4096),
+             (1, 2300, 4096)]
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, D in cases:
+            a, b, h0 = scan_inputs(B, S, D, dtype, gen, dev)
+            for init in (None, h0):
+                got = rg.rglru_scan(a, b, init)
+                want = rg.linear_scan_torch(a, b, init)
+                torch.cuda.synchronize()
+                require(got[0].dtype == dtype
+                        and got[1].dtype == torch.float32,
+                        f"rglru dtypes {got[0].dtype}/{got[1].dtype}")
+                label = (f"rglru {str(dtype)[6:]} B{B} S{S} D{D} "
+                         f"h0={'yes' if init is not None else 'no'}")
+                compare(label, got[0], want[0], dtype)
+                compare(label + " h_last", got[1], want[1], dtype)
+                n += 2
+        a, b, h0 = scan_inputs(1, 1000, 4096, dtype, gen, dev)
+        cut = 377
+        full, last = rg.rglru_scan(a, b, h0)
+        h1_all, h1 = rg.rglru_scan(a[:, :cut].contiguous(),
+                                   b[:, :cut].contiguous(), h0)
+        h2_all, h2 = rg.rglru_scan(a[:, cut:].contiguous(),
+                                   b[:, cut:].contiguous(), h1)
+        torch.cuda.synchronize()
+        compare(f"rglru {str(dtype)[6:]} chunked carry h_all",
+                torch.cat([h1_all, h2_all], dim=1), full, dtype)
+        compare(f"rglru {str(dtype)[6:]} chunked carry h_last", h2, last,
+                dtype)
+        n += 2
+    return n
+
+
+def rwkv_inputs(B, T, H, D, Dv, dtype, gen, dev):
+    """tests/test_kernels.py:129-137's distributions."""
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    r = normal(B, T, H, D).to(dtype)
+    k = (normal(B, T, H, D) * 0.3).to(dtype)
+    v = normal(B, T, H, Dv).to(dtype)
+    w = torch.sigmoid(normal(B, T, H, D) + 2.0).to(dtype)
+    u = (normal(H, D) * 0.3).to(dtype)
+    s0 = normal(B, H, D, Dv) * 0.1
+    return r, k, v, w, u, s0
+
+
+def rwkv_checks(rk, gen, dev) -> int:
+    """The RWKV-6 kernel against its plain version: T of 1 (decode), odd
+    sizes, the full-width prefill shape; with and without state0; a scan
+    cut in two with the state passed on equals one pass."""
+    cases = [(4, 1, 64, 64, 64), (2, 17, 4, 32, 32), (1, 33, 3, 16, 40),
+             (1, 64, 1, 64, 64), (1, 1000, 64, 64, 64)]
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = RWKV_TOL[dtype]
+        for B, T, H, D, Dv in cases:
+            r, k, v, w, u, s0 = rwkv_inputs(B, T, H, D, Dv, dtype, gen, dev)
+            for init in (None, s0):
+                got = rk.rwkv6_scan(r, k, v, w, u, init)
+                want = rk.rwkv6_torch(r, k, v, w, u, init)
+                torch.cuda.synchronize()
+                require(got[0].dtype == dtype
+                        and got[1].dtype == torch.float32,
+                        f"rwkv6 dtypes {got[0].dtype}/{got[1].dtype}")
+                label = (f"rwkv6 {str(dtype)[6:]} B{B} T{T} H{H} D{D} "
+                         f"Dv{Dv} state0={'yes' if init is not None else 'no'}")
+                compare(label + " y", got[0], want[0], dtype, tol)
+                compare(label + " state", got[1], want[1], dtype, tol)
+                n += 2
+        r, k, v, w, u, s0 = rwkv_inputs(1, 1000, 64, 64, 64, dtype, gen, dev)
+        cut = 377
+        y, state = rk.rwkv6_scan(r, k, v, w, u, s0)
+        first = [x[:, :cut].contiguous() for x in (r, k, v, w)]
+        rest = [x[:, cut:].contiguous() for x in (r, k, v, w)]
+        y1, s1 = rk.rwkv6_scan(*first, u, s0)
+        y2, s2 = rk.rwkv6_scan(*rest, u, s1)
+        torch.cuda.synchronize()
+        compare(f"rwkv6 {str(dtype)[6:]} chunked carry y",
+                torch.cat([y1, y2], dim=1), y, dtype, tol)
+        compare(f"rwkv6 {str(dtype)[6:]} chunked carry state", s2, state,
+                dtype, tol)
+        n += 2
+    return n
+
+
+def time_rglru(rg, timer, gen, dev) -> dict:
+    """Prefill shape: one 1000-token prompt through a recurrentgemma-9b
+    RG-LRU layer, d_rnn 4096, bf16, no h0 (as a prefill calls it)."""
+    B, S, D = 1, 1000, 4096
+    a, b, _ = scan_inputs(B, S, D, torch.bfloat16, gen, dev)
+    err = compare("rglru timed shape", rg.rglru_scan(a, b)[0],
+                  rg.linear_scan_torch(a, b)[0], torch.bfloat16)
+    b_ms, b_by = bound(2.0 * B * S * D, 3 * B * S * D * 2 + B * D * 4,
+                       PEAK_F32_FLOPS)
+    return dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru.cu",
+        replaces="src/repro/kernels/rglru.py:63",
+        shape=f"B{B} S{S} D{D} bf16, no h0", max_abs_err=err,
+        ms=timer(lambda: rg.rglru_scan(a, b)),
+        plain_ms=timer(lambda: rg.linear_scan_torch(a, b)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library="none: no single PyTorch call computes a linear recurrence "
+                "(torch.cumsum/cumprod give it only through a division "
+                "that underflows)")
+
+
+def time_rwkv6(rk, timer, gen, dev) -> dict:
+    """Prefill shape: one 1000-token prompt through an rwkv6-7b layer, 64
+    heads of 64, bf16, a float32 zero state0 (as a prefill calls it)."""
+    B, T, H, D = 1, 1000, 64, 64
+    r, k, v, w, u, _ = rwkv_inputs(B, T, H, D, D, torch.bfloat16, gen, dev)
+    s0 = torch.zeros(B, H, D, D, device=dev)
+    err = compare("rwkv6 timed shape", rk.rwkv6_scan(r, k, v, w, u, s0)[0],
+                  rk.rwkv6_torch(r, k, v, w, u, s0)[0], torch.bfloat16,
+                  RWKV_TOL[torch.bfloat16])
+    flops = 4.0 * B * T * H * D * D
+    nbytes = 5 * B * T * H * D * 2 + H * D * 2 + 2 * B * H * D * D * 4
+    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    return dict(
+        name="rwkv6_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rwkv6.cu",
+        replaces="src/repro/kernels/rwkv6.py:68",
+        shape=f"B{B} T{T} H{H} D{D} Dv{D} bf16, zero state0",
+        max_abs_err=err,
+        ms=timer(lambda: rk.rwkv6_scan(r, k, v, w, u, s0)),
+        plain_ms=timer(lambda: rk.rwkv6_torch(r, k, v, w, u, s0)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        library="none: no single PyTorch call computes the matrix-state "
+                "recurrence")
 
 
 PCCS_KNOTS = (0.1, 0.3, 0.5, 0.7, 0.9)
@@ -490,11 +722,11 @@ def time_stream(st, probes, timer, dev) -> dict:
 # ---------------------------------------------------------------------------
 # serve
 # ---------------------------------------------------------------------------
-def make_prompts(vocab: int) -> list:
+def make_prompts(vocab: int, lens=PROMPT_LENS) -> list:
     import numpy as np
 
     rng = np.random.default_rng(0)
-    return [rng.integers(0, vocab, size=n) for n in PROMPT_LENS]
+    return [rng.integers(0, vocab, size=n) for n in lens]
 
 
 def serve(fa, da, dev) -> dict:
@@ -543,8 +775,7 @@ def serve(fa, da, dev) -> dict:
 
     # kernel path vs plain path, end to end, one prefill per prompt, each
     # written into slot 0 of the engine's cache as the engine does
-    views = [{name: kvcache.select(c[name], 0) for name in c}
-             for c in eng.caches]
+    views = [kvcache.select(c, 0) for c in eng.caches]
     prefill_ms, rel_errs, floor = [], [], []
     for p in prompts:
         batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
@@ -664,6 +895,215 @@ def profile_decode(eng, prompts, steps: int = 4) -> dict:
         out["top_kernels_ms_per_step"] = {k[:60]: v / steps for k, v in top}
     print(f"  profiled {steps} decode steps: {out}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# serve the recurrent families
+# ---------------------------------------------------------------------------
+def perturb_recurrent(model, gen) -> int:
+    """Fill the PERTURBED parameters with seeded N(0, 1 / fan_in) values;
+    returns how many tensors were filled."""
+    n = 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in PERTURBED:
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device)
+                        * p.shape[0] ** -0.5)
+                n += 1
+    return n
+
+
+def build_recurrent(cfg, backend, dev):
+    """``cfg`` with seeded random weights and the perturbed recurrent
+    parameters, on the card."""
+    from repro_torch.models import build
+
+    t0 = time.perf_counter()
+    model = build(cfg, backend=backend, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model.init(gen)
+    n = perturb_recurrent(model, gen)
+    torch.cuda.synchronize()
+    print(f"  built {cfg.name} ({cfg.dtype}): {cfg.n_layers} layers "
+          f"{dict(collections.Counter(cfg.layer_kinds))}, d_model "
+          f"{cfg.d_model}, {sum(p.numel() for p in model.parameters()):,} "
+          f"parameters, {n} tensors perturbed, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def last_logits(model, backend, batch, views):
+    model.backend = backend
+    try:
+        return model.prefill(batch, cache_out=views)[0][0, -1]
+    finally:
+        model.backend = "auto"
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).norm() / want.norm())
+
+
+def serve_recurrent(arch, mods, dev) -> dict:
+    """Serve ``arch`` at full width through ``ServingEngine``: every
+    request its MAX_NEW tokens, the exact launch count of each kernel on
+    the path, and each prompt's prefill logits through the kernels
+    against the plain path; then a planted fault on the plain path."""
+    from repro_torch import configs
+    from repro_torch.models import kvcache
+    from repro_torch.serve.engine import ServingEngine
+
+    fa, da, rg, rk = (mods[n] for n in ("flash_attention",
+                                         "decode_attention", "rglru_scan",
+                                         "rwkv6_scan"))
+    cfg = configs.get(arch)
+    lens, capacity = ((RG_PROMPT_LENS, RG_CAPACITY) if "rglru" in
+                      cfg.layer_kinds else (PROMPT_LENS, 2048))
+    model = build_recurrent(cfg, "auto", dev)
+    eng = ServingEngine(model, max_slots=4, capacity=capacity)
+    prompts = make_prompts(cfg.vocab, lens)
+    for p in prompts:
+        eng.submit(p, max_new=MAX_NEW)
+
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: m.launches for name, m in mods.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    require(len(done) == len(prompts), f"served {len(done)}/{len(prompts)}")
+    for r in done:
+        require(len(r.tokens) == MAX_NEW,
+                f"request {r.rid} got {len(r.tokens)} tokens, not {MAX_NEW}")
+    m = eng.metrics()
+    kinds = collections.Counter(cfg.layer_kinds)
+    calls = m["admitted"] + m["steps"]           # prefills + decode steps
+    want = {"flash_attention": kinds["local"] * m["admitted"],
+            "decode_attention": kinds["local"] * m["steps"],
+            "rglru_scan": kinds["rglru"] * calls,
+            "rwkv6_scan": kinds["rwkv"] * calls}
+    print(f"  served {len(done)} requests, {m['tokens_out']} tokens, "
+          f"{m['admitted']} prefills, {m['steps']} decode steps in "
+          f"{wall:.3f} s; launches {launches}")
+    require(launches == want, f"launches {launches} != {want} (layers "
+            f"{dict(kinds)} x prefills/steps)")
+
+    views = [kvcache.select(c, 0) for c in eng.caches]
+    prefill_ms, rel_errs, floor, limits = [], [], [], []
+    for p in prompts:
+        batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
+        out = {b: last_logits(model, b, batch, views)
+               for b in ("cuda", "torch", "ref")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(batch, cache_out=views)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        g, w, r = out["cuda"], out["torch"], out["ref"]
+        require(bool(torch.isfinite(g).all()), "non-finite prefill logits")
+        rel_errs.append(rel_err(g, w))
+        floor.append(rel_err(r, w))
+        limits.append(max(E2E_REL_TOL, FLOOR_MARGIN * floor[-1]))
+        top_g, top_w = int(g.argmax()), int(w.argmax())
+        print(f"  prefill S={len(p)}: kernel-vs-plain logits rel err "
+              f"{rel_errs[-1]:.3e} (oracle-vs-plain {floor[-1]:.3e}, limit "
+              f"{limits[-1]:.3e}), argmax {top_g} vs {top_w}, "
+              f"{prefill_ms[-1]:.2f} ms")
+        require(top_g == top_w, f"S={len(p)}: argmax differs")
+        require(rel_errs[-1] <= limits[-1],
+                f"S={len(p)}: rel err {rel_errs[-1]} > {limits[-1]}")
+
+    out = dict(arch=cfg.name, requests=len(done), max_new=MAX_NEW,
+               prompt_lens=list(lens), capacity=capacity, launches=launches,
+               prefills=m["admitted"], decode_steps=m["steps"],
+               tokens_out=m["tokens_out"], wall_s=wall,
+               tokens_per_s=m["tokens_out"] / wall,
+               mean_decode_step_ms=m["mean_step_ms"], prefill_ms=prefill_ms,
+               e2e_logits_rel_err=rel_errs, oracle_vs_plain_rel_err=floor,
+               e2e_limit=limits, max_memory_allocated=peak)
+    if kinds["rglru"]:
+        out["planted_fault_rel"] = planted_fault(model, rg, prompts[1], dev,
+                                                 views)
+    out["profile"] = profile_decode(eng, prompts)
+    return out
+
+
+def planted_fault(model, rg, prompt, dev, views) -> float:
+    """The plain path with the RG-LRU scan's output zeroed, against the
+    plain path: the perturbed weights must make the scan matter."""
+    batch = {"token_ids": torch.as_tensor(prompt[None], device=dev)}
+    sound = last_logits(model, "torch", batch, views)
+    scan = rg.linear_scan_torch
+
+    def zeroed(a, b, h0=None):
+        return (torch.zeros_like(a),
+                torch.zeros(a.shape[0], a.shape[2], device=a.device))
+
+    rg.linear_scan_torch = zeroed
+    try:
+        faulty = last_logits(model, "torch", batch, views)
+    finally:
+        rg.linear_scan_torch = scan
+    rel = rel_err(faulty, sound)
+    print(f"  planted fault (RG-LRU scan output zeroed, S={len(prompt)}): "
+          f"logits move by rel {rel:.3e} (must be >= {FAULT_MIN_REL:g})")
+    require(rel >= FAULT_MIN_REL, f"planted fault moved the logits by only "
+            f"{rel}: the RG-LRU layers do not matter")
+    return rel
+
+
+def e2e_f32_recurrent(arch, dev) -> dict:
+    """Kernel path against plain path, float32 end to end, on ``arch`` at
+    full width (float32 weights, activations and caches; TF32 off): each
+    prompt's prefill logits, and prefill(n + 1) against prefill(n) and
+    one decode step through the kernels."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get(arch), dtype="float32",
+                              kv_cache_dtype="float32")
+    lens = RG_PROMPT_LENS if "rglru" in cfg.layer_kinds else PROMPT_LENS
+    model = build_recurrent(cfg, "cuda", dev)
+    rels, same, step_rels = [], [], []
+    for p in make_prompts(cfg.vocab, lens):
+        batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
+        g = last_logits(model, "cuda", batch, None)
+        w = last_logits(model, "torch", batch, None)
+        require(bool(torch.isfinite(g).all()), "non-finite f32 logits")
+        rels.append(rel_err(g, w))
+        same.append(int(g.argmax()) == int(w.argmax()))
+        # prefill(n) then one decode step, against the prefill of n + 1
+        n = len(p) - 1
+        if n >= 1:
+            model.backend = "cuda"
+            _, caches = model.prefill(
+                {"token_ids": torch.as_tensor(p[None, :n], device=dev)},
+                capacity=RG_CAPACITY)
+            step, _ = model.decode_step(caches, {
+                "token_ids": torch.as_tensor(p[None, n:], device=dev),
+                "lengths": torch.tensor([n], dtype=torch.int32,
+                                        device=dev)})
+            model.backend = "auto"
+            step_rels.append(rel_err(step[0, -1], g))
+        print(f"  f32 {cfg.name} prefill S={len(p)}: kernel-vs-plain logits "
+              f"rel err {rels[-1]:.3e}, same argmax {same[-1]}"
+              + (f"; prefill({n}) + decode vs prefill({n + 1}) rel err "
+                 f"{step_rels[-1]:.3e}" if n >= 1 else ""))
+    del model
+    torch.cuda.empty_cache()
+    require(all(same), f"f32 {arch}: argmax differs")
+    require(max(rels) <= E2E_F32_REL_TOL,
+            f"f32 {arch}: rel err {max(rels)} > {E2E_F32_REL_TOL}")
+    require(max(step_rels) <= E2E_F32_REL_TOL,
+            f"f32 {arch}: prefill+decode rel err {max(step_rels)} > "
+            f"{E2E_F32_REL_TOL}")
+    return dict(prompt_lens=list(lens), logits_rel_err=rels,
+                prefill_decode_rel_err=step_rels)
 
 
 # ---------------------------------------------------------------------------
@@ -959,6 +1399,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru as rg
+    from repro_torch.kernels import rwkv6 as rk
     from repro_torch.kernels import search as se
     from repro_torch.kernels import slowdown as sd
     from repro_torch.kernels import stream as st
@@ -966,12 +1408,27 @@ def main() -> int:
     from repro_torch.runtime import resolve_device
 
     dev = resolve_device("cuda")
-    print("[1/7] environment")
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        if phase_s:
+            last = list(phase_s)[-1]
+            phase_s[last] = now - t_phase
+            print(f"  ({last}: {phase_s[last]:.1f} s)")
+        t_phase = now
+        if name is not None:
+            phase_s[name] = None
+            print(f"[{len(phase_s)}/9] {name}")
+
+    phase("environment")
     print(f"  card: {card_line()}")
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    print("[2/7] build")
+    phase("build")
     t0 = time.perf_counter()
     with ThreadPoolExecutor() as pool:      # one nvcc per source, at once
         list(pool.map(_build.load, KERNEL_SOURCES))
@@ -979,46 +1436,76 @@ def main() -> int:
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}: {len(KERNEL_SOURCES)} "
           f"kernels built in {build_s:.1f} s")
 
-    print("[3/7] kernels vs plain versions")
+    phase("kernels vs plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
     n = flash_checks(fa, gen, dev) + decode_checks(da, gen, dev)
     slowdown_checks(sd, gen, dev)
     n += 6 + select_checks(se, gen, dev, L=2 * 32)
     n += stream_checks(st, gen, dev)
+    n += scan_checks(rg, gen, dev) + rwkv_checks(rk, gen, dev)
     timer = Timer(dev)
     # the orin fixture's search: 4096 chains x 2 workloads x 32 groups
     kernels = [time_flash(fa, timer, gen, dev),
                time_decode(da, timer, gen, dev),
                time_slowdown(sd, timer, gen, dev, n=4096 * 2),
                time_select(se, timer, gen, dev, P=4096, L=2 * 32),
-               time_stream(st, probes, timer, dev)]
+               time_stream(st, probes, timer, dev),
+               time_rglru(rg, timer, gen, dev),
+               time_rwkv6(rk, timer, gen, dev)]
     for kr in kernels:
-        lib = ("none" if kr["library_ms"] is None
-               else f"{kr['library_ms']:.4f} ms")
-        print(f"  {kr['name']} at {kr['shape']}: {kr['ms']:.4f} ms, plain "
-              f"{kr['plain_ms']:.4f} ms, library {lib}, "
-              f"bound {kr['bound_ms']:.4f} ms ({kr['bound_by']})")
+        for row in (kr, kr.get("at_d256")):
+            if row is None:
+                continue
+            lib = ("none" if row["library_ms"] is None
+                   else f"{row['library_ms']:.4f} ms")
+            print(f"  {kr['name']} at {row['shape']}: {row['ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f} ms, library {lib}, "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     print(f"  {n} comparisons passed")
 
-    print("[4/7] serve full-width stablelm-1.6b")
+    phase("serve full-width stablelm-1.6b")
     result = serve(fa, da, dev)
-    print("[5/7] float32 end to end, kernel path vs plain path")
+    phase("float32 end to end, kernel path vs plain path")
     result["e2e_f32_logits_rel_err"] = e2e_f32(dev)
-    print("[6/7] schedule search under PCCS on the golden fixtures")
+    phase("schedule search under PCCS on the golden fixtures")
     found = search(sd, se, dev)
-    print("[7/7] characterize full-width stablelm-1.6b, calibrate, solve")
-    t0 = time.perf_counter()
+    phase("characterize full-width stablelm-1.6b, calibrate, solve")
     measured = characterize(fa, da, sd, se, st)
-    measured["phase_s"] = time.perf_counter() - t0
-    print(f"  characterize phase {measured['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    phase("serve full-width rwkv6-7b and recurrentgemma-9b")
+    mods = {"flash_attention": fa, "decode_attention": da,
+            "rglru_scan": rg, "rwkv6_scan": rk}
+    recurrent = {}
+    for arch in ("rwkv6-7b", "recurrentgemma-9b"):
+        recurrent[arch] = serve_recurrent(arch, mods, dev)
+        torch.cuda.empty_cache()
+    phase("float32 end to end on both recurrent models")
+    for arch in ("rwkv6-7b", "recurrentgemma-9b"):
+        recurrent[arch]["e2e_f32"] = e2e_f32_recurrent(arch, dev)
+    phase(None)
+    measured["phase_s"] = phase_s[
+        "characterize full-width stablelm-1.6b, calibrate, solve"]
+
     launches = dict(result["launches"], **found["orin_x64_cuda"]["launches"],
-                    stream=measured["launches"]["stream"])
+                    stream=measured["launches"]["stream"],
+                    rglru_scan=recurrent["recurrentgemma-9b"]["launches"][
+                        "rglru_scan"],
+                    rwkv6_scan=recurrent["rwkv6-7b"]["launches"][
+                        "rwkv6_scan"])
     for kr in kernels:
         kr["launches"] = launches[kr["name"]]
+    for name in ("flash_attention", "decode_attention"):
+        row = next(kr for kr in kernels if kr["name"] == name)
+        row["launches_by_path"] = {
+            "serve stablelm-1.6b": result["launches"][name],
+            "serve recurrentgemma-9b":
+                recurrent["recurrentgemma-9b"]["launches"][name]}
     found["build_s"] = build_s
+    print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"serve": result}))
     print(json.dumps({"search": found}))
     print(json.dumps({"characterize": measured}))
+    print(json.dumps({"serve_recurrent": recurrent}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,2 @@
 """Hand-written Hopper kernels (CUDA C++ under ``csrc/``), their plain
-PyTorch versions, the attention oracle and the dispatching ops."""
+PyTorch versions, the oracles and the dispatching ops."""

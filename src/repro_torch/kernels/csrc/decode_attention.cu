@@ -22,7 +22,10 @@
 // (head, d) outputs, reading V straight from device memory in coalesced
 // rows.  Only the V rows below the length are read.  One block per
 // (b, kv-head) is few blocks for a small batch; splitting the kv axis
-// across blocks with a combine pass is later work.
+// across blocks with a combine pass is later work.  It matters most for
+// MQA: recurrentgemma-9b's 16 query heads over one kv head of 256 give
+// one block per sequence (G * D = 4096 outputs, 172.7 KB of shared
+// memory).  Head sizes 32, 64, 128 and 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -186,6 +189,9 @@ int launch_d(const void* q, const void* k, const void* v, const void* lengths,
                                  stream);
     case 128:
       return launch<TQ, TKV, 128>(q, k, v, lengths, o, B, S, Hq, Hkv, scale,
+                                  stream);
+    case 256:
+      return launch<TQ, TKV, 256>(q, k, v, lengths, o, B, S, Hq, Hkv, scale,
                                   stream);
     default:
       return (int)cudaErrorInvalidValue;

@@ -23,7 +23,7 @@ from . import _build
 #: launches of the CUDA kernel since import (or since a caller reset it).
 launches = 0
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448                 # bytes a block may use on Hopper
 

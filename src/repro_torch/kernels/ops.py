@@ -5,8 +5,8 @@ Backends:
 
   * ``cuda``  — the hand-written Hopper kernel; CUDA tensors only.
   * ``torch`` — the plain PyTorch version beside the kernel (the twin of
-                ``repro``'s ``_attention_xla`` / ``_decode_xla``); runs on
-                any device.
+                ``repro``'s ``_attention_xla`` / ``_decode_xla`` /
+                ``_linear_scan_xla`` / ``_rwkv6_xla``); runs on any device.
   * ``ref``   — the naive oracle in :mod:`repro_torch.kernels.ref`.
   * ``auto``  — by the tensor's device: a CUDA tensor always takes the
                 kernel, a CPU tensor takes ``torch``.
@@ -20,6 +20,8 @@ from typing import Literal
 from . import decode_attention as _dec
 from . import flash_attention as _fa
 from . import ref as _ref
+from . import rglru as _rglru
+from . import rwkv6 as _rwkv6
 
 Backend = Literal["auto", "cuda", "torch", "ref"]
 BACKENDS = ("auto", "cuda", "torch", "ref")
@@ -62,3 +64,27 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     if b == "cuda":
         return _dec.decode_attention(q, k_cache, v_cache, lengths)
     return _dec.decode_attention_torch(q, k_cache, v_cache, lengths)
+
+
+def linear_scan(a, b, h0=None, *, backend: Backend = "auto"):
+    """h_t = a_t h_{t-1} + b_t over axis 1 (the RG-LRU core).  a, b:
+    (B, S, D); h0: (B, D) or None.  Returns (h_all in a's dtype, h_last
+    float32)."""
+    be = _resolve(backend, a)
+    if be == "ref":
+        return _ref.linear_scan(a, b, h0)
+    if be == "cuda":
+        return _rglru.rglru_scan(a, b, h0)
+    return _rglru.linear_scan_torch(a, b, h0)
+
+
+def rwkv6(r, k, v, w, u, state0=None, *, backend: Backend = "auto"):
+    """The RWKV-6 matrix-state recurrence.  r, k, w: (B, T, H, D); v:
+    (B, T, H, Dv); u: (H, D); state0: (B, H, D, Dv) or None.  Returns
+    (y in v's dtype, final state float32)."""
+    be = _resolve(backend, r)
+    if be == "ref":
+        return _ref.rwkv6(r, k, v, w, u, state0)
+    if be == "cuda":
+        return _rwkv6.rwkv6_scan(r, k, v, w, u, state0)
+    return _rwkv6.rwkv6_torch(r, k, v, w, u, state0)

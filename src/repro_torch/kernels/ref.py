@@ -1,9 +1,10 @@
 """Plain-PyTorch oracles (counterpart of ``repro/kernels/ref.py``).
 
 The semantic ground truth the kernels and their plain versions are tested
-against: naive O(S^2)-memory attention in float32, the PCCS slowdown
-surface as a hat-basis contraction, and the annealing select step.  The
-recurrent-scan oracles are not ported yet.
+against: naive O(S^2)-memory attention in float32, the gated linear
+recurrence and the RWKV-6 recurrence as sequential loops in float32, the
+PCCS slowdown surface as a hat-basis contraction, and the annealing
+select step.
 """
 from __future__ import annotations
 
@@ -50,6 +51,49 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     w = w / w.sum(-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.float())
     return out.to(q.dtype)
+
+
+def linear_scan(a, b, h0=None):
+    """Reference gated linear recurrence: h_t = a_t * h_{t-1} + b_t.
+
+    a, b: (B, S, D); h0: (B, D) or None (zeros).  Returns (h_all in a's
+    dtype, h_last in float32).  Sequential loop over S, the oracle for the
+    RG-LRU kernel.
+    """
+    B, S, D = a.shape
+    h = (torch.zeros((B, D), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    af, bf = a.float(), b.float()
+    hs = []
+    for t in range(S):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(a.dtype), h
+
+
+def rwkv6(r, k, v, w, u, state0=None):
+    """Reference RWKV-6 (Finch) recurrence.
+
+    Per head with state S in R^{D x Dv}:
+        y_t = (S_{t-1} + (u ⊙ k_t) v_t^T)^T r_t
+        S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    r, k, w: (B, T, H, D); v: (B, T, H, Dv); u: (H, D); state0:
+    (B, H, D, Dv).  Returns (y (B, T, H, Dv) in v's dtype, state
+    (B, H, D, Dv) float32).  ``w`` is the per-step decay in (0, 1).
+    """
+    B, T, H, D = r.shape
+    Dv = v.shape[-1]
+    S = (torch.zeros((B, H, D, Dv), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float())
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()
+    ys = []
+    for t in range(T):
+        kv = torch.einsum("bhd,bhe->bhde", kf[:, t], vf[:, t])
+        ys.append(torch.einsum("bhd,bhde->bhe", rf[:, t],
+                               S + uf[None, :, :, None] * kv))
+        S = wf[:, t][..., None] * S + kv
+    return torch.stack(ys, dim=1).to(v.dtype), S
 
 
 def piecewise_slowdown(own, ext, own_knots, ext_knots, table):

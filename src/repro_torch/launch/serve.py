@@ -5,13 +5,16 @@ without ``--co-arch``: random weights from a seeded generator, prompts of
 8 random tokens, greedy decoding::
 
     python -m repro_torch.launch.serve --arch stablelm-1.6b --requests 4
-    python -m repro_torch.launch.serve --arch stablelm-1.6b --reduced \
+    python -m repro_torch.launch.serve --arch rwkv6-7b
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --reduced \
         --device cpu
 
 Runs on ``cuda`` at the architecture's full width unless told otherwise;
 ``--reduced`` takes the reference's smoke-size sibling (what the
-reference's single-model mode serves).  The gateway, fleet and co-serving
-modes are not ported yet.
+reference's single-model mode serves).  Attention (``attn``, ``local``)
+and recurrent (``rglru``, ``rwkv``) layer stacks are served; MoE models
+and the gateway, fleet and co-serving modes are not ported yet.
 """
 from __future__ import annotations
 

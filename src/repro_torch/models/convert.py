@@ -9,8 +9,12 @@ leading axis (``params["groups"]``) and keeps the remainder unstacked
 unstacked and projections flattened to 2-D.
 
 ``load_state_dict`` casts each tensor to the dtype the port stores that
-weight in: f32 projections become ``cfg.dtype``, which is the cast the
-reference makes at every use, so the numbers are identical.
+weight in, which is the dtype the reference uses it in, so the numbers
+are identical: f32 projections become ``cfg.dtype`` (the cast the
+reference makes at every use), as do RG-LRU's ``conv_w``/``conv_b`` and
+RWKV-6's ``mu_*`` and ``u``; RG-LRU's ``lam`` and RWKV-6's ``w0``,
+``w_lora_a`` and ``w_lora_b``, which the reference uses in float32, stay
+float32; norm scales and the token table keep ``cfg.param_dtype``.
 """
 from __future__ import annotations
 
@@ -25,20 +29,24 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
-def _layer(cfg: ModelConfig, p, prefix: str, out: dict) -> None:
-    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    t, c = p["t"], p["c"]
-    out[f"{prefix}.t.ln"] = _t(t["ln"])
-    out[f"{prefix}.t.wq"] = _t(t["wq"]).reshape(d, hq * dh)
-    out[f"{prefix}.t.wk"] = _t(t["wk"]).reshape(d, hkv * dh)
-    out[f"{prefix}.t.wv"] = _t(t["wv"]).reshape(d, hkv * dh)
-    out[f"{prefix}.t.wo"] = _t(t["wo"]).reshape(hq * dh, d)
-    if cfg.qkv_bias:
-        for name in ("bq", "bk", "bv"):
-            out[f"{prefix}.t.{name}"] = _t(t[name]).reshape(-1)
+def _layer(cfg: ModelConfig, kind: str, p, prefix: str, out: dict) -> None:
+    t = p["t"]
+    if kind in ("rglru", "rwkv"):       # same names and shapes as the port's
+        for name, x in t.items():
+            out[f"{prefix}.t.{name}"] = _t(x)
+    else:
+        d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        out[f"{prefix}.t.ln"] = _t(t["ln"])
+        out[f"{prefix}.t.wq"] = _t(t["wq"]).reshape(d, hq * dh)
+        out[f"{prefix}.t.wk"] = _t(t["wk"]).reshape(d, hkv * dh)
+        out[f"{prefix}.t.wv"] = _t(t["wv"]).reshape(d, hkv * dh)
+        out[f"{prefix}.t.wo"] = _t(t["wo"]).reshape(hq * dh, d)
+        if cfg.qkv_bias:
+            for name in ("bq", "bk", "bv"):
+                out[f"{prefix}.t.{name}"] = _t(t[name]).reshape(-1)
     for name in ("ln", "wi_gate", "wi", "wo"):
-        if name in c:
-            out[f"{prefix}.c.{name}"] = _t(c[name])
+        if name in p.get("c", {}):
+            out[f"{prefix}.c.{name}"] = _t(p["c"][name])
 
 
 def params_from_jax(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
@@ -50,10 +58,12 @@ def params_from_jax(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
     for pos, stacked in enumerate(tree["groups"]):
         for g in range(n_groups):
             one = _index(stacked, g)
-            _layer(cfg, one, f"layers.{g * P + pos}", out)
+            li = g * P + pos
+            _layer(cfg, kinds[li], one, f"layers.{li}", out)
     n_scanned = n_groups * P
     for i, lp in enumerate(tree["tail"]):
-        _layer(cfg, lp, f"layers.{n_scanned + i}", out)
+        li = n_scanned + i
+        _layer(cfg, kinds[li], lp, f"layers.{li}", out)
     return out
 
 

@@ -31,9 +31,12 @@ def size(layer) -> int:
     return layer["data"].shape[1]
 
 
-def select(layer, row: int):
-    """The view of batch row ``row`` of a layer (shares its storage)."""
-    return {name: t[row:row + 1] for name, t in layer.items()}
+def select(cache: dict, row: int) -> dict:
+    """Batch row ``row`` of every tensor of a cache dict, as views sharing
+    its storage: a layer view, a layer's ``{"k", "v"}`` pair of them, or a
+    recurrent layer's state."""
+    return {name: (select(x, row) if isinstance(x, dict) else x[row:row + 1])
+            for name, x in cache.items()}
 
 
 def _quant(x):

@@ -14,7 +14,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.runtime import resolve_device
 from . import kvcache, transformer
-from .layers import Embeddings
+from .layers import Embeddings, dtype_of
+from .recurrent import rwkv_heads
 
 
 class Model(nn.Module):
@@ -70,10 +71,25 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, capacity: int):
-        """Zeroed decode caches: one ``{"k", "v"}`` dict per layer."""
+        """Zeroed decode caches, one dict per layer: ``{"k", "v"}`` for
+        attention, ``{"h", "conv"}`` for RG-LRU, ``{"S", "x_t", "x_c"}``
+        for RWKV-6 (the shapes of ``repro/models/model.py:114-140``)."""
         cfg = self.cfg
+        dt = dtype_of(cfg.dtype)
+        H = rwkv_heads(cfg)
+        dh = cfg.d_model // H
+
+        def zeros(*shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
 
         def one(kind):
+            if kind == "rglru":
+                return {"h": zeros(batch, cfg.d_rnn, dtype=torch.float32),
+                        "conv": zeros(batch, 3, cfg.d_rnn)}
+            if kind == "rwkv":
+                return {"S": zeros(batch, H, dh, dh, dtype=torch.float32),
+                        "x_t": zeros(batch, cfg.d_model),
+                        "x_c": zeros(batch, cfg.d_model)}
             cap = (min(cfg.local_window, capacity) if kind == "local"
                    else capacity)
             return {name: kvcache.init_layer(batch, cap, cfg.n_kv_heads,

@@ -4,8 +4,13 @@ prefill / decode passes over it (counterpart of
 
 The reference stacks the parameters of repeating block-pattern groups and
 runs them under ``jax.lax.scan``; PyTorch runs eagerly, so the port keeps
-one module per layer and loops.  ``attn`` and ``local`` layers are ported;
-the recurrent kinds and the MoE channel mix are not yet.
+one module per layer and loops.  ``attn``, ``local``, ``rglru`` and
+``rwkv`` layers are ported; the MoE channel mix is not yet.
+
+Each layer's cache is a dict: ``{"k", "v"}`` KV-cache views for
+attention, ``{"h", "conv"}`` for RG-LRU, ``{"S", "x_t", "x_c"}`` for
+RWKV-6 (shapes: ``Model.init_cache``).  Prefill writes into the views it
+is given and a decode step updates its caches, both in place.
 """
 from __future__ import annotations
 
@@ -13,24 +18,17 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from . import kvcache, layers
+from . import kvcache, layers, recurrent
 
-#: block kinds and features not ported yet -> the ROADMAP.md queue-1 item
-#: that ports them.
-NOT_PORTED = {
-    "rglru": "Recurrent model families (rglru, rwkv6)",
-    "rwkv": "Recurrent model families (rglru, rwkv6)",
-    "moe": "Mixture-of-experts channel mix",
-}
+#: features not ported yet -> the ROADMAP.md queue-1 item that ports them.
+NOT_PORTED = {"moe": "Mixture-of-experts channel mix"}
+
+ATTENTION = ("attn", "local")
+RECURRENT = ("rglru", "rwkv")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
-    for kind in cfg.layer_kinds:
-        if kind in NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind!r} layers are not ported to repro_torch "
-                f"yet (ROADMAP.md queue 1: {NOT_PORTED[kind]})")
+    """Raise ``NotImplementedError`` for what the port does not have yet."""
     if cfg.moe is not None:
         raise NotImplementedError(
             f"{cfg.name}: the MoE channel mix is not ported to repro_torch "
@@ -38,23 +36,40 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Layer(nn.Module):
-    """One residual layer: a token mixer ``t`` and a channel mix ``c``."""
+    """One residual layer: a token mixer ``t`` and a channel mix ``c``
+    (none for ``rwkv``, which carries its own)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
         self.kind = kind
-        self.t = layers.Attention(cfg, kind, device)
-        self.c = layers.MLP(cfg, device)
+        if kind in ATTENTION:
+            self.t = layers.Attention(cfg, kind, device)
+        elif kind == "rglru":
+            self.t = recurrent.RGLRU(cfg, device)
+        elif kind == "rwkv":
+            self.t = recurrent.RWKV(cfg, device)
+        else:
+            raise ValueError(f"unknown layer kind {kind!r}")
+        self.c = None if kind == "rwkv" else layers.MLP(cfg, device)
 
     def init(self, gen: torch.Generator) -> None:
         self.t.init(gen)
-        self.c.init(gen)
+        if self.c is not None:
+            self.c.init(gen)
 
     def forward(self, x, positions, *, cache=None, lengths=None,
                 backend="auto"):
-        x, kv = self.t(x, positions, cache=cache, lengths=lengths,
-                       backend=backend)
-        return self.c(x), kv
+        """Returns ``(x, new)``: for attention ``new`` is the prompt's
+        ``(k, v)`` (prefill) or the updated cache views (decode); for the
+        recurrent kinds it is the new state, never written into
+        ``cache``."""
+        if self.kind in ATTENTION:
+            kv = None if cache is None else (cache["k"], cache["v"])
+            x, new = self.t(x, positions, cache=kv, lengths=lengths,
+                            backend=backend)
+        else:
+            x, new = self.t(x, state=cache, backend=backend)
+        return (x if self.c is None else self.c(x)), new
 
 
 def forward(model, batch, *, collect_kv=False, last_only=False,
@@ -62,10 +77,11 @@ def forward(model, batch, *, collect_kv=False, last_only=False,
     """Full-sequence forward (train / prefill).
 
     Returns ``(logits, caches)``; ``caches`` is ``None`` unless
-    ``collect_kv``, else one ``{"k", "v"}`` layer-view dict per layer.
-    ``cache_out``: per-layer views to write the prompt's k/v into in
-    place (the serving engine passes its slot of the batched cache);
-    otherwise caches of ``cache_capacity`` slots are allocated.
+    ``collect_kv``, else one cache dict per layer.  ``cache_out``:
+    per-layer views to write the prompt's k/v and the final recurrent
+    states into in place (the serving engine passes its slot of the
+    batched cache); otherwise caches of ``cache_capacity`` slots are
+    allocated.
     """
     cfg = model.cfg
     x = model.emb.embed(batch)
@@ -73,9 +89,19 @@ def forward(model, batch, *, collect_kv=False, last_only=False,
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     caches = [] if collect_kv else None
     for i, layer in enumerate(model.layers):
-        x, (k, v) = layer(x, positions, backend=model.backend)
+        x, new = layer(x, positions, backend=model.backend)
         if not collect_kv:
             continue
+        if layer.kind in RECURRENT:
+            if cache_out is not None:
+                c = cache_out[i]
+                for name, t in new.items():
+                    c[name].copy_(t)
+            else:
+                c = {name: t.clone() for name, t in new.items()}
+            caches.append(c)
+            continue
+        k, v = new
         window = cfg.local_window if layer.kind == "local" else None
         if cache_out is not None:
             c = cache_out[i]
@@ -99,6 +125,9 @@ def decode_step(model, caches, batch):
     x = model.emb.embed(batch)
     positions = lengths[:, None]                      # (B,1) absolute pos
     for layer, c in zip(model.layers, caches):
-        x, _ = layer(x, positions, cache=(c["k"], c["v"]), lengths=lengths,
-                     backend=model.backend)
+        x, new = layer(x, positions, cache=c, lengths=lengths,
+                       backend=model.backend)
+        if layer.kind in RECURRENT:
+            for name, t in new.items():
+                c[name].copy_(t)
     return model.emb.logits(x), caches

@@ -287,18 +287,15 @@ def _group_runner(cfg, span: Sequence[str], cell, backend: str, device):
     """A closure executing one group's layer kinds once, eagerly.
 
     Operands are made once, outside the closure, by :func:`_seeded_normal`
-    (x, w1, w2, q, k cache, v cache: the reference's order); attention
-    goes through :mod:`repro_torch.kernels.ops`, so a CUDA tensor launches
-    the flash (prefill) or decode kernel."""
+    in the reference's order (x, w1, w2; then q, k cache, v cache for
+    attention; the gate and input for rglru; r, the decay and u for
+    rwkv); the token mixers go through :mod:`repro_torch.kernels.ops`, so
+    a CUDA tensor launches the flash (prefill) or decode kernel, the
+    RG-LRU scan or the RWKV-6 scan."""
     from ..kernels import ops
-    from ..models.transformer import NOT_PORTED
 
     for kind in span:
-        if kind in NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind!r} layers are not ported to repro_torch "
-                f"yet (ROADMAP.md queue 1: {NOT_PORTED[kind]})")
-        if kind not in ("attn", "local"):
+        if kind not in ("attn", "local", "rglru", "rwkv"):
             raise ValueError(f"unknown layer kind {kind!r}")
     B = cell.global_batch
     S = 1 if cell.kind == "decode" else cell.seq_len
@@ -319,17 +316,34 @@ def _group_runner(cfg, span: Sequence[str], cell, backend: str, device):
         # the kernel takes contiguous operands only (XLA sliced for free)
         kpre = kcache[:, :S].contiguous()
         vpre = vcache[:, :S].contiguous()
+    if "rglru" in span:
+        a_gate = torch.sigmoid(normal(B, S, cfg.d_rnn))
+        b_in = normal(B, S, cfg.d_rnn)
+    if "rwkv" in span:
+        h_rwkv = cfg.n_heads or d // 64
+        dh_rwkv = d // h_rwkv
+        r = normal(B, S, h_rwkv, dh_rwkv)
+        w_dec = torch.sigmoid(normal(B, S, h_rwkv, dh_rwkv) + 2.0)
+        u = normal(h_rwkv, dh_rwkv) * 0.3
 
     def run_kind(kind, h):
-        win = cfg.local_window if kind == "local" else None
-        if cell.kind == "decode":
-            o = ops.decode_attention(q, kcache, vcache, lengths,
-                                     backend=backend)
+        if kind == "rglru":
+            hs, _ = ops.linear_scan(a_gate, b_in, backend=backend)
+            h = h + hs.sum(-1, keepdim=True)
+        elif kind == "rwkv":
+            y, _ = ops.rwkv6(r, r * 0.3, r, w_dec, u, backend=backend)
+            h = h + y.reshape(B, S, -1).sum(-1, keepdim=True)
         else:
-            o = ops.attention(q, kpre, vpre, causal=True, window=win,
-                              backend=backend)
-        h = h + o.reshape(B, S, -1).sum(-1, keepdim=True)
-        # the FFN matmuls every block carries
+            win = cfg.local_window if kind == "local" else None
+            if cell.kind == "decode":
+                o = ops.decode_attention(q, kcache, vcache, lengths,
+                                         backend=backend)
+            else:
+                o = ops.attention(q, kpre, vpre, causal=True, window=win,
+                                  backend=backend)
+            h = h + o.reshape(B, S, -1).sum(-1, keepdim=True)
+        # the FFN matmuls every block carries (rwkv folds its channel mix
+        # into the same two-matmul shape in this cost model)
         return h + torch.relu(x @ w1) @ w2
 
     def run_once():

@@ -11,10 +11,12 @@ can drive either engine.
 Two differences from the reference, both about memory traffic:
 
 * The model owns its parameters, so the constructor takes no ``params``.
-* A prefill writes the prompt's k/v straight into its slot of the
-  preallocated batched cache, where the reference builds a one-request
-  cache and splices it in (``engine.py:143-155``); decode steps update
-  the cache in place.
+* A prefill writes the prompt's k/v (and a recurrent layer's final
+  state) straight into its slot of the preallocated batched cache, where
+  the reference builds a one-request cache and splices it in
+  (``engine.py:143-155``); decode steps update the cache in place.  A
+  decode step advances every slot, empty ones too, as the reference's
+  does; admission overwrites a slot's whole state.
 """
 from __future__ import annotations
 
@@ -130,8 +132,7 @@ class ServingEngine:
                 self.counters.deferred += 1
                 break
             req = self.queue.popleft()
-            views = [{name: kvcache.select(c[name], slot) for name in c}
-                     for c in self.caches]
+            views = [kvcache.select(c, slot) for c in self.caches]
             logits, _ = self.model.prefill(
                 {"token_ids": self._ids(req.prompt[None])},
                 capacity=self.capacity, cache_out=views)

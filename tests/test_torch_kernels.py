@@ -87,6 +87,42 @@ class TestAttentionParity:
         np.testing.assert_allclose(f32(got), f32(want), atol=2e-5, rtol=2e-5)
 
 
+#: recurrentgemma-9b's local attention: 16 query heads, one kv head of 256
+HEAD_256 = [(1, 96, 96, 16, 1, 256, True, 48), (2, 40, 40, 16, 1, 256,
+                                                 True, None)]
+DECODE_256 = [(3, 64, 16, 1, 256, (5, 64, 70))]     # a length past the ring
+
+
+@pytest.mark.parametrize("case", HEAD_256)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_head_256_plain_vs_pallas(case, dtype):
+    """The plain attention at recurrentgemma-9b's head size against the
+    Pallas kernel in interpret mode."""
+    B, Sq, Skv, Hq, Hkv, D, causal, window = case
+    qn, kn, vn = draw(7, (B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D))
+    (qj, qt), (kj, kt), (vj, vt) = (both(x, dtype) for x in (qn, kn, vn))
+    got = tops.attention(qt, kt, vt, causal=causal, window=window,
+                         block_kv=32, backend="torch")
+    want = jops.attention(qj, kj, vj, causal=causal, window=window,
+                          backend="pallas_interpret", block_q=32,
+                          block_kv=32)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("case", DECODE_256)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_head_256_plain_vs_pallas(case, dtype):
+    B, S, Hq, Hkv, D, lens = case
+    qn, kn, vn = draw(8, (B, 1, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))
+    (qj, qt), (kj, kt), (vj, vt) = (both(x, dtype) for x in (qn, kn, vn))
+    clamped = np.minimum(np.array(lens, np.int32), S)   # as the model clamps
+    got = tops.decode_attention(qt, kt, vt, torch.from_numpy(clamped),
+                                backend="torch")
+    want = jops.decode_attention(qj, kj, vj, jnp.asarray(clamped),
+                                 backend="pallas_interpret")
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
 DECODE_CASES = [
     # (B, S, Hq, Hkv, D, lengths): 0, 1, full, non-multiples of 512
     (4, 1100, 8, 2, 64, (0, 1, 1100, 513)),
@@ -219,3 +255,37 @@ def test_decode_kernel_ignores_nan_past_length(cuda_device):
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()),
                                **tol("float32"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HEAD_256 + [(1, 2300, 2300, 16, 1, 256,
+                                              True, 2048)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_kernel_head_256_vs_plain(cuda_device, case, dtype):
+    B, Sq, Skv, Hq, Hkv, D, causal, window = case
+    q, k, v = (_card(x, dtype, cuda_device) for x in draw(
+        9, (B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    before = tfa.launches
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    want = tfa.attention_torch(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()), **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_256 + [(4, 2048, 16, 1, 256,
+                                                (9, 2048, 2301, 4000))])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_kernel_head_256_vs_plain(cuda_device, case, dtype):
+    """Lengths past the cache read the whole ring in both versions."""
+    B, S, Hq, Hkv, D, lens = case
+    q, k, v = (_card(x, dtype, cuda_device) for x in draw(
+        10, (B, 1, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = tdec.launches
+    got = tdec.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert tdec.launches == before + 1
+    want = tdec.decode_attention_torch(q, k, v, lengths)
+    np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()), **tol(dtype))

@@ -98,7 +98,7 @@ def test_imports_without_jax_repro_triton_nvcc(blocked_imports, module):
 def test_kernel_sources_present():
     csrc = PKG / "kernels" / "csrc"
     names = ("flash_attention", "decode_attention", "slowdown", "search",
-             "stream")
+             "stream", "rglru", "rwkv6")
     assert {p.name for p in csrc.glob("*.cu")} == {f"{n}.cu" for n in names}
     from repro_torch.kernels import _build
     for name in names:

@@ -451,13 +451,42 @@ def test_group_runner_runs_the_ops_path(span, cell, monkeypatch):
                                atol=2e-5)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-7b"])
-def test_unported_layer_kinds_raise(arch):
-    cell = TShapeCell("prefill_8", 8, 1, "prefill")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tprof.measure_arch(tconfigs.get(arch).reduced(), cell,
-                           timer=tprof.TimerConfig(warmup=1, repeats=1),
-                           device=CPU)
+@pytest.mark.parametrize("arch,span", [("recurrentgemma-9b", ("rglru",)),
+                                       ("rwkv6-7b", ("rwkv",))])
+@pytest.mark.parametrize("cell", [("prefill_16", 16, 2, "prefill"),
+                                  ("decode_24", 24, 2, "decode")])
+def test_group_runner_runs_the_recurrent_ops_path(arch, span, cell,
+                                                  monkeypatch):
+    """The rglru and rwkv branches of the port's group runner (its plain
+    scans) equal the reference's (XLA scans) on the same operands, drawn
+    in the reference's order from one seeded NumPy stream each (float32,
+    CPU, 2e-5)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.profiling.harness import _group_runner as j_group_runner
+    from repro_torch.profiling import harness as tharness
+
+    def numpy_normal():
+        rng = np.random.default_rng(22)
+        return lambda *shape: rng.standard_normal(shape).astype(np.float32)
+
+    t_draw, j_draw = numpy_normal(), numpy_normal()
+    monkeypatch.setattr(
+        tharness, "_seeded_normal",
+        lambda device: lambda *shape: torch.from_numpy(t_draw(*shape)))
+    monkeypatch.setattr(
+        jax.random, "normal",
+        lambda key, shape, dtype=jnp.float32: jnp.asarray(j_draw(*shape)))
+    tcfg = tconfigs.get(arch).reduced()
+    jcfg = jconfigs.get(arch).reduced()
+    got = tharness._group_runner(tcfg, span, TShapeCell(*cell), "torch",
+                                 CPU)()
+    want = j_group_runner(jcfg, span, JShapeCell(*cell), "xla")()
+    S = 1 if cell[3] == "decode" else cell[1]
+    assert got.shape == (2, S, tcfg.d_model)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
 
 
 def test_measure_arch_defaults_to_cuda(monkeypatch):

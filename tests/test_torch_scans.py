@@ -1,0 +1,234 @@
+"""Port parity: the recurrent scans of repro_torch (RG-LRU and RWKV-6)
+against repro's.
+
+The same inputs, made with numpy from a seed, go through the port's plain
+versions and oracles and ``repro``'s ``ref``, ``xla`` and
+``pallas_interpret`` backends, at ``tests/test_kernels.py``'s shapes and
+tolerances (scan: atol = rtol = 2e-5 in float32, 2e-2 in bfloat16;
+RWKV-6: atol 1e-4 / 5e-2, rtol 5e-2).
+
+Tests marked ``cuda`` hold the two scan kernels against their plain
+versions and skip on hosts without a CUDA device.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import rglru as trg
+from repro_torch.kernels import rwkv6 as trk
+
+from test_torch_kernels import cuda_device  # noqa: F401
+
+SCAN_SHAPES = [(2, 64, 32), (1, 100, 256), (3, 33, 128)]   # (B, S, D)
+RWKV_SHAPES = [(1, 32, 2, 16, 16), (2, 17, 4, 32, 32),     # (B,T,H,D,Dv)
+               (1, 64, 1, 64, 64)]
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+def scan_tol(dtype):
+    return (dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16"
+            else dict(atol=2e-5, rtol=2e-5))
+
+
+def rwkv_tol(dtype):
+    return dict(atol=5e-2 if dtype == "bfloat16" else 1e-4, rtol=5e-2)
+
+
+def np32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def both(x, dtype):
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(x).astype(jd), torch.from_numpy(x).to(td)
+
+
+def sigmoid(x):
+    return (1.0 / (1.0 + np.exp(-x))).astype(np.float32)
+
+
+def scan_inputs(seed, B, S, D):
+    rng = np.random.default_rng(seed)
+    a = sigmoid(rng.standard_normal((B, S, D)).astype(np.float32))
+    b, h0 = (rng.standard_normal(s).astype(np.float32)
+             for s in ((B, S, D), (B, D)))
+    return a, b, h0
+
+
+def rwkv_inputs(seed, B, T, H, D, Dv):
+    """tests/test_kernels.py:129-137's distributions."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    r, k, v = normal(B, T, H, D), normal(B, T, H, D) * 0.3, normal(B, T, H, Dv)
+    w = sigmoid(normal(B, T, H, D) + 2.0)
+    u = normal(H, D) * 0.3
+    s0 = normal(B, H, D, Dv) * 0.1
+    return r, k, v, w, u, s0
+
+
+# ---------------------------------------------------------------------------
+# the scans' plain versions and oracles
+# ---------------------------------------------------------------------------
+class TestLinearScanParity:
+    @pytest.mark.parametrize("shape", SCAN_SHAPES)
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("with_h0", [False, True])
+    def test_plain_vs_reference_backends(self, shape, dtype, with_h0):
+        a, b, h0 = scan_inputs(0, *shape)
+        (aj, at), (bj, bt), (hj, ht) = (both(x, dtype) for x in (a, b, h0))
+        if not with_h0:
+            hj = ht = None
+        got, got_last = tops.linear_scan(at, bt, ht, backend="torch")
+        assert got.dtype == at.dtype and got.shape == at.shape
+        assert got_last.dtype == torch.float32
+        for backend in ("xla", "pallas_interpret"):
+            want, want_last = jops.linear_scan(aj, bj, hj, backend=backend)
+            np.testing.assert_allclose(np32(got), np32(want), **scan_tol(dtype))
+            np.testing.assert_allclose(np32(got_last), np32(want_last),
+                                       **scan_tol(dtype))
+        want, want_last = jref.linear_scan(aj, bj, hj)
+        mine, mine_last = tops.linear_scan(at, bt, ht, backend="ref")
+        assert mine_last.dtype == torch.float32
+        for g in (got, mine):
+            np.testing.assert_allclose(np32(g), np32(want), **scan_tol(dtype))
+        for g in (got_last, mine_last):
+            np.testing.assert_allclose(np32(g), np32(want_last),
+                                       **scan_tol(dtype))
+
+    @pytest.mark.parametrize("backend", ["torch", "ref"])
+    def test_h_last_is_float32(self, backend):
+        """ROADMAP.md's known reference inconsistency: ``repro``'s Pallas
+        path returns h_last in a's dtype, its oracle and XLA path in
+        float32; the port returns float32, exactly the float32 carry."""
+        a, b, h0 = scan_inputs(1, 2, 9, 16)
+        at, bt = (torch.from_numpy(x).to(torch.bfloat16) for x in (a, b))
+        h, last = tops.linear_scan(at, bt, torch.from_numpy(h0),
+                                   backend=backend)
+        assert h.dtype == torch.bfloat16 and last.dtype == torch.float32
+        _, want = jref.linear_scan(jnp.asarray(a).astype(jnp.bfloat16),
+                                   jnp.asarray(b).astype(jnp.bfloat16),
+                                   jnp.asarray(h0))
+        assert np.asarray(want).dtype == np.float32
+        np.testing.assert_allclose(last.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+
+    def test_chunked_carry_equals_one_pass(self):
+        """Scanning [0:k) then [k:S) with the carry passed on equals one
+        scan (tests/test_kernels.py:103-116)."""
+        a, b, _ = scan_inputs(2, 2, 48, 16)
+        at, bt = torch.from_numpy(a), torch.from_numpy(b)
+        full, last = tops.linear_scan(at, bt, backend="torch")
+        k = 20
+        _, h1 = tops.linear_scan(at[:, :k], bt[:, :k], backend="torch")
+        h2_all, h2 = tops.linear_scan(at[:, k:], bt[:, k:], h1,
+                                      backend="torch")
+        np.testing.assert_allclose(h2.numpy(), last.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(h2_all.numpy(), full[:, k:].numpy(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+class TestRWKV6Parity:
+    @pytest.mark.parametrize("shape", RWKV_SHAPES)
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("with_state", [False, True])
+    def test_plain_vs_reference_backends(self, shape, dtype, with_state):
+        r, k, v, w, u, s0 = rwkv_inputs(3, *shape)
+        pairs = [both(x, dtype) for x in (r, k, v, w, u)]
+        js = [p[0] for p in pairs]
+        ts = [p[1] for p in pairs]
+        sj, st = ((jnp.asarray(s0), torch.from_numpy(s0)) if with_state
+                  else (None, None))
+        got, got_state = tops.rwkv6(*ts, st, backend="torch")
+        assert got.dtype == ts[2].dtype and got.shape == ts[2].shape
+        assert got_state.dtype == torch.float32
+        tol = rwkv_tol(dtype)
+        for backend in ("xla", "pallas_interpret"):
+            want, want_state = jops.rwkv6(*js, sj, backend=backend)
+            np.testing.assert_allclose(np32(got), np32(want), **tol)
+            np.testing.assert_allclose(np32(got_state), np32(want_state),
+                                       **tol)
+        want, want_state = jref.rwkv6(*js, sj)
+        mine, mine_state = tops.rwkv6(*ts, st, backend="ref")
+        for g, gs in ((got, got_state), (mine, mine_state)):
+            np.testing.assert_allclose(np32(g), np32(want), **tol)
+            np.testing.assert_allclose(np32(gs), np32(want_state), **tol)
+
+    def test_chunked_state_equals_one_pass(self):
+        """Chunked evaluation with the state carried equals one pass
+        (tests/test_kernels.py:142-159)."""
+        r, k, v, w, u, _ = (torch.from_numpy(x)
+                            for x in rwkv_inputs(4, 1, 40, 2, 16, 16))
+        y_full, s_full = tops.rwkv6(r, k, v, w, u, backend="torch")
+        cut = 23
+        _, s1 = tops.rwkv6(r[:, :cut], k[:, :cut], v[:, :cut], w[:, :cut],
+                           u, backend="torch")
+        y2, s2 = tops.rwkv6(r[:, cut:], k[:, cut:], v[:, cut:], w[:, cut:],
+                            u, s1, backend="torch")
+        np.testing.assert_allclose(y2.numpy(), y_full[:, cut:].numpy(),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(s2.numpy(), s_full.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# card only: the hand-written scan kernels vs their plain versions
+# ---------------------------------------------------------------------------
+def _card(x, dtype, dev):
+    return torch.from_numpy(x).to(dev).to(DTYPES[dtype][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCAN_SHAPES + [(4, 1, 4096),
+                                                 (1, 300, 4099)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_kernel_vs_plain(cuda_device, shape, dtype, with_h0):
+    a, b, h0 = scan_inputs(20, *shape)
+    at, bt = (_card(x, dtype, cuda_device) for x in (a, b))
+    ht = torch.from_numpy(h0).to(cuda_device) if with_h0 else None
+    before = trg.launches
+    got, got_last = tops.linear_scan(at, bt, ht)
+    torch.cuda.synchronize()
+    assert trg.launches == before + 1
+    assert got_last.dtype == torch.float32
+    want, want_last = trg.linear_scan_torch(at, bt, ht)
+    np.testing.assert_allclose(np32(got.cpu()), np32(want.cpu()),
+                               **scan_tol(dtype))
+    np.testing.assert_allclose(np32(got_last.cpu()), np32(want_last.cpu()),
+                               **scan_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RWKV_SHAPES + [(4, 1, 64, 64, 64),
+                                                 (1, 33, 3, 16, 40)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv6_kernel_vs_plain(cuda_device, shape, dtype, with_state):
+    r, k, v, w, u, s0 = rwkv_inputs(21, *shape)
+    ts = [_card(x, dtype, cuda_device) for x in (r, k, v, w, u)]
+    st = torch.from_numpy(s0).to(cuda_device) if with_state else None
+    before = trk.launches
+    got, got_state = tops.rwkv6(*ts, st)
+    torch.cuda.synchronize()
+    assert trk.launches == before + 1
+    want, want_state = trk.rwkv6_torch(*ts, st)
+    np.testing.assert_allclose(np32(got.cpu()), np32(want.cpu()),
+                               **rwkv_tol(dtype))
+    np.testing.assert_allclose(np32(got_state.cpu()), np32(want_state.cpu()),
+                               **rwkv_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_rwkv6_kernel_refuses_large_heads(cuda_device):
+    x = torch.zeros(1, 2, 1, 128, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="head sizes"):
+        trk.rwkv6_scan(x, x, x, x, torch.zeros(1, 128, device=cuda_device))
