@@ -7,7 +7,8 @@ Phases, each fatal on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: all seven CUDA kernels from ``src/repro_torch/kernels/csrc/``
-   for ``sm_90a``, one ``nvcc`` per source, started together;
+   for ``sm_90a``, one ``nvcc`` per source, started together; ``ptxas``'s
+   registers and spills of the attention kernels are reported;
 3. kernels: each kernel against its plain PyTorch version on the card
    (attention: float32 at atol = rtol = 2e-5, bfloat16 at 2e-2, the
    tolerances of ``tests/test_kernels.py``; PCCS slowdown: float64 at
@@ -17,7 +18,10 @@ Phases, each fatal on failure:
    RWKV-6 scan at ``tests/test_kernels.py``'s 1e-4 / 5e-2, each with and
    without its initial state, at lengths 1, odd and full width, and cut
    in two with the state carried; attention also at recurrentgemma-9b's
-   head size 256), then timed (CUDA events, L2 flushed before each
+   head size 256, flash at q-tile edges (Sq of 1, 63, 65) and Sq < Skv
+   at every head size, decode with one sequence over 8192 slots (the most
+   splits), lengths on split boundaries and groups of 16 and 3), then
+   timed (CUDA events, L2 flushed before each
    call, median) beside its plain version, its roofline bound and a
    library yardstick where one PyTorch call computes the same function
    (``F.scaled_dot_product_attention`` for attention, ``torch.add(y, x,
@@ -76,6 +80,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -188,6 +193,40 @@ def bound(flops: float, nbytes: float,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+#: the attention kernels ``ptxas_rows`` reports (demangled, shortened)
+PTXAS_KEEP = ("flash_mma<", "flash_kernel<float", "split_mma<", "combine<",
+              "split_simt<bf16, bf16, 64, 1>",
+              "split_simt<bf16, bf16, 256, 1>",
+              "split_simt<float, float, 64, 1>",
+              "split_simt<float, float, 256, 8>")
+
+
+def ptxas_rows(build, name: str) -> dict:
+    """Registers and spilled bytes ``ptxas -v`` reported for the main
+    kernels of ``csrc/<name>.cu`` in this run's build."""
+    report = build.ptxas_report(name)
+    mangled = list(report)
+    try:
+        pretty = subprocess.run(
+            [str(Path(build.nvcc_path()).with_name("cu++filt"))],
+            input="\n".join(mangled), capture_output=True, text=True,
+            check=True).stdout.split("\n")
+    except (OSError, subprocess.CalledProcessError):
+        pretty = mangled
+    rows = {}
+    for key, full in zip(mangled, pretty):
+        short = (re.sub(r"\(.*", "", full.replace("(int)", ""))
+                 .removeprefix("void ")
+                 .replace("<unnamed>::", "")
+                 .replace("(anonymous namespace)::", "")
+                 .replace("__nv_bfloat16", "bf16"))
+        if short.startswith(PTXAS_KEEP):
+            r = report[key]
+            rows[short] = (f"{r.get('registers')} registers, "
+                           f"{r.get('spill_stores')} B spill stores")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # kernels vs plain versions
 # ---------------------------------------------------------------------------
@@ -218,6 +257,13 @@ def flash_checks(fa, gen, dev) -> int:
               (1, 2300, 2300, 16, 1, 256, True, None),
               (1, 2300, 2300, 16, 1, 256, True, 2048),
               (2, 77, 77, 16, 1, 256, True, 48)]
+    # q-tile edges (Sq of 1, 63, 65) and Sq < Skv at every head size:
+    # one query row, a tile one row short, a tile spilling one row over
+    for D in (32, 64, 128, 256):
+        cases += [(1, 1, 129, 4, 2, D, True, None),
+                  (2, 63, 63, 4, 1, D, True, None),
+                  (1, 65, 200, 4, 4, D, True, 48),
+                  (1, 65, 130, 4, 2, D, False, None)]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for B, Sq, Skv, Hq, Hkv, D, causal, window in cases:
@@ -238,7 +284,17 @@ def decode_checks(da, gen, dev) -> int:
     cases = [(4, 2048, 32, 32, 64, (9, 200, 514, 2047)),
              (4, 2048, 24, 8, 128, (0, 1, 513, 2048)),
              # recurrentgemma-9b's ring cache: lengths past the window
-             (4, 2048, 16, 1, 256, (9, 2048, 2301, 4000))]
+             (4, 2048, 16, 1, 256, (9, 2048, 2301, 4000)),
+             # one sequence over an 8192-slot cache: the most splits
+             (1, 8192, 32, 32, 64, (1,)), (1, 8192, 32, 32, 64, (8192,)),
+             (1, 8192, 16, 1, 256, (1,)), (1, 8192, 16, 1, 256, (8192,)),
+             # lengths on split boundaries and one row either side (at
+             # B = 4 on 132 SMs these shapes split every 192 and 64 rows)
+             (4, 2048, 32, 32, 64, (384, 385, 383, 768)),
+             (4, 2048, 16, 1, 256, (64, 65, 63, 128)),
+             # a 16-head group at B = 1; groups of 3 at D = 128
+             (1, 2048, 16, 1, 256, (2000,)), (1, 2048, 16, 1, 128, (777,)),
+             (2, 1024, 24, 8, 128, (700, 1024))]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, Hq, Hkv, D, lens in cases:
@@ -321,9 +377,11 @@ def decode_timing(da, timer, gen, dev, B, S, Hq, Hkv, D, lens) -> dict:
     flops = 4 * Hq * D * live
     nbytes = 2 * live * Hkv * D * 2 + 2 * B * Hq * D * 2 + B * 4
     b_ms, b_by = bound(flops, nbytes)
+    splits = da.decode_splits(B, Hkv, S, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     return dict(
         shape=f"B{B} S{S} H{Hq}/{Hkv} D{D} bf16 lengths={list(lens)}",
-        max_abs_err=err,
+        splits=splits, chunk=da.split_chunk(S, splits), max_abs_err=err,
         ms=timer(lambda: da.decode_attention(q, k, v, lengths)),
         plain_ms=timer(lambda: da.decode_attention_torch(q, k, v, lengths)),
         bound_ms=b_ms, bound_by=b_by,
@@ -1435,6 +1493,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}: {len(KERNEL_SOURCES)} "
           f"kernels built in {build_s:.1f} s")
+    ptxas = {name: ptxas_rows(_build, name)
+             for name in ("flash_attention", "decode_attention")}
+    for name, rows in ptxas.items():
+        for kernel, line in rows.items():
+            print(f"  ptxas {name}: {kernel}: {line}")
 
     phase("kernels vs plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1494,6 +1557,8 @@ def main() -> int:
                         "rwkv6_scan"])
     for kr in kernels:
         kr["launches"] = launches[kr["name"]]
+        if kr["name"] in ptxas:
+            kr["ptxas"] = ptxas[kr["name"]]
     for name in ("flash_attention", "decode_attention"):
         row = next(kr for kr in kernels if kr["name"] == name)
         row["launches_by_path"] = {

@@ -7,9 +7,14 @@ in ``.gitignore``)::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
+``-Xptxas -v`` makes ``ptxas`` report each kernel's registers, spills
+and static shared memory; the report is kept beside the library as
+``build/lib<name>-<hash>.log`` (:func:`ptxas_report`).
+
 The sources expose a plain C interface (no PyTorch headers), so a build
-takes seconds.  ``<hash>`` covers the source text and the flags: an
-edited source gets a new library and a stale one is never loaded.  Each
+takes seconds.  ``<hash>`` covers the source text, the shared headers
+(``csrc/*.cuh``) and the flags: an edited source or header gets a new
+library and a stale one is never loaded.  Each
 C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 raises on a non-zero code.
 
@@ -22,6 +27,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +36,7 @@ from pathlib import Path
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -48,9 +54,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
+    """Where ``csrc/<name>.cu`` builds to, keyed by source, headers and
+    flags."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -74,8 +83,38 @@ def load(name: str) -> ctypes.CDLL:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
                                f"{out.name}:\n{proc.stdout}")
+        out.with_suffix(".log").write_text(proc.stdout)
         os.replace(tmp, out)
     return ctypes.CDLL(str(out))
+
+
+def ptxas_report(name: str) -> dict:
+    """``{kernel: {"registers", "spill_stores", "spill_loads", "smem"}}``
+    from the ``ptxas -v`` report of ``csrc/<name>.cu``'s last build here
+    (mangled kernel names; empty if the report is missing)."""
+    log = library_path(name).with_suffix(".log")
+    if not log.is_file():
+        return {}
+    report, kernel = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            kernel = m.group(1)
+            report.setdefault(kernel, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and kernel:
+            report[kernel].update(spill_stores=int(m.group(1)),
+                                  spill_loads=int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            report[kernel]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            report[kernel]["smem"] = int(sm.group(1)) if sm else 0
+            kernel = None
+    return report
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -8,24 +8,35 @@ fallback between the two: a CUDA tensor the kernel cannot take raises.
 Replaces the TPU kernel ``src/repro/kernels/decode_attention.py``
 (``_kernel``, launched by ``decode_attention``).  The source note in the
 ``.cu`` file says what bounds the kernel on the card and how its design
-answers that.  The cache layout stays (B, S, Hkv, D), so the kernel reads
-the port's KV cache in place.
+answers that: a split pass over tile-aligned ranges of the cache
+(:func:`decode_splits`, :func:`split_chunk`) and a combine pass.
+:func:`decode_attention_split_torch` is the plain twin of those two
+passes, for the tests.  The cache layout stays (B, S, Hkv, D), so the
+kernel reads the port's KV cache in place.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from . import _build
 
-#: launches of the CUDA kernel since import (or since a caller reset it).
+#: launches of the CUDA kernel since import (or since a caller reset it):
+#: one per wrapper call, whether it ran one pass or split and combine.
 launches = 0
 
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448                 # bytes a block may use on Hopper
+#: split boundaries are multiples of this many cache rows (a kv tile of
+#: either pass-1 kernel divides it)
+SPLIT_ALIGN = 64
+#: the wrapper aims for this many pass-1 blocks per SM
+BLOCKS_PER_SM = 8
+_THREADS = 128
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,9 +44,50 @@ def _lib() -> ctypes.CDLL:
     fn = lib.decode_attention_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                       ctypes.c_float, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_splits(B: int, Hkv: int, S: int, sm_count: int = 132) -> int:
+    """How many splits of the cache the kernel runs per (b, kv-head).
+
+    A function of the shapes and the SM count only, never of the lengths
+    (they stay on the device): enough splits that B * Hkv * splits reaches
+    ``BLOCKS_PER_SM * sm_count``, as far as S has 64-row tiles for them.
+    """
+    tiles = max(1, -(-S // SPLIT_ALIGN))
+    want = -(-BLOCKS_PER_SM * sm_count // max(1, B * Hkv))
+    per = max(1, tiles // max(1, want))       # tiles per split
+    return -(-tiles // per)
+
+
+def split_chunk(S: int, splits: int) -> int:
+    """Cache rows per split: a multiple of ``SPLIT_ALIGN``; ``splits``
+    chunks cover S (trailing splits may be empty)."""
+    tiles = max(1, -(-S // SPLIT_ALIGN))
+    return -(-tiles // splits) * SPLIT_ALIGN
+
+
+def smem_bytes(q_dtype, kv_dtype, D: int, G: int) -> int:
+    """Dynamic shared memory of the pass-1 kernel ``csrc`` picks for these
+    types, head size and group (``Mma<D>::SMEM``, ``Simt<...>::SMEM``)."""
+    if q_dtype == kv_dtype == torch.bfloat16 and G >= 8:
+        ld = D + 8
+        region = max(2 * 2 * 64 * ld * 2, 4 * 16 * (D + 2) * 4)
+        return region + 16 * ld * 2
+    gc = 8 if G >= 8 else 4 if G >= 4 else 2 if G >= 2 else 1
+    size = 4 if kv_dtype == torch.float32 else 2
+    bkv = 32 if D * size > 512 else 64
+    rows = _THREADS // (D * size // 16)
+    region = max(2 * 2 * bkv * D * size, rows * gc * D * 4)
+    return region + 4 * (gc * D + gc * bkv + 3 * gc)
 
 
 def decode_attention(q, k_cache, v_cache, lengths):
@@ -77,7 +129,7 @@ def _launch(q, k, v, lengths):
         raise NotImplementedError(f"decode_attention kernel: head dim {D} "
                                   f"not in {HEAD_DIMS}")
     G = Hq // Hkv
-    smem = 4 * (128 * (D + 1) + 2 * G * D + 128 * G + 3 * G)
+    smem = smem_bytes(q.dtype, k.dtype, D, G)
     if smem > _SMEM_LIMIT:
         raise NotImplementedError(f"decode_attention kernel: GQA group {G} "
                                   f"at head dim {D} needs {smem} B of shared "
@@ -85,13 +137,28 @@ def _launch(q, k, v, lengths):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
             and lengths.is_contiguous()):
         raise ValueError("decode_attention: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("decode_attention: q and caches must be 16-byte "
+                         "aligned (the kernel copies 16 bytes at a time)")
     lib = _lib()
     out = torch.empty_like(q)
+    index = q.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    splits = decode_splits(B, Hkv, S, _sm_count(index))
+    part_acc = part_ml = 0
+    if splits > 1 and B:
+        rows = B * Hq * splits
+        scratch = torch.empty(rows * (D + 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = scratch.data_ptr()
+        part_ml = scratch[rows * D:].data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], B, S, Hq,
-        Hkv, D, 1.0 / math.sqrt(D), stream)
+        out.data_ptr(), part_acc, part_ml, _DTYPE_CODE[q.dtype],
+        _DTYPE_CODE[k.dtype], B, S, Hq, Hkv, D, splits,
+        split_chunk(S, splits), 1.0 / math.sqrt(D), stream)
     _build.check(lib, code, "decode_attention")
     launches += 1
     return out
@@ -118,4 +185,39 @@ def decode_attention_torch(q, k_cache, v_cache, lengths):
     vz = v_cache.float().masked_fill(~valid[:, :, None, None], 0.0)
     out = torch.einsum("bhgk,bkhe->bhge", p, vz) / p.sum(
         -1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(B, 1, Hq, Dv).to(q.dtype)
+
+
+def decode_attention_split_torch(q, k_cache, v_cache, lengths, splits: int):
+    """Plain PyTorch twin of the kernel's two passes (tests only).
+
+    Pass 1: split j owns cache rows ``[j * chunk, (j + 1) * chunk)`` with
+    ``chunk = split_chunk(S, splits)``, and gives f32 partials (m, l, acc)
+    per query head over the rows below the length (m = -1e30, l = 0,
+    acc = 0 for a split with none).  Pass 2 rescales them by
+    exp(m_j - max m), sums and divides by max(l, 1e-30).
+    """
+    B, _, Hq, D = q.shape
+    _, S, Hkv, Dv = v_cache.shape
+    G = Hq // Hkv
+    chunk = split_chunk(S, splits)
+    dev = q.device
+    qg = q.float().reshape(B, Hkv, G, D) / math.sqrt(D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float())   # (B,Hkv,G,S)
+    pos = torch.arange(S, device=dev)
+    length = lengths.to(dev).long().clamp(0, S)[:, None]         # (B, 1)
+    ms, ls, accs = [], [], []
+    for j in range(splits):
+        live = (pos >= j * chunk) & (pos < (j + 1) * chunk) & (pos < length)
+        sj = s.masked_fill(~live[:, None, None, :], -math.inf)
+        m = sj.amax(-1).clamp_min(-1e30)                         # (B,Hkv,G)
+        p = torch.exp(sj - m[..., None])
+        vz = v_cache.float().masked_fill(~live[:, :, None, None], 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgk,bkhe->bhge", p, vz))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    w = torch.exp(m - m.amax(0))
+    out = (acc * w[..., None]).sum(0) / (l * w).sum(0).clamp_min(
+        1e-30)[..., None]
     return out.reshape(B, 1, Hq, Dv).to(q.dtype)

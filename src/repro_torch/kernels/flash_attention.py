@@ -8,7 +8,9 @@ between the two: a CUDA tensor the kernel cannot take raises.
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
 (``_kernel``, launched by ``flash_attention``).  The source note in the
 ``.cu`` file says what bounds the kernel on the card and how its design
-answers that.
+answers that.  The wrapper's one launch takes the tensor-core kernel for
+bfloat16 and the CUDA-core kernel for float32 (chosen in ``csrc`` by the
+dtype code).
 """
 from __future__ import annotations
 
@@ -71,6 +73,9 @@ def _launch(q, k, v, causal, window):
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
+                         "(the bf16 kernel copies 16 bytes at a time)")
     lib = _lib()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream

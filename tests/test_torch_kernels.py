@@ -289,3 +289,131 @@ def test_decode_kernel_head_256_vs_plain(cuda_device, case, dtype):
     assert tdec.launches == before + 1
     want = tdec.decode_attention_torch(q, k, v, lengths)
     np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()), **tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# card only: the split-KV decode and the tensor-core flash kernel's edges
+# ---------------------------------------------------------------------------
+#: (B, S, Hq, Hkv, D, lengths): one sequence over an 8192-slot cache (the
+#: most splits), lengths on split boundaries and one row either side (on
+#: 132 SMs the wrapper splits these shapes every 192 and 64 rows), a
+#: 16-head group at B = 1, groups of 3 at D = 128
+DECODE_SPLIT_CASES = [
+    (1, 8192, 32, 32, 64, (1,)), (1, 8192, 32, 32, 64, (8192,)),
+    (1, 8192, 16, 1, 256, (1,)), (1, 8192, 16, 1, 256, (8192,)),
+    (4, 2048, 32, 32, 64, (384, 385, 383, 768)),
+    (4, 2048, 16, 1, 256, (64, 65, 63, 128)),
+    (1, 2048, 16, 1, 256, (2000,)), (1, 2048, 16, 1, 128, (777,)),
+    (2, 1024, 24, 8, 128, (700, 1024)),
+    (3, 500, 8, 1, 32, (0, 499, 500)),          # G = 8: the mma path's edge
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_SPLIT_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_split_kernel_vs_plain(cuda_device, case, dtype):
+    B, S, Hq, Hkv, D, lens = case
+    q, k, v = (_card(x, dtype, cuda_device) for x in draw(
+        11, (B, 1, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = tdec.launches
+    got = tdec.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert tdec.launches == before + 1           # one per call, any splits
+    want = tdec.decode_attention_torch(q, k, v, lengths)
+    np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()), **tol(dtype))
+    splits = tdec.decode_splits(B, Hkv, S, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    twin = tdec.decode_attention_split_torch(q, k, v, lengths, splits)
+    np.testing.assert_allclose(f32(got.cpu()), f32(twin.cpu()), **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [("float32", "bfloat16"),
+                                              ("bfloat16", "float32")])
+def test_decode_kernel_mixed_types(cuda_device, q_dtype, kv_dtype):
+    """q of one type over caches of the other (the CUDA-core path)."""
+    qn, kn, vn = draw(12, (2, 1, 16, 128), (2, 700, 1, 128), (2, 700, 1, 128))
+    q = _card(qn, q_dtype, cuda_device)
+    k, v = (_card(x, kv_dtype, cuda_device) for x in (kn, vn))
+    lengths = torch.tensor([700, 129], dtype=torch.int32, device=cuda_device)
+    got = tdec.decode_attention(q, k, v, lengths)
+    want = tdec.decode_attention_torch(q, k, v, lengths)
+    assert got.dtype == q.dtype
+    np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()),
+                               **tol("bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_kernel_ignores_nan_past_length_mqa_256(cuda_device, dtype):
+    """The 0 * NaN guard on the tensor-core path (bf16) and the CUDA-core
+    path (float32): recurrentgemma-9b's 16 heads over one kv head of 256."""
+    qn, kn, vn = draw(13, (3, 1, 16, 256), (3, 1000, 1, 256),
+                      (3, 1000, 1, 256))
+    lens = (700, 65, 0)
+    for b, n in enumerate(lens):
+        kn[b, n:] = np.nan
+        vn[b, n:] = np.nan
+    q, k, v = (_card(x, dtype, cuda_device) for x in (qn, kn, vn))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    got = tdec.decode_attention(q, k, v, lengths)
+    want = tdec.decode_attention_torch(q, k, v, lengths)
+    assert torch.isfinite(got).all()
+    assert not got[2].float().any()
+    np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()), **tol(dtype))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_never_syncs(cuda_device):
+    """The wrapper reads no lengths on the host: under sync debug mode
+    "error" a synchronizing call would raise."""
+    qn, kn, vn = draw(14, (2, 1, 16, 256), (2, 512, 1, 256), (2, 512, 1, 256))
+    q, k, v = (_card(x, "bfloat16", cuda_device) for x in (qn, kn, vn))
+    lengths = torch.tensor([300, 512], dtype=torch.int32, device=cuda_device)
+    tdec.decode_attention(q, k, v, lengths)      # build and warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tdec.decode_attention(q, k, v, lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+#: (B, Sq, Skv, Hq, Hkv, causal, window) at every head size: one query row,
+#: a q tile one row short, a tile spilling one row over, Sq < Skv
+FLASH_EDGE_CASES = [(1, 1, 129, 4, 2, True, None), (2, 63, 63, 4, 1, True,
+                                                     None),
+                    (1, 65, 200, 4, 4, True, 48), (1, 65, 130, 4, 2, False,
+                                                   None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES)
+@pytest.mark.parametrize("D", (32, 64, 128, 256))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_kernel_edges_vs_plain(cuda_device, case, D, dtype):
+    B, Sq, Skv, Hq, Hkv, causal, window = case
+    q, k, v = (_card(x, dtype, cuda_device) for x in draw(
+        15, (B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    before = tfa.launches
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    want = tfa.attention_torch(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()), **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_kernels_refuse_unsupported_head_size(cuda_device, dtype):
+    """No fallback: a CUDA tensor the kernels cannot take raises."""
+    td = DTYPES[dtype][1]
+    q = torch.randn(1, 8, 2, 96, device=cuda_device).to(td)
+    with pytest.raises(NotImplementedError, match="head dim 96"):
+        tfa.flash_attention(q, q, q)
+    lengths = torch.tensor([5], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="head dim 96"):
+        tdec.decode_attention(q[:, :1].contiguous(), q, q, lengths)
