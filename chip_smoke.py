@@ -14,71 +14,93 @@ Phases, each fatal on failure:
    tolerances of ``tests/test_kernels.py``; PCCS slowdown: float64 at
    atol = rtol = 1e-12, float32 at 5e-6; annealing select and the
    streaming antagonist: bit for bit, with poisoned lanes, special values
-   and offset views; the RG-LRU scan at the attention tolerances and the
-   RWKV-6 scan at ``tests/test_kernels.py``'s 1e-4 / 5e-2, each with and
-   without its initial state, at lengths 1, odd and full width, and cut
-   in two with the state carried; attention also at recurrentgemma-9b's
-   head size 256, flash at q-tile edges (Sq of 1, 63, 65) and Sq < Skv
-   at every head size, decode with one sequence over 8192 slots (the most
-   splits), lengths on split boundaries and groups of 16 and 3), then
-   timed (CUDA events, L2 flushed before each
-   call, median) beside its plain version, its roofline bound and a
-   library yardstick where one PyTorch call computes the same function
-   (``F.scaled_dot_product_attention`` for attention, ``torch.add(y, x,
-   alpha=c)`` for the stream; none for the other four).  The stream is
-   timed at the probe's 32 MB pass and at a 1 GB pass, whose rate must
+   and offset views, the duty-cycled antagonist included; the RG-LRU scan
+   at the attention tolerances and the RWKV-6 scan at
+   ``tests/test_kernels.py``'s 1e-4 / 5e-2, each with and without its
+   initial state, at lengths 1, odd and full width, and cut in two with
+   the state carried; attention at every head size the kernels are built
+   for (16, 32, 64, 80, 128, 256) and at 40, which the wrappers pad,
+   recurrentgemma-9b's MQA at 256, hubert-xlarge's 16 heads of 80, flash
+   at q-tile edges (Sq of 1, 63, 65) and Sq < Skv, decode with one
+   sequence over 8192 slots (the most splits), lengths 0, 1, S and on
+   split boundaries, groups of 1, 3, 8 and 16), then timed (CUDA events,
+   L2 flushed before each call, median) beside its plain version, its
+   roofline bound and a library yardstick where one PyTorch call computes
+   the same function (``F.scaled_dot_product_attention`` for attention,
+   ``torch.add(y, x, alpha=c)`` for the stream; none for the other four):
+   flash in bf16 and in float32 (the characterization's shape), the scans
+   at a prefill's and at a decode step's shape, the stream at 32 MB, 256
+   MB and the card's 1 GB calibration pass, whose rate past the L2 must
    not exceed 105% of the card's memory rate;
 4. serve: full-width stablelm-1.6b with random weights from a seeded
-   generator, 4 requests through ``ServingEngine``; every request must get
-   its 16 tokens, both kernels must have launched (24 flash launches per
-   prefill, 24 decode launches per decode step), and each prompt's prefill
-   through the kernels must match the plain path (same argmax, relative
-   logits error <= 2e-2);
+   generator, 4 requests through ``ServingEngine``, its decode step a
+   CUDA graph; every request must get its 16 tokens, both kernels must
+   have launched (24 flash launches per prefill, 24 decode launches per
+   decode step, replays counted), and each prompt's prefill through the
+   kernels must match the plain path (same argmax, relative logits error
+   <= 2e-2); then an engine that steps eagerly must give the same tokens;
+   the step ms and busy share of both are reported;
 5. float32 end to end: the same prefills on full-width stablelm-1.6b with
    float32 weights, activations and KV cache, kernel path against plain
    path (same argmax, relative logits error <= E2E_F32_REL_TOL).  With no
    bf16 rounding to amplify, this is the check that can tell a kernel
    fault from rounding;
-6. search: the schedule search of ``repro_torch.core`` on the card under
+6. reduced configs (head size 16, float32): the serve CLI with
+   ``--reduced`` on the card, then reduced stablelm-1.6b and
+   recurrentgemma-9b through the graph engine (exact launches, the same
+   tokens as the eager engine), each prompt's prefill and a decode step
+   through the kernels against the plain path (<= E2E_F32_REL_TOL);
+7. search: the schedule search of ``repro_torch.core`` on the card under
    the paper's PCCS surface, ``Scheduler(..., evaluator="torch").solve(
-   ..., solver="anneal")``, on the three golden Table-6 fixtures.  The
-   orin fixture in float64 at population 4096 must give on the card the
-   incumbent the same search gives on the CPU (where the plain versions
-   run), and its device objective must match the scalar re-simulation;
-   every fixture at population 1024 (128 steps) must be no worse than
-   greedy; both search kernels must have launched in each solve;
-7. characterize: the port's profiling CLI (``repro_torch.launch.profile
+   ..., solver="anneal")``, each step replayed as CUDA graphs, on the
+   three golden Table-6 fixtures.  The orin fixture in float64 at
+   population 4096 must give on the card the incumbent the same search
+   gives on the CPU (where the plain versions run), and its device
+   objective must match the scalar re-simulation; every fixture at
+   population 1024 (128 steps) must be no worse than greedy; both search
+   kernels must have launched in each solve (the select kernel once a
+   step plus its warm-up before capture); the graphs' wave budget W and
+   overflow replays are reported;
+8. characterize: the port's profiling CLI (``repro_torch.launch.profile
    --executor torch --arch stablelm-1.6b --fit piecewise --solve --solver
    anneal``) measures the 8 layer groups of full-width stablelm-1.6b
    through the flash kernel (3 x (warmup + repeats) launches in each),
-   calibrates PCCS from co-runs of the streaming antagonist (which must
-   launch in the peak measurement and at every demand level), writes a
-   bundle that must round-trip, and solves from it; then
+   calibrates PCCS from co-runs of 1 GB stream passes against the
+   duty-cycled antagonist on a quarter of the SMs (one launch at full
+   duty alone; at each demand level a standalone and a co-run timing and
+   one antagonist launch; every launch counted), writes a bundle that
+   must round-trip, and solves from it; the samples must rise with the
+   demand within 5%, and so must three repeats of the sweep (repeated at
+   half of the SMs too, reported); then
    ``Scheduler.from_bundle(bundle, evaluator="torch")`` must solve on the
-   card through both search kernels, no worse than greedy;
-8. serve the recurrent families: full-width rwkv6-7b (4 prompts) and
+   card through both search kernels, no worse than greedy; the samples
+   and the fit's error against its 5% gate are reported;
+9. serve the recurrent families: full-width rwkv6-7b (4 prompts) and
    recurrentgemma-9b (5, one of 2300 tokens past its 2048 window), seeded
    random weights with the PERTURBED parameters filled, through
-   ``ServingEngine``; every request gets its 16 tokens, every kernel of
-   the path launches exactly layers x prefills or steps times, each
-   prompt's prefill through the kernels matches the plain path (same
-   argmax; relative logits error within the limit FLOOR_MARGIN explains),
-   and zeroing the RG-LRU scan's output on the plain path must move
-   recurrentgemma-9b's logits by FAULT_MIN_REL or more;
-9. float32 end to end on both recurrent models: kernel path against plain
-   path, and prefill(n) plus one decode step against prefill(n + 1), each
-   within E2E_F32_REL_TOL with the same argmax.
+   ``ServingEngine`` with graph steps; every request gets its 16 tokens,
+   every kernel of the path launches exactly layers x prefills or steps
+   times, each prompt's prefill through the kernels matches the plain
+   path (same argmax; relative logits error within the limit
+   FLOOR_MARGIN explains), zeroing the RG-LRU scan's output on the plain
+   path must move recurrentgemma-9b's logits by FAULT_MIN_REL or more,
+   and an eager engine must give the same tokens;
+10. float32 end to end on both recurrent models: kernel path against
+   plain path, and prefill(n) plus one decode step against prefill(n +
+   1), each within E2E_F32_REL_TOL with the same argmax.
 
 Each phase prints its seconds.  The last line is the contract line
 ``{"ok": true, "device": {...}}``; before it come the ``{"phase_s": ...}``,
-``{"serve": ...}``, ``{"search": ...}``, ``{"characterize": ...}`` and
-``{"serve_recurrent": ...}`` lines, one ``{"kernels": [...]}`` line and
-the card's ``nvidia-smi`` name and power limit.  Without a CUDA device the
+``{"serve": ...}``, ``{"serve_reduced": ...}``, ``{"search": ...}``,
+``{"characterize": ...}`` and ``{"serve_recurrent": ...}`` lines, one
+``{"kernels": [...]}`` line and the card's ``nvidia-smi`` name and power
+limit.  Without a CUDA device the
 script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import re
 import statistics
@@ -109,12 +131,17 @@ RWKV_TOL = {torch.float32: dict(atol=1e-4, rtol=5e-2),
             torch.bfloat16: dict(atol=5e-2, rtol=5e-2)}
 #: stream kernel checks: lengths, the last a 1 GB operand
 STREAM_NS = (1, 3, 4097, (1 << 20) + 3, 1 << 28)
-#: the probe's peak pass (repro/profiling/probes.py:95) and a pass larger
-#: than the 50 MB L2
-STREAM_TIMED_MB = (32.0, 1000.0)
-#: the antagonist's and the co-run target's pass (probes.py:121), checked
-#: bitwise with the timed passes
+#: the reference's peak pass (repro/profiling/probes.py:95), a pass five
+#: times the 50 MB L2, and the card's calibration pass (probe_sizes): the
+#: kernel and torch.add are timed at each
+STREAM_TIMED_MB = (32.0, 256.0, 1000.0)
+#: the reference's antagonist and co-run target pass (probes.py:121),
+#: checked bitwise with the timed passes
 STREAM_CORUN_MB = 8.0
+#: head sizes the attention kernels are checked at: every instantiated
+#: one (16: every reduced config; 80: hubert-xlarge) and 40, which the
+#: wrappers zero-pad to 64
+CHECK_HEAD_DIMS = (16, 32, 40, 64, 80, 128, 256)
 E2E_REL_TOL = 2e-2
 E2E_F32_REL_TOL = 1e-4
 PROMPT_LENS = (8, 100, 513, 1000)
@@ -141,6 +168,14 @@ FLOOR_MARGIN = 1.25
 #: the planted fault (RG-LRU scan output zeroed on the plain path) must
 #: move the logits by at least this much
 FAULT_MIN_REL = 10 * 2e-2
+#: the calibration's fit gate (repro_torch.launch.profile.FIT_GATE), a
+#: warning there and here
+FIT_GATE = 0.05
+#: the calibration's repeatability check: the co-run sweep repeated in
+#: one process with the antagonist on each share of the SMs
+SPREAD_SHARES = (0.25, 0.5)
+SPREAD_REPEATS = 3
+PHASES = 10
 
 
 def require(cond: bool, msg: str) -> None:
@@ -161,14 +196,20 @@ def card_line() -> str:
 class Timer:
     """Median device time of one call, L2 flushed before each call.
 
-    The flush (a 256 MB memset) is queued before the start event, so the
-    card is busy while the host queues the timed call: the events bracket
-    the call's device time, not the host's launch latency."""
+    The flush (a 256 MB memset) and then the calibration timer's spin
+    (``harness.SPIN_CYCLES``) are queued before the start event, so the
+    card is busy while the host queues the timed call: the events
+    bracket the call's device time, not the host's launch latency.  (The
+    flush alone, ~0.08 ms, did not cover a wrapper's host work on a busy
+    host: the select kernel read 0.0099-0.0456 ms over five runs of one
+    build.)"""
 
     def __init__(self, device, reps: int = 15, warmup: int = 3):
+        from repro_torch.profiling.harness import SPIN_CYCLES
+
         self.flush = torch.empty(64 << 20, dtype=torch.float32,
                                  device=device)
-        self.reps, self.warmup = reps, warmup
+        self.reps, self.warmup, self.spin = reps, warmup, SPIN_CYCLES
 
     def __call__(self, fn) -> float:
         for _ in range(self.warmup):
@@ -176,6 +217,7 @@ class Timer:
         times = []
         for _ in range(self.reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.spin)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -256,10 +298,15 @@ def flash_checks(fa, gen, dev) -> int:
               # 2048 window, and an odd size
               (1, 2300, 2300, 16, 1, 256, True, None),
               (1, 2300, 2300, 16, 1, 256, True, 2048),
-              (2, 77, 77, 16, 1, 256, True, 48)]
+              (2, 77, 77, 16, 1, 256, True, 48),
+              # hubert-xlarge's encoder: 16 heads of 80, bidirectional
+              (1, 500, 500, 16, 16, 80, False, None),
+              # a reduced config's layers: 4/2 and 4/1 heads of 16
+              (2, 100, 100, 4, 2, 16, True, None),
+              (1, 100, 100, 4, 1, 16, True, 32)]
     # q-tile edges (Sq of 1, 63, 65) and Sq < Skv at every head size:
     # one query row, a tile one row short, a tile spilling one row over
-    for D in (32, 64, 128, 256):
+    for D in CHECK_HEAD_DIMS:
         cases += [(1, 1, 129, 4, 2, D, True, None),
                   (2, 63, 63, 4, 1, D, True, None),
                   (1, 65, 200, 4, 4, D, True, 48),
@@ -295,6 +342,11 @@ def decode_checks(da, gen, dev) -> int:
              # a 16-head group at B = 1; groups of 3 at D = 128
              (1, 2048, 16, 1, 256, (2000,)), (1, 2048, 16, 1, 128, (777,)),
              (2, 1024, 24, 8, 128, (700, 1024))]
+    # the other head sizes, a group of 1 and one of 8 (the tensor-core
+    # pass in bf16), lengths 0, 1 and S
+    for D in (16, 40, 80):
+        cases += [(3, 300, 4, 4, D, (0, 1, 300)),
+                  (3, 300, 16, 2, D, (0, 1, 300))]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, Hq, Hkv, D, lens in cases:
@@ -311,23 +363,28 @@ def decode_checks(da, gen, dev) -> int:
     return n
 
 
-def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window) -> dict:
-    """Time one causal bf16 prefill's attention, beside its plain version,
-    its bound and ``F.scaled_dot_product_attention`` (GQA expanded)."""
-    q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
+                 dtype=torch.bfloat16) -> dict:
+    """Time one causal prefill's attention, beside its plain version, its
+    bound and ``F.scaled_dot_product_attention`` (GQA expanded).  bf16
+    runs on the tensor cores (bound by their rate), float32 on the CUDA
+    cores (bound by the float32 rate)."""
+    q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(dtype)
     k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
-    err = compare(f"flash timed shape D{D}",
+            .to(dtype) for _ in range(2))
+    err = compare(f"flash timed shape D{D} {str(dtype)[6:]}",
                   fa.flash_attention(q, k, v, window=window),
-                  fa.attention_torch(q, k, v, window=window), torch.bfloat16)
+                  fa.attention_torch(q, k, v, window=window), dtype)
     qt = q.transpose(1, 2)
     kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
               for x in (k, v))
     w = S if window is None else window
     pairs = sum(min(i + 1, w) for i in range(S))        # live (q, k) pairs
     flops = 4 * B * Hq * D * pairs
-    nbytes = 2 * B * S * (Hq + Hkv) * D * 2        # q, k, v read; o written
-    b_ms, b_by = bound(flops, nbytes)
+    size = dtype.itemsize
+    nbytes = 2 * B * S * (Hq + Hkv) * D * size     # q, k, v read; o written
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS
+                       if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
     if window is None:
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
@@ -339,7 +396,7 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window) -> dict:
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     return dict(
-        shape=f"B{B} S{S} H{Hq}/{Hkv} D{D} bf16 causal"
+        shape=f"B{B} S{S} H{Hq}/{Hkv} D{D} {str(dtype)[6:]} causal"
               + ("" if window is None else f" window {window}"),
         max_abs_err=err,
         ms=timer(lambda: fa.flash_attention(q, k, v, window=window)),
@@ -349,14 +406,18 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window) -> dict:
 
 def time_flash(fa, timer, gen, dev) -> dict:
     """Slice shapes: one 1024-token causal prefill, 32 heads of 64, bf16;
-    and recurrentgemma-9b's local layer at its 2300-token prompt (16 query
-    heads and one kv head of 256, window 2048)."""
+    recurrentgemma-9b's local layer at its 2300-token prompt (16 query
+    heads and one kv head of 256, window 2048); and the float32 kernel at
+    the characterization's group shape (batch 2, seq 256, 32 heads of
+    64)."""
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:113",
         **flash_timing(fa, timer, gen, dev, 1, 1024, 32, 32, 64, None),
-        at_d256=flash_timing(fa, timer, gen, dev, 1, 2300, 16, 1, 256, 2048))
+        at_d256=flash_timing(fa, timer, gen, dev, 1, 2300, 16, 1, 256, 2048),
+        at_f32=flash_timing(fa, timer, gen, dev, 2, 256, 32, 32, 64, None,
+                            torch.float32))
 
 
 def decode_timing(da, timer, gen, dev, B, S, Hq, Hkv, D, lens) -> dict:
@@ -504,49 +565,67 @@ def rwkv_checks(rk, gen, dev) -> int:
     return n
 
 
+def rglru_timing(rg, timer, gen, dev, B, S, D, with_h0) -> dict:
+    a, b, h0 = scan_inputs(B, S, D, torch.bfloat16, gen, dev)
+    h0 = h0 if with_h0 else None
+    err = compare(f"rglru timed shape S{S}", rg.rglru_scan(a, b, h0)[0],
+                  rg.linear_scan_torch(a, b, h0)[0], torch.bfloat16)
+    # a, b in and h out (bf16), h0 in and h_last out (f32)
+    nbytes = 3 * B * S * D * 2 + (2 if with_h0 else 1) * B * D * 4
+    b_ms, b_by = bound(2.0 * B * S * D, nbytes, PEAK_F32_FLOPS)
+    return dict(
+        shape=f"B{B} S{S} D{D} bf16, {'f32 h0' if with_h0 else 'no h0'}",
+        max_abs_err=err, ms=timer(lambda: rg.rglru_scan(a, b, h0)),
+        plain_ms=timer(lambda: rg.linear_scan_torch(a, b, h0)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
 def time_rglru(rg, timer, gen, dev) -> dict:
     """Prefill shape: one 1000-token prompt through a recurrentgemma-9b
-    RG-LRU layer, d_rnn 4096, bf16, no h0 (as a prefill calls it)."""
-    B, S, D = 1, 1000, 4096
-    a, b, _ = scan_inputs(B, S, D, torch.bfloat16, gen, dev)
-    err = compare("rglru timed shape", rg.rglru_scan(a, b)[0],
-                  rg.linear_scan_torch(a, b)[0], torch.bfloat16)
-    b_ms, b_by = bound(2.0 * B * S * D, 3 * B * S * D * 2 + B * D * 4,
-                       PEAK_F32_FLOPS)
+    RG-LRU layer, d_rnn 4096, bf16, no h0 (as a prefill calls it); and the
+    decode step's shape, one token for each of 4 slots with their h0."""
     return dict(
         name="rglru_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru.cu",
         replaces="src/repro/kernels/rglru.py:63",
-        shape=f"B{B} S{S} D{D} bf16, no h0", max_abs_err=err,
-        ms=timer(lambda: rg.rglru_scan(a, b)),
-        plain_ms=timer(lambda: rg.linear_scan_torch(a, b)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **rglru_timing(rg, timer, gen, dev, 1, 1000, 4096, False),
+        at_decode=rglru_timing(rg, timer, gen, dev, 4, 1, 4096, True),
         library="none: no single PyTorch call computes a linear recurrence "
                 "(torch.cumsum/cumprod give it only through a division "
                 "that underflows)")
 
 
-def time_rwkv6(rk, timer, gen, dev) -> dict:
-    """Prefill shape: one 1000-token prompt through an rwkv6-7b layer, 64
-    heads of 64, bf16, a float32 zero state0 (as a prefill calls it)."""
-    B, T, H, D = 1, 1000, 64, 64
-    r, k, v, w, u, _ = rwkv_inputs(B, T, H, D, D, torch.bfloat16, gen, dev)
-    s0 = torch.zeros(B, H, D, D, device=dev)
-    err = compare("rwkv6 timed shape", rk.rwkv6_scan(r, k, v, w, u, s0)[0],
+def rwkv6_timing(rk, timer, gen, dev, B, T, H, D, zero_state) -> dict:
+    r, k, v, w, u, s0 = rwkv_inputs(B, T, H, D, D, torch.bfloat16, gen, dev)
+    if zero_state:
+        s0 = torch.zeros(B, H, D, D, device=dev)
+    err = compare(f"rwkv6 timed shape T{T}",
+                  rk.rwkv6_scan(r, k, v, w, u, s0)[0],
                   rk.rwkv6_torch(r, k, v, w, u, s0)[0], torch.bfloat16,
                   RWKV_TOL[torch.bfloat16])
     flops = 4.0 * B * T * H * D * D
     nbytes = 5 * B * T * H * D * 2 + H * D * 2 + 2 * B * H * D * D * 4
     b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
     return dict(
-        name="rwkv6_scan", route="cuda",
-        source="src/repro_torch/kernels/csrc/rwkv6.cu",
-        replaces="src/repro/kernels/rwkv6.py:68",
-        shape=f"B{B} T{T} H{H} D{D} Dv{D} bf16, zero state0",
+        shape=f"B{B} T{T} H{H} D{D} Dv{D} bf16, "
+              + ("zero state0" if zero_state else "f32 state0"),
         max_abs_err=err,
         ms=timer(lambda: rk.rwkv6_scan(r, k, v, w, u, s0)),
         plain_ms=timer(lambda: rk.rwkv6_torch(r, k, v, w, u, s0)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def time_rwkv6(rk, timer, gen, dev) -> dict:
+    """Prefill shape: one 1000-token prompt through an rwkv6-7b layer, 64
+    heads of 64, bf16, a float32 zero state0 (as a prefill calls it); and
+    the decode step's shape, one token for each of 4 slots with their
+    state."""
+    return dict(
+        name="rwkv6_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rwkv6.cu",
+        replaces="src/repro/kernels/rwkv6.py:68",
+        **rwkv6_timing(rk, timer, gen, dev, 1, 1000, 64, 64, True),
+        at_decode=rwkv6_timing(rk, timer, gen, dev, 4, 1, 64, 64, False),
         library="none: no single PyTorch call computes the matrix-state "
                 "recurrence")
 
@@ -672,10 +751,12 @@ def time_slowdown(sd, timer, gen, dev, n) -> dict:
 
 def time_select(se, timer, gen, dev, P, L) -> dict:
     """Search shape: one step of the float64 search, P chains of L =
-    workloads x padded groups."""
+    workloads x padded groups, the temperature on the device as the
+    search's graph passes it."""
     dtype = torch.float64
     args = select_inputs(P, L, gen, dev, dtype)
-    got = se.anneal_select(*args, 0.37)
+    temp = torch.full((1,), 0.37, dtype=dtype, device=dev)
+    got = se.anneal_select(*args, temp)
     want = se.anneal_select_torch(*args, 0.37)
     diff = sum(int((g != w).sum()) for g, w in zip(got[::2], want[::2]))
     diff += sum(int((~((g == w) | (g.isnan() & w.isnan()))).sum())
@@ -688,8 +769,8 @@ def time_select(se, timer, gen, dev, P, L) -> dict:
         replaces="src/repro/kernels/search.py:76",
         shape=f"P={P} L={L} float64",
         max_abs_err=float(diff),
-        ms=timer(lambda: se.anneal_select(*args, 0.37)),
-        plain_ms=timer(lambda: se.anneal_select_torch(*args, 0.37)),
+        ms=timer(lambda: se.anneal_select(*args, temp)),
+        plain_ms=timer(lambda: se.anneal_select_torch(*args, temp)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
@@ -730,51 +811,99 @@ def stream_checks(st, gen, dev) -> int:
             n_checks += 1
         del x, y, got, want
         torch.cuda.empty_cache()
-    return n_checks
+    return n_checks + duty_check(st, gen, dev)
+
+
+def duty_check(st, gen, dev) -> int:
+    """The duty-cycled antagonist (one launch, its own stream, a quarter
+    of the SMs) at full and at a tenth of its duty over 4 MB operands:
+    after at least one pass its output equals the plain version bit for
+    bit, and raising the flag stops it."""
+    n = 1 << 20
+    x, y = stream_operands(n, gen, dev)
+    out = torch.zeros_like(x)
+    moved = torch.zeros(3, dtype=torch.int64, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    blocks = st.duty_blocks(dev, 0.25)
+    side, ctl = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    for demand in (1.0, 0.1):
+        out.zero_()
+        flag.zero_()
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            st.duty_cycle(x, y, out, moved, flag, demand=demand,
+                          period_ms=0.02, blocks=blocks, max_s=10.0)
+        time.sleep(0.05)
+        with torch.cuda.stream(ctl):
+            flag.fill_(1)
+        t0 = time.perf_counter()
+        side.synchronize()
+        stop_ms = (time.perf_counter() - t0) * 1e3
+        nbytes, span = st.moved_stats(moved)
+        passes = nbytes / (3 * 4 * (n // 4 * 4))
+        same = bit_equal(out, st.stream_torch(x, y))
+        print(f"  stream duty cycle {demand:g} on {blocks} SMs: {passes:.1f} "
+              f"passes in {span * 1e3:.1f} ms = "
+              f"{nbytes / max(span, 1e-9) / 1e9:.1f} GB/s, stopped "
+              f"{stop_ms:.2f} ms after the flag, output bitwise "
+              f"{'equal' if same else 'DIFFERENT'}")
+        require(passes >= 1, f"the duty cycle streamed {passes} passes")
+        require(same, "stream duty cycle: output differs from the plain "
+                "version")
+        require(stop_ms < 1000, f"the duty cycle took {stop_ms} ms to stop")
+    return 2
+
+
+def stream_timing(st, probes, timer, dev, mb) -> dict:
+    """One pass of ``mb`` MB through the probe's own buffers: the kernel,
+    the plain version and ``torch.add``."""
+    x, y = probes.make_buffers(mb, device=dev)
+    n = x.numel()
+    want = st.stream_torch(x, y)
+    got = st.stream(x, y)
+    require(bit_equal(got, want),
+            f"stream {mb} MB: the kernel differs from its plain version")
+    err = max_abs_diff(got, want)
+    lib_err = max_abs_diff(torch.add(y, x, alpha=st.SCALE), want)
+    b_ms, b_by = bound(2.0 * n, 3 * n * 4, PEAK_F32_FLOPS)
+    del got, want
+    ms = timer(lambda: st.stream(x, y))
+    return dict(
+        shape=f"N={n} float32 ({mb:g} MB pass)", max_abs_err=err, ms=ms,
+        plain_ms=timer(lambda: st.stream_torch(x, y)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=timer(lambda: torch.add(y, x, alpha=st.SCALE)),
+        library_max_abs_err=lib_err, bytes_per_s=3 * n * 4 / (ms * 1e-3))
 
 
 def time_stream(st, probes, timer, dev) -> dict:
-    """Probe shapes: the 32 MB peak pass of the main path, and a 1 GB pass
-    (past the L2), through the probe's own buffers."""
+    """Probe shapes: the card's 1 GB calibration pass (probe_sizes), with
+    the reference's 32 MB peak pass and a 256 MB pass beside it, through
+    the probe's own buffers; the reference's 8 MB co-run pass is checked
+    bitwise."""
     x, y = probes.make_buffers(STREAM_CORUN_MB, device=dev)
     same = bit_equal(st.stream(x, y), st.stream_torch(x, y))
     print(f"  stream N={x.numel()} ({STREAM_CORUN_MB:g} MB co-run pass): "
           f"bitwise {'equal' if same else 'DIFFERENT'}")
     require(same, "stream: kernel differs from its plain version at the "
             "co-run pass")
-    rows = {}
-    for mb in STREAM_TIMED_MB:
-        x, y = probes.make_buffers(mb, device=dev)
-        n = x.numel()
-        want = st.stream_torch(x, y)
-        got = st.stream(x, y)
-        require(bit_equal(got, want),
-                f"stream {mb} MB: kernel differs from its plain version")
-        err = max_abs_diff(got, want)
-        lib_err = max_abs_diff(torch.add(y, x, alpha=st.SCALE), want)
-        b_ms, b_by = bound(2.0 * n, 3 * n * 4, PEAK_F32_FLOPS)
-        ms = timer(lambda: st.stream(x, y))
-        rows[mb] = dict(
-            shape=f"N={n} float32 ({mb:g} MB pass)", max_abs_err=err, ms=ms,
-            plain_ms=timer(lambda: st.stream_torch(x, y)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=timer(lambda: torch.add(y, x, alpha=st.SCALE)),
-            library_max_abs_err=lib_err,
-            bytes_per_s=3 * n * 4 / (ms * 1e-3))
-        del x, y, got, want
-    big = rows[STREAM_TIMED_MB[1]]
-    print(f"  stream at {big['shape']}: {big['ms']:.4f} ms = "
-          f"{big['bytes_per_s'] / 1e9:.1f} GB/s (bound {PEAK_BYTES / 1e9:g}"
-          f" GB/s), plain {big['plain_ms']:.4f} ms, library "
-          f"{big['library_ms']:.4f} ms (max abs diff "
-          f"{big['library_max_abs_err']:.3e})")
-    require(big["bytes_per_s"] <= 1.05 * PEAK_BYTES,
-            f"stream reads {big['bytes_per_s'] / 1e9:.1f} GB/s, above 105% "
-            f"of {PEAK_BYTES / 1e9:g} GB/s: a timing fault")
+    require(probes.probe_sizes(dev).target_mb == STREAM_TIMED_MB[-1],
+            "the timed pass is not the card's calibration pass")
+    rows = {mb: stream_timing(st, probes, timer, dev, mb)
+            for mb in STREAM_TIMED_MB}
+    for row in rows.values():
+        print(f"  stream at {row['shape']}: {row['ms']:.4f} ms = "
+              f"{row['bytes_per_s'] / 1e9:.1f} GB/s (bound "
+              f"{PEAK_BYTES / 1e9:g} GB/s), plain {row['plain_ms']:.4f}"
+              f" ms, library {row['library_ms']:.4f} ms (max abs diff "
+              f"{row['library_max_abs_err']:.3e})")
+        require(row["bytes_per_s"] <= 1.05 * PEAK_BYTES or row is rows[32.0],
+                f"stream reads {row['bytes_per_s'] / 1e9:.1f} GB/s, above "
+                f"105% of {PEAK_BYTES / 1e9:g} GB/s: a timing fault")
     return dict(name="stream", route="cuda",
                 source="src/repro_torch/kernels/csrc/stream.cu",
                 replaces="src/repro/profiling/probes.py:51",
-                **rows[STREAM_TIMED_MB[0]], at_1GB=big)
+                **rows[1000.0], at_32MB=rows[32.0], at_256MB=rows[256.0])
 
 
 # ---------------------------------------------------------------------------
@@ -789,6 +918,7 @@ def make_prompts(vocab: int, lens=PROMPT_LENS) -> list:
 
 def serve(fa, da, dev) -> dict:
     from repro_torch import configs
+    from repro_torch.kernels.graph import Graph
     from repro_torch.models import build, kvcache
     from repro_torch.serve.engine import ServingEngine
 
@@ -801,6 +931,8 @@ def serve(fa, da, dev) -> dict:
           f"{cfg.d_model}, {sum(p.numel() for p in model.parameters()):,} "
           f"parameters in {time.perf_counter() - t0:.1f} s")
     eng = ServingEngine(model, max_slots=4, capacity=2048)
+    require(isinstance(eng.graph.graph, Graph),
+            "the engine did not capture its step")
     prompts = make_prompts(cfg.vocab)
     for p in prompts:
         eng.submit(p, max_new=MAX_NEW)
@@ -829,7 +961,10 @@ def serve(fa, da, dev) -> dict:
             f"decode launches {launches['decode_attention']} != "
             f"{L} layers x {m['steps']} steps")
     print(f"  served {len(done)} requests, {m['tokens_out']} tokens, "
-          f"{m['steps']} decode steps in {wall:.3f} s; launches {launches}")
+          f"{m['steps']} decode steps in {wall:.3f} s, mean step "
+          f"{m['mean_step_ms']:.3f} ms (CUDA graph, launches per replay "
+          f"{eng.graph.graph.launches}); launches {launches}")
+    graph_tokens = engine_tokens(eng)
 
     # kernel path vs plain path, end to end, one prefill per prompt, each
     # written into slot 0 of the engine's cache as the engine does
@@ -871,7 +1006,9 @@ def serve(fa, da, dev) -> dict:
                 prefill_ms=prefill_ms, e2e_logits_rel_err=rel_errs,
                 oracle_vs_plain_rel_err=floor,
                 max_memory_allocated=peak,
-                profile=profile_decode(eng, prompts))
+                graph_launches_per_replay=eng.graph.graph.launches,
+                profile=profile_decode(eng, prompts),
+                eager=eager_comparison(model, prompts, 2048, graph_tokens))
 
 
 def e2e_f32(dev) -> list[float]:
@@ -912,6 +1049,32 @@ def e2e_f32(dev) -> list[float]:
     return rels
 
 
+def engine_tokens(eng) -> dict:
+    return {r.rid: list(r.tokens) for r in eng.completed}
+
+
+def eager_comparison(model, prompts, capacity, graph_tokens) -> dict:
+    """The same prompts through an engine that steps eagerly on the card:
+    its greedy tokens must equal the graph engine's (fatal); its mean step
+    and busy share are the comparison."""
+    from repro_torch.serve.engine import ServingEngine
+
+    eng = ServingEngine(model, max_slots=4, capacity=capacity, eager=True)
+    for p in prompts:
+        eng.submit(p, max_new=MAX_NEW)
+    eng.run_until_drained()
+    same = engine_tokens(eng) == graph_tokens
+    m = eng.metrics()
+    print(f"  eager engine: mean step {m['mean_step_ms']:.3f} ms, tokens "
+          f"{'identical to' if same else 'DIFFERENT from'} the graph's")
+    require(same, "graph and eager decoding gave different tokens")
+    out = dict(mean_decode_step_ms=m["mean_step_ms"], tokens_identical=same,
+               profile=profile_decode(eng, prompts))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def device_ms_by_kernel(prof) -> tuple[dict, int]:
     """Device ms by kernel name, and the number of kernels, of a
     ``torch.profiler`` window."""
@@ -927,7 +1090,10 @@ def device_ms_by_kernel(prof) -> tuple[dict, int]:
 
 def profile_decode(eng, prompts, steps: int = 4) -> dict:
     """Device busy share and top kernels over a few steady decode steps
-    (torch.profiler; "not measured" if it records no device time)."""
+    (torch.profiler; "not measured" if it records no device time).  The
+    profiler slows the host's side of a step, so the same number of steps
+    just before it is timed unprofiled too: the device ms a step over
+    that step's ms is the busy share without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     for p in prompts:
@@ -935,6 +1101,11 @@ def profile_decode(eng, prompts, steps: int = 4) -> dict:
     eng.step()                                   # admit all, first decode
     eng.step()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -945,11 +1116,14 @@ def profile_decode(eng, prompts, steps: int = 4) -> dict:
     kernels, _ = device_ms_by_kernel(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps}
+    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "unprofiled_ms_per_step": plain_ms}
     if busy == 0:
         out["device_busy_share"] = "not measured"
     else:
         out["device_busy_share"] = busy / wall_ms
+        out["device_ms_per_step"] = busy / steps
+        out["unprofiled_busy_share"] = busy / steps / plain_ms
         out["top_kernels_ms_per_step"] = {k[:60]: v / steps for k, v in top}
     print(f"  profiled {steps} decode steps: {out}")
     return out
@@ -1008,6 +1182,7 @@ def serve_recurrent(arch, mods, dev) -> dict:
     the path, and each prompt's prefill logits through the kernels
     against the plain path; then a planted fault on the plain path."""
     from repro_torch import configs
+    from repro_torch.kernels.graph import Graph
     from repro_torch.models import kvcache
     from repro_torch.serve.engine import ServingEngine
 
@@ -1019,6 +1194,8 @@ def serve_recurrent(arch, mods, dev) -> dict:
                       cfg.layer_kinds else (PROMPT_LENS, 2048))
     model = build_recurrent(cfg, "auto", dev)
     eng = ServingEngine(model, max_slots=4, capacity=capacity)
+    require(isinstance(eng.graph.graph, Graph),
+            "the engine did not capture its step")
     prompts = make_prompts(cfg.vocab, lens)
     for p in prompts:
         eng.submit(p, max_new=MAX_NEW)
@@ -1046,9 +1223,16 @@ def serve_recurrent(arch, mods, dev) -> dict:
             "rwkv6_scan": kinds["rwkv"] * calls}
     print(f"  served {len(done)} requests, {m['tokens_out']} tokens, "
           f"{m['admitted']} prefills, {m['steps']} decode steps in "
-          f"{wall:.3f} s; launches {launches}")
+          f"{wall:.3f} s, mean step {m['mean_step_ms']:.3f} ms (CUDA graph, "
+          f"launches per replay {eng.graph.graph.launches}); launches "
+          f"{launches}")
     require(launches == want, f"launches {launches} != {want} (layers "
             f"{dict(kinds)} x prefills/steps)")
+    graph_tokens = engine_tokens(eng)
+    by_phase = {name: {"prefill": kinds[kind] * m["admitted"],
+                       "decode": kinds[kind] * m["steps"]}
+                for name, kind in (("rglru_scan", "rglru"),
+                                   ("rwkv6_scan", "rwkv"))}
 
     views = [kvcache.select(c, 0) for c in eng.caches]
     prefill_ms, rel_errs, floor, limits = [], [], [], []
@@ -1082,11 +1266,110 @@ def serve_recurrent(arch, mods, dev) -> dict:
                tokens_per_s=m["tokens_out"] / wall,
                mean_decode_step_ms=m["mean_step_ms"], prefill_ms=prefill_ms,
                e2e_logits_rel_err=rel_errs, oracle_vs_plain_rel_err=floor,
-               e2e_limit=limits, max_memory_allocated=peak)
+               e2e_limit=limits, max_memory_allocated=peak,
+               launches_by_phase=by_phase,
+               graph_launches_per_replay=eng.graph.graph.launches)
     if kinds["rglru"]:
         out["planted_fault_rel"] = planted_fault(model, rg, prompts[1], dev,
                                                  views)
     out["profile"] = profile_decode(eng, prompts)
+    del eng
+    out["eager"] = eager_comparison(model, prompts, capacity, graph_tokens)
+    return out
+
+
+def serve_reduced(mods, dev) -> dict:
+    """The reduced (smoke) configs on the card: head size 16, float32.
+
+    The port's serve CLI with ``--reduced`` on its default device; then
+    reduced stablelm-1.6b and recurrentgemma-9b through the graph engine
+    (the eager engine's tokens must equal its tokens, every kernel of the
+    path launches exactly), and each prompt's prefill and one decode step
+    through the kernels against the plain path (relative logits error <=
+    E2E_F32_REL_TOL, same argmax)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serve.engine import ServingEngine
+
+    argv = ["--arch", "stablelm-1.6b", "--reduced", "--requests", "3"]
+    print(f"  python -m repro_torch.launch.serve {' '.join(argv)}")
+    require(serve_main(argv) == 0, "the serve CLI failed")
+    out = {"cli_argv": argv}
+    lens = (8, 40, 100)
+    for arch in ("stablelm-1.6b", "recurrentgemma-9b"):
+        cfg = configs.get(arch).reduced()
+        require(cfg.d_head == 16 and cfg.dtype == "float32",
+                f"{cfg.name}: head {cfg.d_head}, {cfg.dtype}")
+        model = build_recurrent(cfg, "auto", dev)
+        prompts = make_prompts(cfg.vocab, lens)
+        eng = ServingEngine(model, max_slots=4, capacity=128)
+        for p in prompts:
+            eng.submit(p, max_new=MAX_NEW)
+        for m in mods.values():
+            m.launches = 0
+        eng.run_until_drained()
+        launches = {name: m.launches for name, m in mods.items()}
+        m = eng.metrics()
+        kinds = collections.Counter(cfg.layer_kinds)
+        attn = kinds["attn"] + kinds["local"]
+        calls = m["admitted"] + m["steps"]
+        want = {"flash_attention": attn * m["admitted"],
+                "decode_attention": attn * m["steps"],
+                "rglru_scan": kinds["rglru"] * calls,
+                "rwkv6_scan": kinds["rwkv"] * calls}
+        require(launches == want, f"{cfg.name}: launches {launches} != "
+                f"{want}")
+        graph_tokens = engine_tokens(eng)
+        del eng
+        eager = ServingEngine(model, max_slots=4, capacity=128, eager=True)
+        for p in prompts:
+            eager.submit(p, max_new=MAX_NEW)
+        eager.run_until_drained()
+        same = engine_tokens(eager) == graph_tokens
+        require(same, f"{cfg.name}: graph and eager tokens differ")
+        rels, step_rels = [], []
+        for p in prompts:
+            batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
+            g = last_logits(model, "cuda", batch, None)
+            w = last_logits(model, "torch", batch, None)
+            require(bool(torch.isfinite(g).all()), "non-finite logits")
+            require(int(g.argmax()) == int(w.argmax()),
+                    f"{cfg.name} S={len(p)}: argmax differs")
+            rels.append(rel_err(g, w))
+            # one decode step after prefill(n - 1), kernel vs plain path
+            n = len(p) - 1
+            model.backend = "cuda"
+            _, caches = model.prefill(
+                {"token_ids": torch.as_tensor(p[None, :n], device=dev)},
+                capacity=128)
+            model.backend = "auto"
+            step = {"token_ids": torch.as_tensor(p[None, n:], device=dev),
+                    "lengths": torch.tensor([n], dtype=torch.int32,
+                                            device=dev)}
+            logits = {}
+            for backend in ("cuda", "torch"):
+                model.backend = backend
+                logits[backend], _ = model.decode_step(
+                    [{k: ({kk: vv.clone() for kk, vv in v.items()}
+                          if isinstance(v, dict) else v.clone())
+                      for k, v in c.items()} for c in caches], step)
+            model.backend = "auto"
+            step_rels.append(rel_err(logits["cuda"][0, -1],
+                                     logits["torch"][0, -1]))
+        print(f"  {cfg.name} (head {cfg.d_head}, {cfg.dtype}): "
+              f"{m['steps']} graph steps, tokens identical to eager "
+              f"{same}, launches {launches}; kernel-vs-plain logits rel err "
+              f"prefill {max(rels):.3e}, decode {max(step_rels):.3e}")
+        require(max(rels) <= E2E_F32_REL_TOL
+                and max(step_rels) <= E2E_F32_REL_TOL,
+                f"{cfg.name}: rel err {max(rels)}/{max(step_rels)} > "
+                f"{E2E_F32_REL_TOL}")
+        out[cfg.name] = dict(prompt_lens=list(lens), launches=launches,
+                             decode_steps=m["steps"],
+                             tokens_identical=same,
+                             prefill_rel_err=rels, decode_rel_err=step_rels)
+        del model, eager
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1190,6 +1473,37 @@ def fixture_requests() -> dict:
     return out
 
 
+def traced(fn):
+    """``fn()`` under a tracer; returns its result and the args of its
+    ``anneal.chunk`` spans (per chunk of chains: the graphs' wave budget
+    W, the overflow replays, whether the steps were graphs, and each
+    graph's launches per replay)."""
+    from repro_torch.obs import Tracer, set_tracer
+
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    try:
+        out = fn()
+    finally:
+        set_tracer(prev)
+    return out, [e["args"] for e in tracer.events()
+                 if e.get("name") == "anneal.chunk"]
+
+
+def graph_stats(chunks) -> dict:
+    """W, overflow replays and the select kernel's warm-up launches (one
+    per chunk of chains whose steps were captured: the warm-up before
+    capture runs each graph's body once, the select kernel included)."""
+    graphed = [c for c in chunks if c.get("graph")]
+    return dict(graph=bool(chunks) and len(graphed) == len(chunks),
+                waves=[c.get("waves") for c in chunks],
+                overflow_replays=sum(c.get("overflow_replays", 0)
+                                     for c in chunks),
+                select_warmups=len(graphed),
+                launches_per_replay=(graphed[0].get("launches_per_graph")
+                                     if graphed else None))
+
+
 def solve(sd, se, req, model, device, **knobs) -> tuple:
     """One ``Scheduler.solve`` with the kernel counts read around it."""
     from repro_torch.core import Scheduler
@@ -1200,10 +1514,11 @@ def solve(sd, se, req, model, device, **knobs) -> tuple:
     if device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    plan = sched.solve(list(req.graphs), req.objective,
-                       max_transitions=req.max_transitions,
-                       iterations=list(req.iterations),
-                       depends_on=list(req.depends_on), **knobs)
+    plan, chunks = traced(lambda: sched.solve(
+        list(req.graphs), req.objective,
+        max_transitions=req.max_transitions,
+        iterations=list(req.iterations),
+        depends_on=list(req.depends_on), **knobs))
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1219,12 +1534,14 @@ def solve(sd, se, req, model, device, **knobs) -> tuple:
         row.update(device_objective=p["device_objective"], chain=p["chain"],
                    population=p["population"], steps=p["steps"],
                    precision=p["precision"], evaluated=evaluated,
-                   cands_per_s=evaluated / wall)
+                   cands_per_s=evaluated / wall, **graph_stats(chunks))
     print(f"  {req.graphs[0].name}+.. {plan.solver} on {device.type}: "
           f"{req.objective} {plan.objective:.12g} in {wall:.2f} s, "
           f"launches {launches}"
           + (f", {row['evaluated']} candidates, "
-             f"{row['cands_per_s']:.0f}/s" if "evaluated" in row else ""))
+             f"{row['cands_per_s']:.0f}/s, graph {row['graph']}, W "
+             f"{row['waves']}, {row['overflow_replays']} overflow replays"
+             if "evaluated" in row else ""))
     return plan, row
 
 
@@ -1235,8 +1552,10 @@ def search(sd, se, dev) -> dict:
     x64 = dict(solver="anneal", precision="x64", population=4096,
                steps=SEARCH_STEPS, seed=0)
     gpu_plan, gpu = solve(sd, se, req, model, dev, **x64)
+    require(gpu["graph"], "the card's search did not run as graphs")
     require(gpu["launches"]["piecewise_slowdown"] > 0
-            and gpu["launches"]["anneal_select"] == SEARCH_STEPS,
+            and gpu["launches"]["anneal_select"]
+            == SEARCH_STEPS + gpu["select_warmups"],
             f"search kernels did not launch: {gpu['launches']}")
     cpu_plan, cpu_row = solve(sd, se, req, model, cpu, **x64)
     require(cpu_row["launches"] == {"piecewise_slowdown": 0,
@@ -1261,7 +1580,8 @@ def search(sd, se, dev) -> dict:
         _, row = solve(sd, se, req_i, model_i, dev, solver="anneal",
                        precision="x64", population=1024,
                        steps=FIXTURE_STEPS, seed=0)
-        require(row["launches"]["anneal_select"] == FIXTURE_STEPS,
+        require(row["launches"]["anneal_select"]
+                == FIXTURE_STEPS + row["select_warmups"],
                 f"{name}: select launches {row['launches']}")
         _, greedy = solve(sd, se, req_i, model_i, dev, solver="greedy")
         ok = row["objective"] <= greedy["objective"] \
@@ -1274,26 +1594,37 @@ def search(sd, se, dev) -> dict:
     _, f32 = solve(sd, se, req, model, dev, solver="anneal",
                    precision="float32", population=4096,
                    steps=SEARCH_STEPS, seed=0)
+    prof = profile_search(req, model, dev)
     return dict(model="PCCS 5x5 (repro/profiling/virtual.py:42-50)",
                 steps=SEARCH_STEPS, fixture_steps=FIXTURE_STEPS, orin_x64_cuda=gpu, orin_x64_cpu=cpu_row,
                 same_assignment=same, device_objective_rel=rel,
                 scalar_resim_rel=resim, fixtures=fixtures, orin_float32=f32,
-                profile=profile_search(req, model, dev))
+                profile=prof)
 
 
-def profile_search(req, model, dev, steps: int = 8) -> dict:
-    """Device busy share of one short float32 solve (torch.profiler)."""
+def profile_search(req, model, dev, steps: int = 16) -> dict:
+    """Device busy share of the orin float64 solve at 4096 chains, the
+    graphs' capture included: ``steps`` steps, timed once unprofiled and
+    then under torch.profiler (whose trace of all 64 steps holds ~600,000
+    kernels and takes a minute to read back)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import Scheduler
 
-    sched = Scheduler(req.platform, model=model, evaluator="torch",
-                      device=dev)
+    def fresh():        # a Scheduler of its own: no plan cached by another
+        return Scheduler(req.platform, model=model, evaluator="torch",
+                         device=dev)
+
     kw = dict(max_transitions=req.max_transitions,
               iterations=list(req.iterations),
               depends_on=list(req.depends_on), solver="anneal",
-              precision="float32", population=1024, steps=steps, seed=1)
+              precision="x64", population=4096, steps=steps, seed=0)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh().solve(list(req.graphs), req.objective, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    sched = fresh()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1303,12 +1634,14 @@ def profile_search(req, model, dev, steps: int = 8) -> dict:
     kernels, launches = device_ms_by_kernel(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-    out = {"population": 1024, "steps": steps, "precision": "float32",
-           "wall_ms": wall_ms, "device_kernels": launches}
+    out = {"population": 4096, "steps": steps, "precision": "x64",
+           "wall_ms": wall_ms, "unprofiled_wall_ms": plain_ms,
+           "device_kernels": launches}
     if busy == 0:
         out["device_busy_share"] = "not measured"
     else:
         out["device_busy_share"] = busy / wall_ms
+        out["unprofiled_busy_share"] = busy / plain_ms
         out["device_ms"] = busy
         out["top_kernels_ms"] = {k[:60]: v for k, v in top}
         # the two hand-written search kernels' share of the device time
@@ -1322,12 +1655,53 @@ def profile_search(req, model, dev, steps: int = 8) -> dict:
 # ---------------------------------------------------------------------------
 # characterize
 # ---------------------------------------------------------------------------
+def rises(slowdowns) -> bool:
+    """Slowdowns in order of demand never fall by more than 5%."""
+    return all(b >= 0.95 * a for a, b in zip(slowdowns, slowdowns[1:]))
+
+
+def calibration_spread(levels, timer) -> dict:
+    """The calibration's co-run sweep again, SPREAD_REPEATS times with
+    the antagonist on each of SPREAD_SHARES of the SMs: how far repeated
+    calibrations in one process agree.  At the calibration's own share
+    every repeat must rise with the demand within 5% (fatal)."""
+    from repro_torch.profiling import probes
+
+    out = {}
+    for share in SPREAD_SHARES:
+        sizes = dataclasses.replace(probes.CUDA_SIZES, sm_share=share)
+        reps = []
+        for _ in range(SPREAD_REPEATS):
+            base_ms, recs = probes.stream_slowdowns(levels, sizes=sizes,
+                                                    timer=timer)
+            slowdowns = [c["slowdown"] for c in recs]
+            reps.append(dict(base_ms=base_ms, slowdowns=slowdowns,
+                             rises=rises(slowdowns),
+                             gb_per_s=[c["probe_bytes_per_s"] / 1e9
+                                       for c in recs]))
+            print(f"  spread, antagonist on {share:g} of the SMs: "
+                  f"standalone {base_ms:.4f} ms; slowdowns "
+                  f"{[round(v, 4) for v in slowdowns]} (rise within 5%: "
+                  f"{rises(slowdowns)}); antagonist "
+                  f"{[round(c['probe_bytes_per_s'] / 1e9) for c in recs]} "
+                  f"GB/s")
+            require(rises(slowdowns)
+                    or share != probes.CUDA_SIZES.sm_share,
+                    f"repeated calibration does not rise with the demand: "
+                    f"{slowdowns}")
+        tops = [r["slowdowns"][-1] for r in reps]
+        print(f"  spread at {share:g}: top sample {min(tops):.4f}-"
+              f"{max(tops):.4f} over {SPREAD_REPEATS} repeats")
+        out[f"{share:g}"] = dict(repeats=reps, top=tops)
+    return out
+
+
 def characterize(fa, da, sd, se, st) -> dict:
     """The port's profiling CLI on full-width stablelm-1.6b, then a solve
     from its bundle through ``Scheduler.from_bundle``."""
     from repro_torch.core import Scheduler
     from repro_torch.launch.profile import main as profile_main
-    from repro_torch.profiling import ProfileBundle, harness
+    from repro_torch.profiling import ProfileBundle, TimerConfig, harness
 
     # the flash count where each group's runner is made: the CLI drives
     # the groups one after another, so the differences are per group
@@ -1367,12 +1741,17 @@ def characterize(fa, da, sd, se, st) -> dict:
     for g, n in zip(prov["groups"], per_group):
         print(f"  {g['name']}: {g['median_ms']:.4f} ms (n={g['n_kept']}/"
               f"{g['n_total']}, std {g['std_ms']:.4f}), {n} flash launches")
+    probe = prov["probe"]
+    print(f"  probe sizes {probe}")
     print(f"  probe peak {prov['peak_stream_bytes_per_s'] / 1e9:.2f} GB/s "
-          f"(32 MB pass); target pass {prov['stream_base_ms']:.4f} ms")
+          f"({probe['peak_mb']:g} MB pass); target pass "
+          f"{prov['stream_base_ms']:.4f} ms ({probe['target_mb']:g} MB)")
     for c in prov["corun"]:
-        print(f"  demand {c['ext']:g}: co-run {c['co_ms']:.4f} ms, ratio "
-              f"{c['ratio']:.4f}, slowdown {c['slowdown']:.4f}, "
-              f"antagonist {c['probe_passes']} passes x "
+        print(f"  demand {c['ext']:g}: co-run {c['co_ms']:.4f} ms over "
+              f"{c['base_ms']:.4f} ms standalone, ratio {c['ratio']:.4f}, "
+              f"slowdown {c['slowdown']:.4f}, antagonist "
+              f"{c['probe_launches']} launch, {c['probe_passes']:.1f} "
+              f"passes x "
               f"{c['probe_bytes_per_pass'] / 1e6:.1f} MB in "
               f"{c['probe_s']:.3f} s = {c['probe_bytes_per_s'] / 1e9:.2f} "
               f"GB/s")
@@ -1387,41 +1766,59 @@ def characterize(fa, da, sd, se, st) -> dict:
             f"expected 8 measured groups, got {per_group}")
     require(all(n == layers * calls for n in per_group),
             f"flash launches per group {per_group} != {layers} x {calls}")
-    stream_calls = 2 * calls + sum(calls + c["probe_passes"]
-                                   for c in prov["corun"])
-    require(all(c["probe_passes"] > 0 for c in prov["corun"]),
+    require(probe["blocks"] == max(1, int(
+        torch.cuda.get_device_properties(0).multi_processor_count
+        * probe["sm_share"])), f"antagonist grid {probe['blocks']}")
+    require(all(c["probe_passes"] > 0 and c["probe_launches"] == 1
+                for c in prov["corun"]),
             "the antagonist made no pass at some demand level")
+    # the peak passes, the antagonist's full-duty launch, and each level's
+    # standalone and co-run passes and antagonist launch
+    stream_calls = calls + 1 + sum(2 * calls + c["probe_launches"]
+                                   for c in prov["corun"])
     require(launches["stream"] == stream_calls,
             f"stream launches {launches['stream']} != {stream_calls} "
-            f"(peak and target {calls} each, plus each level's target "
-            f"calls and antagonist passes)")
+            f"(peak {calls}, the full-duty antagonist, plus each level's "
+            f"2 x {calls} target calls and antagonist launch)")
     require(launches["piecewise_slowdown"] > 0
             and launches["anneal_select"] > 0,
             f"the CLI's anneal solve launched no search kernel: {launches}")
     again = ProfileBundle.from_json(bundle.to_json())
     require(again.bundle_hash() == bundle.bundle_hash(),
             "bundle did not round-trip")
-    # each sample is its level's measured co-run over the standalone pass,
-    # floored at 1 (a co-run read faster than standalone is noise)
-    want = [(c["ext"], max(1.0, c["co_ms"] / prov["stream_base_ms"]))
+    # each sample is its level's co-run over the standalone pass timed
+    # just before it, floored at 1 (a co-run read faster than standalone
+    # is noise)
+    want = [(c["ext"], max(1.0, c["co_ms"] / c["base_ms"]))
             for c in prov["corun"]]
     require(len(bundle.samples) == len(want) and all(
         s[1] == e and s[2] == w >= 1.0
         for s, (e, w) in zip(bundle.samples, want)),
         f"co-run samples {bundle.samples} are not the measured slowdowns "
         f"{want}")
+    ordered = sorted(bundle.samples, key=lambda smp: smp[1])
+    monotone = rises([smp[2] for smp in ordered])
+    print(f"  samples (own, ext, slowdown): {[list(x) for x in ordered]}; "
+          f"non-decreasing in ext within 5%: {monotone}; fit max rel err "
+          f"{fit['max_rel_err']:.2%} against the {FIT_GATE:.0%} gate")
     print(f"  fit warning: {prov['fit_warning']}")
+    require(monotone, f"the samples fall by more than 5% as the demand "
+            f"rises: {[smp[2] for smp in ordered]}")
+
+    spread = calibration_spread(
+        [c["ext"] for c in prov["corun"]], TimerConfig.from_dict(prov["timer"]))
 
     sched = Scheduler.from_bundle(bundle, evaluator="torch")
     require(sched.device.type == "cuda", f"solved on {sched.device}")
     sd.launches = se.launches = 0
     steps = 64
     t0 = time.perf_counter()
-    plan = sched.solve(list(bundle.graphs), "latency", solver="anneal",
-                       max_transitions=2, population=1024, steps=steps,
-                       seed=0)
+    plan, chunks = traced(lambda: sched.solve(
+        list(bundle.graphs), "latency", solver="anneal", max_transitions=2,
+        population=1024, steps=steps, seed=0))
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
+    warmups = graph_stats(chunks)["select_warmups"]
     search_launches = {"piecewise_slowdown": sd.launches,
                        "anneal_select": se.launches}
     greedy = sched.solve(list(bundle.graphs), "latency", solver="greedy",
@@ -1430,7 +1827,7 @@ def characterize(fa, da, sd, se, st) -> dict:
     print(f"  anneal {plan.objective!r} in {solve_s:.2f} s (launches "
           f"{search_launches}) vs greedy {greedy.objective!r}")
     require(search_launches["piecewise_slowdown"] > 0
-            and search_launches["anneal_select"] == steps,
+            and search_launches["anneal_select"] == steps + warmups,
             f"search kernels did not launch: {search_launches}")
     require(plan.objective <= greedy.objective
             + 1e-9 * abs(greedy.objective), "anneal worse than greedy")
@@ -1439,6 +1836,7 @@ def characterize(fa, da, sd, se, st) -> dict:
                 peak_stream_bytes_per_s=prov["peak_stream_bytes_per_s"],
                 stream_base_ms=prov["stream_base_ms"], corun=prov["corun"],
                 samples=[list(x) for x in bundle.samples], fit=fit,
+                probe=probe, samples_monotone=monotone, spread=spread,
                 model=type(bundle.model).__name__,
                 bundle_hash=bundle.bundle_hash(),
                 search_cands_per_s=prov.get("search_cands_per_s"),
@@ -1447,6 +1845,7 @@ def characterize(fa, da, sd, se, st) -> dict:
                                  assignments=[list(a) for a in
                                               plan.assignments],
                                  solve_s=solve_s, launches=search_launches,
+                                 select_warmups=warmups,
                                  greedy_objective=greedy.objective))
 
 
@@ -1479,7 +1878,7 @@ def main() -> int:
         t_phase = now
         if name is not None:
             phase_s[name] = None
-            print(f"[{len(phase_s)}/9] {name}")
+            print(f"[{len(phase_s)}/{PHASES}] {name}")
 
     phase("environment")
     print(f"  card: {card_line()}")
@@ -1516,9 +1915,7 @@ def main() -> int:
                time_rglru(rg, timer, gen, dev),
                time_rwkv6(rk, timer, gen, dev)]
     for kr in kernels:
-        for row in (kr, kr.get("at_d256")):
-            if row is None:
-                continue
+        for row in [kr] + [v for k, v in kr.items() if k.startswith("at_")]:
             lib = ("none" if row["library_ms"] is None
                    else f"{row['library_ms']:.4f} ms")
             print(f"  {kr['name']} at {row['shape']}: {row['ms']:.4f} ms, "
@@ -1526,18 +1923,20 @@ def main() -> int:
                   f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     print(f"  {n} comparisons passed")
 
-    phase("serve full-width stablelm-1.6b")
+    phase("serve full-width stablelm-1.6b (CUDA graph, then eager)")
     result = serve(fa, da, dev)
     phase("float32 end to end, kernel path vs plain path")
     result["e2e_f32_logits_rel_err"] = e2e_f32(dev)
+    phase("reduced configs on the card (head size 16, float32)")
+    mods = {"flash_attention": fa, "decode_attention": da,
+            "rglru_scan": rg, "rwkv6_scan": rk}
+    reduced = serve_reduced(mods, dev)
     phase("schedule search under PCCS on the golden fixtures")
     found = search(sd, se, dev)
     phase("characterize full-width stablelm-1.6b, calibrate, solve")
     measured = characterize(fa, da, sd, se, st)
     torch.cuda.empty_cache()
     phase("serve full-width rwkv6-7b and recurrentgemma-9b")
-    mods = {"flash_attention": fa, "decode_attention": da,
-            "rglru_scan": rg, "rwkv6_scan": rk}
     recurrent = {}
     for arch in ("rwkv6-7b", "recurrentgemma-9b"):
         recurrent[arch] = serve_recurrent(arch, mods, dev)
@@ -1564,10 +1963,20 @@ def main() -> int:
         row["launches_by_path"] = {
             "serve stablelm-1.6b": result["launches"][name],
             "serve recurrentgemma-9b":
-                recurrent["recurrentgemma-9b"]["launches"][name]}
+                recurrent["recurrentgemma-9b"]["launches"][name],
+            "characterize": measured["launches"][name]}
+    for name, arch in (("rglru_scan", "recurrentgemma-9b"),
+                       ("rwkv6_scan", "rwkv6-7b")):
+        row = next(kr for kr in kernels if kr["name"] == name)
+        row["launches_by_phase"] = recurrent[arch]["launches_by_phase"][name]
+    for name in ("piecewise_slowdown", "anneal_select"):
+        row = next(kr for kr in kernels if kr["name"] == name)
+        row["launches_per_replay"] = found["orin_x64_cuda"][
+            "launches_per_replay"]
     found["build_s"] = build_s
     print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"serve": result}))
+    print(json.dumps({"serve_reduced": reduced}))
     print(json.dumps({"search": found}))
     print(json.dumps({"characterize": measured}))
     print(json.dumps({"serve_recurrent": recurrent}))

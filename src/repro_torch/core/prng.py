@@ -64,7 +64,9 @@ def key(seed: int, n: int = 1, device=None) -> Key:
 
 def fold_in(k: Key, data) -> Key:
     """``jax.random.fold_in(k, data)``; ``data`` is an int or a tensor of
-    non-negative ints broadcast against the key."""
+    non-negative ints broadcast against the key (a tensor on the key's
+    device is used as it is, so a device step counter folds in without a
+    host copy)."""
     d = torch.as_tensor(data, dtype=torch.int64, device=k[0].device) & M32
     return threefry2x32(k, torch.zeros_like(d), d)
 
@@ -97,7 +99,10 @@ def randint(k: Key, lo: int, hi, bits: int = 32) -> torch.Tensor:
     if bits not in (32, 64):
         raise ValueError(f"bits ({bits}) must be 32 or 64")
     kh, kl = split(k)
-    hi_t = torch.as_tensor(hi, dtype=torch.int64, device=k[0].device)
+    # a Python bound is filled on the device (no host copy, so the draw
+    # can be captured in a CUDA graph)
+    hi_t = (hi.to(torch.int64) if isinstance(hi, torch.Tensor)
+            else torch.full((), hi, dtype=torch.int64, device=k[0].device))
     span = torch.where(hi_t <= lo, torch.ones_like(hi_t), hi_t - lo)
     if bits == 32:
         higher, lower = bits32(kh), bits32(kl)

@@ -27,11 +27,22 @@ chains as ``repro``'s ``anneal_search``:
   objectives' dtype;
 * the global winner is the (objective, chain index) lexicographic min.
 
-Torch has no ``while_loop``: the steps and the event machine's waves are
-host loops over tensors on the card (see :mod:`repro_torch.core.
-simulate_torch`).  ``devices=None`` runs the population in island-aligned
-chunks with island migration; ``devices=1`` runs it in one call with the
-reference's ring migration wrapped locally; more devices are not ported.
+Torch has no ``while_loop``.  Where the reference jits one device
+program, the port captures each step's body as CUDA graphs on the card
+and replays them from one host loop (:meth:`_Chains.run`): mutate and a
+fixed budget of W event-machine waves (W = the waves the first, eager,
+evaluation needed); while any lane is still active, a graph of
+:data:`~repro_torch.core.simulate_torch.CHECK_EVERY` more waves;
+score and select; migrate, on its steps.  Finished lanes are frozen, so
+the extra waves leave the result bit for bit the same, and a step costs
+one host sync (the "any lane active" flag) plus one per overflow replay.
+The annealing temperature and the step folded into the chains' keys live
+on the device (a precomputed (steps,) schedule and a step counter the
+graph increments).  Off the card, and with ``eager=True``, the same step
+functions run eagerly (:func:`repro_torch.kernels.graph.capture`).
+``devices=None`` runs the population in island-aligned chunks with
+island migration; ``devices=1`` runs it in one call with the reference's
+ring migration wrapped locally; more devices are not ported.
 
 The scalar simulator stays authoritative: this module reports the device
 incumbent and its device objective; :mod:`repro_torch.core.solver_anneal`
@@ -51,8 +62,9 @@ from .accelerators import Platform
 from .contention import ContentionModel
 from .graph import DNNGraph
 from .lowering import _platform_tables, graph_tables
-from .simulate_torch import (_tensor, dtype_of, make_event_machine,
-                             surface_params)
+from .simulate_torch import (CHECK_EVERY, _tensor, dtype_of,
+                             make_event_machine, surface_params)
+from ..kernels import graph as _graph
 from ..kernels.search import anneal_select
 from ..obs import get_tracer
 from ..runtime import resolve_device
@@ -70,6 +82,20 @@ DEFAULT_CHUNK = 8192
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1)).bit_length()
+
+
+def temperature_schedule(t0: float, t1: float, n_steps: int,
+                         dt: torch.dtype) -> list[float]:
+    """The reference's geometric schedule ``t0 * (t1 / t0) ** (step /
+    max(n_steps - 1, 1))``, each entry computed in the objectives' dtype
+    on the host (CPU tensors), so the card's copy holds the very values
+    an eager step would pass: no device ``pow`` that might differ by an
+    ulp and flip a Metropolis decision."""
+    t0_, t1_ = (torch.tensor(v, dtype=dt) for v in (t0, t1))
+    denom = torch.tensor(max(n_steps - 1, 1), dtype=dt)
+    return [float(t0_ * (t1_ / t0_) ** (torch.tensor(step, dtype=dt)
+                                         / denom))
+            for step in range(n_steps)]
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +358,8 @@ class _Chains:
             ok &= (moved.sum(2) <= self.tables.max_transitions).all(1)
         return ok
 
-    def evaluate(self, asg):
+    def start(self, asg):
+        """The lean event machine over ``asg``, before its first wave."""
         tb, w, gmax = self.tb, self.tables.w, self.tables.gmax
         P = asg.shape[0]
         dt = tb["dur_t"].dtype
@@ -344,18 +371,29 @@ class _Chains:
             moved = (a0 != a1) & self.live[:, 1:]
             tau[:, :, :-1] = torch.where(
                 moved, tb["move_ms"][:, :-1] + tb["tau_pair"][a0, a1], 0.0)
-        finish, err = self.machine(
+        return self.machine.start(
             asg.long(), dur, dem, tau, tb["ngroups"].expand(P, w),
             tb["iters"].expand(P, w), tb["dep"].expand(P, w), tb["arrival"],
             tb["domshare"], tb["model_of_acc"], tb["surf"])
+
+    def evaluate(self, asg):
+        """(P,) objectives of ``asg`` (inf where the machine erred), and
+        the waves the machine ran."""
+        waves = self.start(asg)
+        waves.drive()
+        return self.objective(*waves.result()), waves.count
+
+    def objective(self, finish, err):
+        tb = self.tb
+        dt = tb["dur_t"].dtype
         if self.obj_kind == "latency":
             obj = finish.max(1).values
         elif self.obj_kind == "throughput":
             mk = finish.max(1).values
             iters_sum = tb["iters"].sum().to(dt)
             obj = torch.where(mk > 0, -1e3 * iters_sum / mk,
-                              torch.tensor(-float("inf"), dtype=dt,
-                                           device=mk.device))
+                              torch.full((), -float("inf"), dtype=dt,
+                                         device=mk.device))
         else:  # sum_inverse
             obj = -torch.where(finish > 0, 1.0 / finish,
                                torch.zeros((), dtype=dt,
@@ -405,31 +443,91 @@ class _Chains:
         return cur_i.reshape(P, w, gmax), obj_i.reshape(P)
 
     def run(self, chain_idx, asg0, seed: int, n_steps: int, ex_every: int,
-            t0: float, t1: float):
+            t0: float, t1: float, eager: bool):
+        """``n_steps`` steps of the chains ``chain_idx`` from ``asg0``;
+        returns ``(best_obj, best)`` and sets :attr:`stats`.
+
+        The steps are replays of four graphs over static buffers:
+        ``head`` (fold the device step into the keys, mutate, start the
+        machine, W waves, raise the flag if a lane is still active),
+        ``more`` (CHECK_EVERY waves, the flag again) while the flag is
+        up, ``tail`` (score, draw, select with the device temperature,
+        commit, step + 1), and ``migrate`` on its steps.  Off the card,
+        or with ``eager`` (:func:`repro_torch.kernels.graph.capture`),
+        the same functions run eagerly."""
         dt = self.tb["dur_t"].dtype
         P = asg0.shape[0]
         L = self.tables.w * self.tables.gmax
-        chain_keys = prng.fold_in(prng.key(seed, P, asg0.device), chain_idx)
-        cur = best = asg0
-        cur_obj = best_obj = self.evaluate(asg0)
-        t0_, t1_ = (torch.tensor(v, dtype=dt) for v in (t0, t1))
-        denom = torch.tensor(max(n_steps - 1, 1), dtype=dt)
-        for step in range(n_steps):
+        dev = asg0.device
+        chain_keys = prng.fold_in(prng.key(seed, P, dev), chain_idx)
+        temps = temperature_schedule(t0, t1, n_steps, dt)
+        cur_obj, W = self.evaluate(asg0)
+        #: waves of the first evaluation (the graphs' budget), the
+        #: overflow replays the steps needed past it, whether they replay
+        #: captured graphs
+        self.stats = {"waves": W, "overflow_replays": 0,
+                      "graph": _graph.captures(dev, eager)}
+        if not n_steps:
+            return cur_obj, asg0
+        cur, best = asg0.clone(), asg0.clone()
+        best_obj = cur_obj.clone()
+        step = torch.zeros((), dtype=torch.int64, device=dev)
+        temp_of = torch.tensor(temps, dtype=dt, device=dev)
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+        stage = {}
+
+        def head():
             km, ku = prng.split(prng.fold_in(chain_keys, step))
             prop = self.mutate(km, cur)
-            prop_obj = self.evaluate(prop)
-            u = prng.uniform_f32(ku).to(dt)
-            # the reference's schedule, in the objectives' dtype
-            frac = torch.tensor(step, dtype=dt) / denom
-            temp = float(t0_ * (t1_ / t0_) ** frac)
-            c, cur_obj, b, best_obj = anneal_select(
-                cur.reshape(P, L), prop.reshape(P, L), best.reshape(P, L),
+            waves = self.start(prop)
+            for _ in range(W):
+                waves.wave()
+            flag.copy_(waves.active().any())
+            stage.update(prop=prop, ku=ku, waves=waves)
+
+        def more():
+            for _ in range(CHECK_EVERY):
+                stage["waves"].wave()
+            flag.copy_(stage["waves"].active().any())
+
+        def tail(commit=True):
+            prop_obj = self.objective(*stage["waves"].result())
+            u = prng.uniform_f32(stage["ku"]).to(dt)
+            temp = temp_of.index_select(0, step.view(1))
+            c, co, b, bo = anneal_select(
+                cur.view(P, L), stage["prop"].view(P, L), best.view(P, L),
                 cur_obj, prop_obj, best_obj, u, temp, backend=self.backend)
-            cur = c.reshape(asg0.shape)
-            best = b.reshape(asg0.shape)
-            if (step + 1) % ex_every == 0:
-                cur, cur_obj = self.migrate_step(cur, cur_obj, best,
-                                                 best_obj)
+            if commit:
+                cur.view(P, L).copy_(c)
+                cur_obj.copy_(co)
+                best.view(P, L).copy_(b)
+                best_obj.copy_(bo)
+                step.add_(1)
+
+        def migrate(commit=True):
+            c, co = self.migrate_step(cur, cur_obj, best, best_obj)
+            if commit:
+                cur.copy_(c)
+                cur_obj.copy_(co)
+
+        # one uncommitted pass of every body first (on a side stream), so
+        # each kernel's one-time set-up happens before capture
+        _graph.warm_up(lambda: (head(), more(), tail(False),
+                                migrate(False)), dev, eager)
+        graphs = [_graph.capture(fn, dev, eager)
+                  for fn in (head, more, tail, migrate)]
+        g_head, g_more, g_tail, g_migrate = graphs
+        self.stats["launches_per_graph"] = {
+            name: g.launches for name, g in zip(
+                ("head", "more", "tail", "migrate"), graphs)}
+        for i in range(len(temps)):
+            g_head.replay()
+            while bool(flag):                       # the step's one sync
+                g_more.replay()
+                self.stats["overflow_replays"] += 1
+            g_tail.replay()
+            if (i + 1) % ex_every == 0:
+                g_migrate.replay()
         return best_obj, best
 
 
@@ -501,7 +599,7 @@ def _validate_knobs(population: int, island: int, exchange_every: int,
             f"fanout='auto'")
     if devices is not None:
         if devices != 1:
-            # the multi-card mesh is ROADMAP queue 1 item 8
+            # the multi-card mesh is ROADMAP queue 1 item 6 (multi-device)
             raise ValueError(
                 f"devices ({devices}): repro_torch searches on one device; "
                 f"nearest legal value: devices=1")
@@ -547,6 +645,7 @@ def anneal_search(
     init_assignment: np.ndarray | Sequence[Sequence[str]] | None = None,
     init_objective: float | None = None,
     device=None,
+    eager: bool = False,
 ) -> SearchOutcome:
     """Run the annealing/genetic search over ``tables`` on ``device``.
 
@@ -558,6 +657,9 @@ def anneal_search(
     select-kernel dispatch (``cuda`` / ``torch`` / ``ref`` / ``auto``, by
     the device); the slowdown kernel always dispatches by the device.
     ``device`` defaults to ``cuda`` and never enters a result's identity.
+    On the card each step replays captured CUDA graphs; ``eager=True``
+    runs the same step functions eagerly there (as the CPU always does),
+    to compare the two.  It never changes the result.
 
     The same ``(seed, population, steps, island, exchange_every)`` always
     explores the same chains as ``repro``'s ``anneal_search`` and returns
@@ -625,10 +727,11 @@ def anneal_search(
                              hi=hi, includes_compile=False) as sp:
                 bo, br = chains.run(
                     torch.arange(lo, hi, device=dev), asg0_full[lo:hi],
-                    seed, steps, exchange_every, t0, t1)
+                    seed, steps, exchange_every, t0, t1, eager)
                 best_objs[lo:hi] = bo.double().cpu().numpy()
                 best_rows[lo:hi] = br.cpu().numpy()
             if tracer.enabled:
+                sp.set(**chains.stats)
                 chunk_objs = best_objs[lo:hi]
                 finite = chunk_objs[np.isfinite(chunk_objs)]
                 # the fraction of chains that ended strictly better than

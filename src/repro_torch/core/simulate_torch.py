@@ -12,12 +12,15 @@ Torch has no vmapped ``while_loop``, so:
 * **the host loops over waves.**  Each wave is one batch of tensor ops on
   every candidate; termination is tested every :data:`CHECK_EVERY` waves
   with a single ``.item()``, the only host<->device sync of the loop.
+  The search's captured CUDA graphs instead run a fixed budget of waves
+  untested, then test (:mod:`repro_torch.core.search_torch`).
 * **finished lanes freeze.**  A vmapped ``while_loop`` applies its body to
   every lane and keeps the old state wherever the lane's own condition
   is false; here every state field, ``t`` and the guard included, is
-  updated with ``torch.where(active, new, old)``, so a finished lane's
-  finish times and guard count are exactly the reference's.  Extra waves
-  past the last active lane change nothing.
+  updated in place with ``torch.where(active, new, old)``, so a finished
+  lane's finish times and guard count are exactly the reference's.  Extra
+  waves past the last active lane change nothing, so any number of waves
+  at or past the deepest lane's gives the same result bit for bit.
 * **contention.**  Slowdowns come from the spec's lowered surfaces: the
   proportional closed form in torch, the PCCS piecewise surface through
   :mod:`repro_torch.kernels.slowdown` (the hand-written CUDA kernel on a
@@ -120,6 +123,48 @@ def surface_eval(kind: str, params: Mapping[str, Any], own, ext):
     return 1.0 + torch.as_tensor(f, dtype=s.dtype) * (s - 1.0)
 
 
+class Waves:
+    """One population's event machine between waves (:func:`
+    make_event_machine`'s ``run.start``).  The state tensors keep their
+    storage for the machine's life: every wave updates them in place."""
+
+    def __init__(self, state: dict, body, active_of, record: bool):
+        self.state = state
+        self._body, self._active_of, self._record = body, active_of, record
+        #: waves run so far
+        self.count = 0
+
+    def active(self) -> torch.Tensor:
+        """(N,) bool: the lanes still running."""
+        return self._active_of(self.state)
+
+    def wave(self) -> None:
+        """One wave; finished lanes keep their state."""
+        s = self.state
+        active = self.active()
+        new = self._body(s)
+        N = active.shape[0]
+        for k, v in new.items():
+            a = active.view(N, *([1] * (v.dim() - 1)))
+            torch.where(a, v, s[k], out=s[k])
+        self.count += 1
+
+    def drive(self) -> None:
+        """Waves until no lane is active, tested before every
+        :data:`CHECK_EVERY`-th wave, from the first."""
+        while self.count % CHECK_EVERY or bool(self.active().any()):
+            self.wave()
+
+    def result(self):
+        """``(finish, lat, contention, busy, err)`` with ``record``, else
+        ``(finish, err)``; ``err`` flags the lanes still running."""
+        s = self.state
+        err = s["err"] | torch.where(s["done"].all(1), 0, _ERR_GUARD)
+        if self._record:
+            return (s["finish"], s["lat"], s["contention"], s["busy"], err)
+        return s["finish"], err
+
+
 def make_event_machine(kinds: tuple[str, ...], max_it: int,
                        record: bool = True):
     """Build the Eq. 2-8 event machine over a population of candidates.
@@ -132,18 +177,19 @@ def make_event_machine(kinds: tuple[str, ...], max_it: int,
     one :func:`surface_params` dict per surface.  With ``record=True``
     (the evaluator path) it returns ``(finish, lat, contention, busy,
     err)``; with ``record=False`` only ``(finish, err)``, the lean machine
-    the search evaluates its mutants through.
+    the search evaluates its mutants through.  ``run.start`` takes the
+    same arguments and returns the :class:`Waves` before the first wave.
     """
 
-    def run(acc, dur, dem, tau, ngroups, iters, dep, arrival, domshare,
-            model_of_acc, surf_params):
+    def start(acc, dur, dem, tau, ngroups, iters, dep, arrival, domshare,
+              model_of_acc, surf_params) -> Waves:
         N, W, _ = acc.shape
         A = domshare.shape[0]
         dt, dev = dur.dtype, dur.device
         i64 = torch.int64
         idx = torch.arange(W, device=dev)
         arange_a = torch.arange(A, device=dev)
-        inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+        inf = torch.full((), float("inf"), dtype=dt, device=dev)
         zero = torch.zeros((), dtype=dt, device=dev)
         one_ = torch.ones((), dtype=dt, device=dev)
         # event tolerance scales with the working precision (as the
@@ -311,21 +357,14 @@ def make_event_machine(kinds: tuple[str, ...], max_it: int,
                            contention=contention, busy=busy)
             return nxt
 
-        wave = 0
-        while True:
-            active = active_of(s)
-            if wave % CHECK_EVERY == 0 and not bool(active.any()):
-                break
-            new = body(s)
-            for k, v in new.items():
-                a = active.view(N, *([1] * (v.dim() - 1)))
-                s[k] = torch.where(a, v, s[k])
-            wave += 1
-        err = s["err"] | torch.where(s["done"].all(1), 0, _ERR_GUARD)
-        if record:
-            return (s["finish"], s["lat"], s["contention"], s["busy"], err)
-        return s["finish"], err
+        return Waves(s, body, active_of, record)
 
+    def run(*args):
+        waves = start(*args)
+        waves.drive()
+        return waves.result()
+
+    run.start = start
     return run
 
 

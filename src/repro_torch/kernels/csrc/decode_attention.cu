@@ -44,7 +44,8 @@
 //   key is scored by a lane group reading 16 bytes a lane, and the P.V
 //   pass gives every thread a 16-byte column slice of V over a strided set
 //   of the tile's rows (the slices are summed once, at the end).
-// Head sizes 32, 64, 128 and 256.
+// Head sizes 16, 32, 64, 80, 128 and 256 (multiples of 16, for the mma
+// tiles); the wrapper zero-pads any other head size up to the next one.
 #include <type_traits>
 
 #include <cuda_bf16.h>
@@ -128,15 +129,27 @@ __device__ void emit_empty(const Args& a, int b, int h0, int gn, int j,
 // ---------------------------------------------------------------------------
 // pass 1, CUDA cores: any q/cache type, GC <= 8 heads a block
 // ---------------------------------------------------------------------------
+// The largest power of two <= 32 dividing a row's CH 16-byte chunks: the
+// lanes that score one key (a power of two, so the shuffle sum and the
+// 32 / LK keys a warp pass both hold; CH = 20 at D = 80 in float32 gives 4
+// lanes of 5 chunks each).
+constexpr int lanes_per_key(int ch) {
+  int l = 1;
+  while (l < 32 && ch % (2 * l) == 0) l *= 2;
+  return l;
+}
+
 template <typename TKV, int D, int GC>
 struct Simt {
   static constexpr int E = 16 / (int)sizeof(TKV);     // elements in 16 B
   static constexpr int CH = D / E;                    // 16 B chunks a row
   static constexpr int BKV = D * (int)sizeof(TKV) > 512 ? 32 : 64;
-  static constexpr int LK = CH < 32 ? CH : 32;        // lanes scoring a key
+  static constexpr int LK = lanes_per_key(CH);        // lanes scoring a key
   static constexpr int CPL = CH / LK;                 // chunks a lane
   static constexpr int KPW = 32 / LK;                 // keys a warp pass
   static constexpr int R = THREADS / CH;              // P.V row groups
+  // threads past R * CH (when CH does not divide THREADS, e.g. D = 80)
+  // take no part in the P.V pass
   static constexpr int STAGE_BYTES = 2 * 2 * BKV * D * (int)sizeof(TKV);
   static constexpr int RED_BYTES = R * GC * D * 4;
   static constexpr int REGION =
@@ -286,7 +299,7 @@ __global__ void __launch_bounds__(THREADS) split_simt(Args a) {
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[g][e] *= al;
     }
-    for (int r = rg; r < n; r += R) {
+    for (int r = rg; rg < R && r < n; r += R) {
       float vf[E];
       load16(vs + r * D + cg * E, vf);
 #pragma unroll
@@ -301,11 +314,13 @@ __global__ void __launch_bounds__(THREADS) split_simt(Args a) {
   sm90::cp_async_wait<0>();         // the last (empty) group
   __syncthreads();
 
+  if (rg < R) {
 #pragma unroll
-  for (int g = 0; g < GC; ++g)
+    for (int g = 0; g < GC; ++g)
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      red[(rg * GC + g) * D + cg * E + e] = acc[g][e];
+      for (int e = 0; e < E; ++e)
+        red[(rg * GC + g) * D + cg * E + e] = acc[g][e];
+  }
   __syncthreads();
   for (int i = tid; i < gn * D; i += THREADS) {
     const int g = i / D, d = i % D;
@@ -574,8 +589,10 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 template <typename TQ, typename TKV>
 int launch_d(const Args& a, int B, int D, cudaStream_t stream) {
   switch (D) {
+    case 16: return launch<TQ, TKV, 16>(a, B, stream);
     case 32: return launch<TQ, TKV, 32>(a, B, stream);
     case 64: return launch<TQ, TKV, 64>(a, B, stream);
+    case 80: return launch<TQ, TKV, 80>(a, B, stream);
     case 128: return launch<TQ, TKV, 128>(a, B, stream);
     case 256: return launch<TQ, TKV, 256>(a, B, stream);
     default: return (int)cudaErrorInvalidValue;

@@ -45,7 +45,10 @@
 //   probabilities live in shared memory as f32, padded so no warp reads
 //   two rows in one bank.  At D = 256 the accumulator is 4 x 32 floats a
 //   thread and the block takes 215.6 KB of shared memory.
-// Head sizes 32, 64, 128 and 256 (recurrentgemma-9b's local layers).
+// Head sizes 16 (every reduced config), 32, 64, 80 (hubert-xlarge), 128
+// and 256 (recurrentgemma-9b's local layers): multiples of 16, so both
+// kernels' tilings hold (the mma k-step and the 16-column ldmatrix.trans
+// of V).  The wrapper zero-pads any other head size up to the next one.
 #include <type_traits>
 
 #include <cuda_bf16.h>
@@ -479,11 +482,17 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
              int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
              float scale, cudaStream_t stream) {
   switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window,
+                           scale, stream);
     case 32:
       return launch<T, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window,
                            scale, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window,
+                           scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window,
                            scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window,

@@ -4,7 +4,9 @@
 // Replaces the TPU kernel src/repro/kernels/search.py::_kernel (launched by
 // _pallas_select, pallas_call at :76).  Same function, decided per chain
 // from (P,) objectives and broadcast over (P, L) int32 assignment rows:
-//   temp     = max(temp, 1e-30) in the objectives' dtype
+//   temp     = max(*temp, 1e-30), temp read from the device in the
+//              objectives' dtype (no host value is baked into the launch,
+//              so a captured graph replays with each step's temperature)
 //   accept   = (delta <= 0 || u < exp(-delta / temp)) && isfinite(prop_obj)
 //   improved = prop_obj < best_obj            (strict: first-found wins)
 //   new_cur  = accept ? prop : cur;  new_best = improved ? prop : best
@@ -38,11 +40,11 @@ __global__ void __launch_bounds__(THREADS)
 select_kernel(const int* __restrict__ cur, const int* __restrict__ prop,
               const int* __restrict__ best, const T* __restrict__ cur_obj,
               const T* __restrict__ prop_obj, const T* __restrict__ best_obj,
-              const T* __restrict__ u, double temp_in,
+              const T* __restrict__ u, const T* __restrict__ temp_in,
               int* __restrict__ new_cur, T* __restrict__ new_cur_obj,
               int* __restrict__ new_best, T* __restrict__ new_best_obj,
               long long P, int L) {
-  T temp = static_cast<T>(temp_in);
+  T temp = *temp_in;
   temp = temp > T(1e-30) ? temp : T(1e-30);
   const long long n = P * (long long)L;
   const long long stride = (long long)gridDim.x * THREADS;
@@ -67,17 +69,18 @@ select_kernel(const int* __restrict__ cur, const int* __restrict__ prop,
 template <typename T>
 int launch(const void* cur, const void* prop, const void* best,
            const void* cur_obj, const void* prop_obj, const void* best_obj,
-           const void* u, double temp, void* new_cur, void* new_cur_obj,
-           void* new_best, void* new_best_obj, long long P, int L,
-           cudaStream_t stream) {
+           const void* u, const void* temp, void* new_cur,
+           void* new_cur_obj, void* new_best, void* new_best_obj,
+           long long P, int L, cudaStream_t stream) {
   long long blocks = (P * (long long)L + THREADS - 1) / THREADS;
   if (blocks > 132 * 16) blocks = 132 * 16;   // grid-stride beyond this
   select_kernel<T><<<(int)blocks, THREADS, 0, stream>>>(
       static_cast<const int*>(cur), static_cast<const int*>(prop),
       static_cast<const int*>(best), static_cast<const T*>(cur_obj),
       static_cast<const T*>(prop_obj), static_cast<const T*>(best_obj),
-      static_cast<const T*>(u), temp, static_cast<int*>(new_cur),
-      static_cast<T*>(new_cur_obj), static_cast<int*>(new_best),
+      static_cast<const T*>(u), static_cast<const T*>(temp),
+      static_cast<int*>(new_cur), static_cast<T*>(new_cur_obj),
+      static_cast<int*>(new_best),
       static_cast<T*>(new_best_obj), P, L);
   return (int)cudaGetLastError();
 }
@@ -88,11 +91,11 @@ extern "C" {
 
 // cur, prop, best, new_cur, new_best: (P, L) int32 row-major; cur_obj,
 // prop_obj, best_obj, u, new_cur_obj, new_best_obj: (P,) of one dtype
-// (0 = float32, 1 = float64), all on the device; temp is cast to that
+// (0 = float32, 1 = float64), all on the device; temp: one value of that
 // dtype on the device.  Returns cudaGetLastError() after launch.
 int anneal_select_fwd(const void* cur, const void* prop, const void* best,
                       const void* cur_obj, const void* prop_obj,
-                      const void* best_obj, const void* u, double temp,
+                      const void* best_obj, const void* u, const void* temp,
                       void* new_cur, void* new_cur_obj, void* new_best,
                       void* new_best_obj, long long P, int L, int dtype,
                       void* stream) {

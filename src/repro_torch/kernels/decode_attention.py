@@ -23,12 +23,12 @@ import math
 import torch
 
 from . import _build
+from .flash_attention import pad_head, padded_head_dim
 
 #: launches of the CUDA kernel since import (or since a caller reset it):
 #: one per wrapper call, whether it ran one pass or split and combine.
 launches = 0
 
-HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448                 # bytes a block may use on Hopper
 #: split boundaries are multiples of this many cache rows (a kv tile of
@@ -95,7 +95,11 @@ def decode_attention(q, k_cache, v_cache, lengths):
 
     Each sequence attends over its first ``lengths[b]`` cache positions.
     On a CUDA tensor this launches the kernel; on a CPU tensor it runs
-    :func:`decode_attention_torch`.
+    :func:`decode_attention_torch`.  A head size not in
+    :data:`~repro_torch.kernels.flash_attention.HEAD_DIMS` (up to 256) is
+    zero-padded to the next one, the scale kept at 1/sqrt(D) of the true
+    D.  That copies the whole cache on every call, so it is for sizes no
+    config uses (every config's head size is instantiated).
     """
     if not q.is_cuda:
         return decode_attention_torch(q, k_cache, v_cache, lengths)
@@ -125,11 +129,9 @@ def _launch(q, k, v, lengths):
         raise ValueError(f"decode_attention: incompatible q{tuple(q.shape)}, "
                          f"caches{tuple(k.shape)}, lengths"
                          f"{tuple(lengths.shape)}")
-    if D not in HEAD_DIMS:
-        raise NotImplementedError(f"decode_attention kernel: head dim {D} "
-                                  f"not in {HEAD_DIMS}")
+    Dp = padded_head_dim(D)
     G = Hq // Hkv
-    smem = smem_bytes(q.dtype, k.dtype, D, G)
+    smem = smem_bytes(q.dtype, k.dtype, Dp, G)
     if smem > _SMEM_LIMIT:
         raise NotImplementedError(f"decode_attention kernel: GQA group {G} "
                                   f"at head dim {D} needs {smem} B of shared "
@@ -140,6 +142,8 @@ def _launch(q, k, v, lengths):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("decode_attention: q and caches must be 16-byte "
                          "aligned (the kernel copies 16 bytes at a time)")
+    if Dp != D:
+        q, k, v = (pad_head(x, Dp) for x in (q, k, v))
     lib = _lib()
     out = torch.empty_like(q)
     index = q.device.index
@@ -149,19 +153,19 @@ def _launch(q, k, v, lengths):
     part_acc = part_ml = 0
     if splits > 1 and B:
         rows = B * Hq * splits
-        scratch = torch.empty(rows * (D + 2), dtype=torch.float32,
+        scratch = torch.empty(rows * (Dp + 2), dtype=torch.float32,
                               device=q.device)
         part_acc = scratch.data_ptr()
-        part_ml = scratch[rows * D:].data_ptr()
+        part_ml = scratch[rows * Dp:].data_ptr()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.decode_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), part_acc, part_ml, _DTYPE_CODE[q.dtype],
-        _DTYPE_CODE[k.dtype], B, S, Hq, Hkv, D, splits,
+        _DTYPE_CODE[k.dtype], B, S, Hq, Hkv, Dp, splits,
         split_chunk(S, splits), 1.0 / math.sqrt(D), stream)
     _build.check(lib, code, "decode_attention")
     launches += 1
-    return out
+    return out if Dp == D else out[..., :D].contiguous()
 
 
 def decode_attention_torch(q, k_cache, v_cache, lengths):

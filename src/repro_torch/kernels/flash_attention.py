@@ -24,7 +24,9 @@ from . import _build
 #: launches of the CUDA kernel since import (or since a caller reset it).
 launches = 0
 
-HEAD_DIMS = (32, 64, 128, 256)
+#: head sizes the kernels are instantiated at; any other D <= 256 is
+#: zero-padded up to the next of these (:func:`padded_head_dim`)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -39,12 +41,31 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def padded_head_dim(D: int) -> int:
+    """The instantiated head size a head of ``D`` runs at: the smallest of
+    :data:`HEAD_DIMS` that is >= D.  Raises ``NotImplementedError`` past
+    256, the largest."""
+    if not 1 <= D <= HEAD_DIMS[-1]:
+        raise NotImplementedError(f"attention kernels: head dim {D} not in "
+                                  f"[1, {HEAD_DIMS[-1]}]")
+    return next(d for d in HEAD_DIMS if d >= D)
+
+
+def pad_head(x, D: int):
+    """``x`` with its last axis zero-padded to ``D`` (contiguous)."""
+    return torch.nn.functional.pad(x, (0, D - x.shape[-1]))
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None):
     """q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
 
     Queries are the last Sq of the Skv positions.  On a CUDA tensor this
     launches the kernel; on a CPU tensor it runs :func:`attention_torch`.
+    A head size not in :data:`HEAD_DIMS` (up to 256) is zero-padded to the
+    next one: zero columns leave q.k^T unchanged, the scale stays
+    1/sqrt(D) of the true D, and the padded output columns are cut.  The
+    padding copies q, k and v, so it is for sizes no config uses.
     """
     if not q.is_cuda:
         return attention_torch(q, k, v, causal=causal, window=window)
@@ -66,9 +87,7 @@ def _launch(q, k, v, causal, window):
     if k.shape[0] != B or Dk != D or Hq % Hkv or Sq > Skv:
         raise ValueError(f"flash_attention: incompatible q{tuple(q.shape)} "
                          f"and k/v{tuple(k.shape)}")
-    if D not in HEAD_DIMS:
-        raise NotImplementedError(f"flash_attention kernel: head dim {D} "
-                                  f"not in {HEAD_DIMS}")
+    Dp = padded_head_dim(D)
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -76,16 +95,18 @@ def _launch(q, k, v, causal, window):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
                          "(the bf16 kernel copies 16 bytes at a time)")
+    if Dp != D:
+        q, k, v = (pad_head(x, Dp) for x in (q, k, v))
     lib = _lib()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], B, Sq, Skv, Hq, Hkv, D, int(causal),
+        _DTYPE_CODE[q.dtype], B, Sq, Skv, Hq, Hkv, Dp, int(causal),
         -1 if window is None else int(window), 1.0 / math.sqrt(D), stream)
     _build.check(lib, code, "flash_attention")
     launches += 1
-    return out
+    return out if Dp == D else out[..., :D].contiguous()
 
 
 def attention_torch(q, k, v, *, causal: bool = True,

@@ -34,7 +34,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.anneal_select_fwd
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_double, p, p, p, p,
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return lib
@@ -45,8 +45,11 @@ def anneal_select(cur, prop, best, cur_obj, prop_obj, best_obj, u, temp, *,
     """Metropolis accept + per-chain incumbent update over (P, L) rows.
 
     Semantics (and the oracle) live in :func:`repro_torch.kernels.ref.
-    anneal_select`.  ``temp`` is a Python float or a 0-d tensor, taken in
-    the objectives' dtype.  Returns ``(new_cur, new_cur_obj, new_best,
+    anneal_select`.  ``temp`` is a Python float or a one-element tensor,
+    taken in the objectives' dtype; the kernel reads it from the device,
+    so a temperature already there (a step's entry of the search's
+    schedule) costs no host read and can be captured in a CUDA graph.
+    Returns ``(new_cur, new_cur_obj, new_best,
     new_best_obj)``.
     """
     if backend not in BACKENDS:
@@ -82,6 +85,13 @@ def _launch(cur, prop, best, cur_obj, prop_obj, best_obj, u, temp):
                          f"({P},) for rows ({P}, {L})")
     rows = tuple(t.contiguous() for t in rows)
     objs = tuple(t.contiguous() for t in objs)
+    if isinstance(temp, torch.Tensor):
+        if temp.numel() != 1:
+            raise ValueError(f"anneal_select: temp must hold one value, "
+                             f"got {tuple(temp.shape)}")
+        temp_d = temp.to(device=cur.device, dtype=dt).reshape(())
+    else:
+        temp_d = torch.full((), float(temp), dtype=dt, device=cur.device)
     new_cur, new_best = torch.empty_like(rows[0]), torch.empty_like(rows[0])
     new_cur_obj, new_best_obj = torch.empty_like(objs[0]), \
         torch.empty_like(objs[0])
@@ -89,7 +99,7 @@ def _launch(cur, prop, best, cur_obj, prop_obj, best_obj, u, temp):
     stream = torch.cuda.current_stream(cur.device).cuda_stream
     code = lib.anneal_select_fwd(
         *(t.data_ptr() for t in rows), *(t.data_ptr() for t in objs),
-        float(temp), new_cur.data_ptr(), new_cur_obj.data_ptr(),
+        temp_d.data_ptr(), new_cur.data_ptr(), new_cur_obj.data_ptr(),
         new_best.data_ptr(), new_best_obj.data_ptr(), P, L, _DTYPE_CODE[dt],
         stream)
     _build.check(lib, code, "anneal_select")

@@ -33,6 +33,7 @@ kernels' plain PyTorch versions run).
 from __future__ import annotations
 
 import argparse
+import time
 
 from repro_torch import configs
 from repro_torch.core.accelerators import PLATFORMS
@@ -40,6 +41,8 @@ from repro_torch.core.accelerators import PLATFORMS
 #: largest relative fit error accepted without a warning: the reference's
 #: calibration acceptance gate (tests/test_profiling.py:149-170)
 FIT_GATE = 0.05
+#: seconds the card's antagonist runs alone at full duty, for its rate
+FULL_DUTY_S = 0.05
 
 
 def _parse_levels(text: str) -> list[float]:
@@ -103,36 +106,39 @@ def _torch_bundle(args, timer):
     graph = profiling.graph_from_measurements(
         f"{args.arch}:{cell.name}", platform, measured)
 
-    print("calibrating from streaming-antagonist co-runs ...")
-    peak = probes.measure_peak_bandwidth(backend=args.backend, timer=timer,
+    # pass sizes by device: on the card past its L2, on the CPU the
+    # reference's (probes.probe_sizes)
+    sizes = probes.probe_sizes(device)
+    print(f"calibrating from streaming-antagonist co-runs ({sizes}) ...")
+    peak = probes.measure_peak_bandwidth(mbytes=sizes.peak_mb,
+                                         backend=args.backend, timer=timer,
                                          device=device)
-    x, y = probes.make_buffers(8.0, device=device)
-    base = profiling.measure_wallclock(
-        lambda: probes.stream_once(x, y, backend=args.backend), timer=timer)
-    own = min(1.0, (probes.stream_bytes(x)
-                    / (base.median_ms * 1e-3)) / peak)
-    samples, corun = [], []
-    for ext in usable_levels:
-        probe = probes.MemoryProbe(demand=ext, backend=args.backend,
-                                   device=device)
-        with probe:
-            co = profiling.measure_wallclock(
-                lambda: probes.stream_once(x, y, backend=args.backend),
-                timer=timer)
-        # a co-run that reads faster than the standalone pass (noise) is
-        # a slowdown of 1; the raw ratio stays in provenance.
-        ratio = co.median_ms / base.median_ms
-        slowdown = max(1.0, ratio)
-        samples.append((own, float(ext), slowdown))
-        corun.append({"ext": float(ext), "co_ms": co.median_ms,
-                      "ratio": ratio, "slowdown": slowdown,
-                      "probe_passes": probe.passes,
-                      "probe_bytes_per_pass": probe.bytes_per_pass(),
-                      "probe_s": probe.elapsed_s,
-                      "probe_bytes_per_s": probe.achieved_bytes_per_s()})
-        print(f"  ext={ext:g}: co-run {co.median_ms:.4f} ms, slowdown "
-              f"{slowdown:.4f}; antagonist {probe.passes} passes, "
-              f"{probe.achieved_bytes_per_s() / 1e9:.2f} GB/s")
+    probe_info = sizes.to_dict()
+    if device.type == "cuda" and args.backend in ("auto", "cuda"):
+        # the card's capped antagonist alone at full duty, for its rate
+        full = probes.MemoryProbe(demand=1.0, backend=args.backend,
+                                  device=device)
+        with full:
+            time.sleep(FULL_DUTY_S)
+        probe_info.update(blocks=full.blocks,
+                          full_duty_bytes_per_s=full.achieved_bytes_per_s())
+        print(f"  antagonist on {full.blocks} SMs at full duty: "
+              f"{full.achieved_bytes_per_s() / 1e9:.2f} GB/s")
+        del full
+    # each level's slowdown: a co-run pass over the standalone pass timed
+    # just before it
+    base_ms, corun = probes.stream_slowdowns(
+        usable_levels, sizes=sizes, backend=args.backend, timer=timer,
+        device=device)
+    own = min(1.0, (probes.pass_bytes(sizes.target_mb)
+                    / (base_ms * 1e-3)) / peak)
+    samples = [(own, c["ext"], c["slowdown"]) for c in corun]
+    for c in corun:
+        print(f"  ext={c['ext']:g}: co-run {c['co_ms']:.4f} ms over "
+              f"{c['base_ms']:.4f} ms standalone, slowdown "
+              f"{c['slowdown']:.4f}; antagonist "
+              f"{c['probe_passes']:g} passes, "
+              f"{c['probe_bytes_per_s'] / 1e9:.2f} GB/s")
     result = profiling.fit(samples, args.fit, device=device)
     print(f"  peak={peak / 1e9:.2f} GB/s  {result.summary()}")
     warning = None
@@ -154,7 +160,8 @@ def _torch_bundle(args, timer):
                                 "std_ms": mg.measurement.std_ms}
                                for mg in measured],
                     "peak_stream_bytes_per_s": peak,
-                    "stream_base_ms": base.median_ms,
+                    "stream_base_ms": base_ms,
+                    "probe": probe_info,
                     "corun": corun,
                     "fit_kind": args.fit,
                     "fit": result.report.to_dict(),
@@ -338,7 +345,7 @@ def main(argv=None) -> int:
         ap.error("--devices/--search-budget-ms tune the device-resident "
                  "search; they require --solver anneal")
     if args.devices is not None and args.devices != 1:
-        # the multi-card mesh is ROADMAP.md queue 1 item 8
+        # the multi-card mesh is ROADMAP.md queue 1 item 6 (multi-device)
         ap.error(f"devices ({args.devices}): repro_torch searches on one "
                  f"device; nearest legal value: devices=1")
 

@@ -177,6 +177,42 @@ def measure_wallclock(fn: Callable[[], Any], *,
     return measurement_from_times(name, times, timer)
 
 
+#: :func:`measure_device`'s spin before each timed call: ~0.5 ms at an
+#: H100's 1.98 GHz boost clock, past the host's launch of a wrapper
+SPIN_CYCLES = 1_000_000
+
+
+def measure_device(fn: Callable[[], Any], *,
+                   timer: TimerConfig = TimerConfig(),
+                   name: str = "") -> Measurement:
+    """Device time of ``fn`` on the card: CUDA events recorded on the
+    caller's current stream around each call (after ``timer.warmup``
+    calls), the stream synchronized before each reading.  The port's
+    calibration times its stream passes so: on an H100 a 1 GB pass lasts
+    ~0.33 ms, and the ~0.04 ms the host adds to launch and wait for it
+    varies more than the steps between the demand levels it measures.
+    A spin of :data:`SPIN_CYCLES` is queued before each start event, so
+    the stream is busy while the host launches ``fn``: on an idle stream
+    the start event fires at once and the window holds the host's launch
+    latency too (on an H100 a 1 GB pass then read 0.36-0.40 ms, swinging
+    co-run ratios by 15%).  ``fn`` must run on the card (off it there is
+    no device clock: use :func:`measure_wallclock`)."""
+    for _ in range(timer.warmup):
+        fn()
+    _wait()
+    times = []
+    for _ in range(timer.repeats):
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return measurement_from_times(name, times, timer)
+
+
 # ---------------------------------------------------------------------------
 # executor profiling: measured graphs + co-run slowdown samples
 # ---------------------------------------------------------------------------

@@ -23,9 +23,9 @@ back to the offline ancestor.
   :meth:`ProfileBundle.derive` child carrying lineage.
 
 The reference's fleet gateway (``repro/serve/fleet/loop.py``; the port's
-is ROADMAP.md queue 1 item 5) drives this as its second control axis:
-re-solve under the re-fitted model first, duty-cycle the violating tenant
-when re-solving alone cannot meet the SLO.
+is ROADMAP.md queue 1 item 2, the gateway) drives this as its second
+control axis: re-solve under the re-fitted model first, duty-cycle the
+violating tenant when re-solving alone cannot meet the SLO.
 """
 from __future__ import annotations
 

@@ -17,6 +17,16 @@ Two differences from the reference, both about memory traffic:
   (``engine.py:143-155``); decode steps update the cache in place.  A
   decode step advances every slot, empty ones too, as the reference's
   does; admission overwrites a slot's whole state.
+
+Where the reference compiles the decode step with ``jax.jit``, the port
+captures it once per engine as a CUDA graph on the card
+(:class:`DecodeGraph`): the step always runs every slot over the same
+caches, so one graph keyed by (``max_slots``, ``capacity``) serves every
+step.  Each step copies the token ids and lengths into the graph's static
+device buffers and replays it; the logits come back in a static buffer.
+The CPU, and an engine built with ``eager=True``, run the same step
+eagerly.  Prefill stays eager everywhere: its length varies from request
+to request.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.kernels import graph
 from repro_torch.models import Model, kvcache
 from repro_torch.obs import TENANT_SCHEMA, conform
 
@@ -66,10 +77,53 @@ class EngineMetrics:
         return self.decode_ms_total / self.steps if self.steps else 0.0
 
 
+class DecodeGraph:
+    """``model.decode_step`` over all ``slots`` as one replayed graph.
+
+    ``caches`` are the engine's, updated in place by every replay.  The
+    token ids and lengths enter through static device buffers (from a
+    pinned staging buffer on the card); :meth:`__call__` returns the
+    logits in a static buffer that the next call overwrites.  On the card
+    the step is a CUDA graph (:func:`repro_torch.kernels.graph.capture`)
+    unless ``eager``; elsewhere the same code steps eagerly.  The warm-up
+    before capture steps the engine's own caches: every slot is empty
+    then, and admission overwrites a slot's whole state.
+    """
+
+    def __init__(self, model: Model, caches, slots: int,
+                 eager: bool = False):
+        dev = model.device
+        self.ids = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+        self.lengths = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self._host = torch.zeros((2, slots), dtype=torch.int32,
+                                 pin_memory=dev.type == "cuda")
+
+        def step(c):
+            return model.decode_step(c, {"token_ids": self.ids,
+                                         "lengths": self.lengths})[0]
+
+        graph.warm_up(lambda: step(caches), dev, eager)
+        self.graph = graph.capture(lambda: step(caches), dev, eager)
+
+    def __call__(self, last_tok: np.ndarray, lengths: np.ndarray):
+        # the staging buffer is free again: the last step's copies were
+        # done before its tokens reached the host
+        self._host[0] = torch.from_numpy(last_tok)
+        self._host[1] = torch.from_numpy(lengths)
+        self.ids.copy_(self._host[0, :, None], non_blocking=True)
+        self.lengths.copy_(self._host[1], non_blocking=True)
+        return self.graph.replay()
+
+
 class ServingEngine:
+    """``eager=True`` steps the decode eagerly on the card too (to compare
+    the two paths); on the CPU it always does.  Either way the step goes
+    through :class:`DecodeGraph`."""
+
     def __init__(self, model: Model, max_slots: int = 4,
                  capacity: int = 256,
-                 admission_gate: Callable[[Request], bool] | None = None):
+                 admission_gate: Callable[[Request], bool] | None = None,
+                 *, eager: bool = False):
         self.model = model
         self.device = model.device
         self.max_slots = max_slots
@@ -86,6 +140,8 @@ class ServingEngine:
         #: head request (FIFO is preserved: admission stops for this step).
         self.admission_gate = admission_gate
         self.counters = EngineMetrics()
+        #: the decode step (a CUDA graph on the card unless ``eager``)
+        self.graph = DecodeGraph(model, self.caches, max_slots, eager)
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new: int = 16, eos: int | None = None
@@ -156,9 +212,7 @@ class ServingEngine:
         if self.active == 0:
             return 0
         t0 = time.perf_counter()
-        batch = {"token_ids": self._ids(self.last_tok[:, None]),
-                 "lengths": self._ids(self.lengths)}
-        logits, self.caches = self.model.decode_step(self.caches, batch)
+        logits = self.graph(self.last_tok, self.lengths)
         toks = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         self.counters.last_step_ms = (time.perf_counter() - t0) * 1e3
         self.counters.decode_ms_total += self.counters.last_step_ms

@@ -123,6 +123,68 @@ def test_decode_head_256_plain_vs_pallas(case, dtype):
     np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
 
 
+#: the head sizes the kernels gained for the reduced configs (16) and
+#: hubert-xlarge (80), and one the wrappers zero-pad (40 -> 64):
+#: (B, Sq, Skv, Hq, Hkv, D)
+SMALL_HEADS = [(2, 70, 70, 4, 2, 16), (1, 65, 130, 16, 16, 80),
+               (1, 40, 96, 4, 1, 40)]
+
+
+@pytest.mark.parametrize("shape", SMALL_HEADS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_small_heads_plain_vs_pallas(shape, dtype, causal, window):
+    """The plain attention at head sizes 16, 80 and 40 against the Pallas
+    kernel in interpret mode."""
+    B, Sq, Skv, Hq, Hkv, D = shape
+    qn, kn, vn = draw(16, (B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D))
+    (qj, qt), (kj, kt), (vj, vt) = (both(x, dtype) for x in (qn, kn, vn))
+    got = tops.attention(qt, kt, vt, causal=causal, window=window,
+                         block_kv=32, backend="torch")
+    want = jops.attention(qj, kj, vj, causal=causal, window=window,
+                          backend="pallas_interpret", block_q=32,
+                          block_kv=32)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("D", [16, 40, 80])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_small_heads_decode_plain_vs_pallas(D, G, dtype):
+    """Decode at head sizes 16, 80 and 40, groups of 1 and 8, lengths 0,
+    1 and S, against the Pallas kernel in interpret mode."""
+    B, S, Hkv = 3, 96, 2
+    qn, kn, vn = draw(17, (B, 1, Hkv * G, D), (B, S, Hkv, D),
+                      (B, S, Hkv, D))
+    (qj, qt), (kj, kt), (vj, vt) = (both(x, dtype) for x in (qn, kn, vn))
+    lens = np.array([0, 1, S], np.int32)
+    got = tops.decode_attention(qt, kt, vt, torch.from_numpy(lens),
+                                backend="torch")
+    want = jops.decode_attention(qj, kj, vj, jnp.asarray(lens),
+                                 backend="pallas_interpret")
+    # length 0: the Pallas kernel and the plain version give 0
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("D,want", [(1, 16), (16, 16), (17, 32), (40, 64),
+                                    (64, 64), (65, 80), (80, 80), (81, 128),
+                                    (200, 256), (256, 256)])
+def test_padded_head_dim(D, want):
+    """Every head size up to 256 runs at the next instantiated one."""
+    assert tfa.padded_head_dim(D) == want
+    x = torch.randn(2, 3, D)
+    padded = tfa.pad_head(x, want)
+    assert padded.shape == (2, 3, want) and padded.is_contiguous()
+    assert torch.equal(padded[..., :D], x)
+    assert not padded[..., D:].any()
+
+
+@pytest.mark.parametrize("D", [0, 257, 288])
+def test_padded_head_dim_refuses_past_256(D):
+    with pytest.raises(NotImplementedError, match=f"head dim {D}"):
+        tfa.padded_head_dim(D)
+
+
 DECODE_CASES = [
     # (B, S, Hq, Hkv, D, lengths): 0, 1, full, non-multiples of 512
     (4, 1100, 8, 2, 64, (0, 1, 1100, 513)),
@@ -409,11 +471,58 @@ def test_flash_kernel_edges_vs_plain(cuda_device, case, D, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_kernels_refuse_unsupported_head_size(cuda_device, dtype):
-    """No fallback: a CUDA tensor the kernels cannot take raises."""
+    """No fallback: a CUDA tensor the kernels cannot take raises (every
+    head size past 256; smaller ones are padded)."""
     td = DTYPES[dtype][1]
-    q = torch.randn(1, 8, 2, 96, device=cuda_device).to(td)
-    with pytest.raises(NotImplementedError, match="head dim 96"):
+    q = torch.randn(1, 8, 2, 288, device=cuda_device).to(td)
+    with pytest.raises(NotImplementedError, match="head dim 288"):
         tfa.flash_attention(q, q, q)
     lengths = torch.tensor([5], dtype=torch.int32, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="head dim 96"):
+    with pytest.raises(NotImplementedError, match="head dim 288"):
         tdec.decode_attention(q[:, :1].contiguous(), q, q, lengths)
+
+
+#: (B, Sq, Skv, Hq, Hkv, causal, window) at head sizes 16 and 80 and the
+#: padded 40: causal, local window, bidirectional
+SMALL_HEAD_MASKS = [(2, 70, 70, 4, 2, True, None),
+                    (1, 130, 130, 16, 1, True, 48),
+                    (1, 65, 130, 16, 16, False, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SMALL_HEAD_MASKS)
+@pytest.mark.parametrize("D", (16, 40, 80))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_kernel_small_heads_vs_plain(cuda_device, case, D, dtype):
+    B, Sq, Skv, Hq, Hkv, causal, window = case
+    q, k, v = (_card(x, dtype, cuda_device) for x in draw(
+        18, (B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    before = tfa.launches
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.launches == before + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    want = tfa.attention_torch(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()), **tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", (16, 40, 80))
+@pytest.mark.parametrize("G", (1, 8, 16))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_kernel_small_heads_vs_plain(cuda_device, D, G, dtype):
+    """Groups of 1 (the CUDA-core pass) and 8 and 16 (the tensor-core
+    pass in bf16), lengths 0, 1 and S, one split and several."""
+    for B, S in ((3, 300), (3, 2048)):
+        q, k, v = (_card(x, dtype, cuda_device) for x in draw(
+            19, (B, 1, 2 * G, D), (B, S, 2, D), (B, S, 2, D)))
+        lengths = torch.tensor([0, 1, S], dtype=torch.int32,
+                               device=cuda_device)
+        before = tdec.launches
+        got = tdec.decode_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        assert tdec.launches == before + 1
+        assert got.shape == q.shape and got.is_contiguous()
+        want = tdec.decode_attention_torch(q, k, v, lengths)
+        np.testing.assert_allclose(f32(got.cpu()), f32(want.cpu()),
+                                   **tol(dtype))

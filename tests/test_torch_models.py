@@ -25,6 +25,8 @@ from repro_torch.models import kvcache as tkv
 from repro_torch.models import layers as tlayers
 from repro_torch.models.convert import params_from_jax
 
+from test_torch_recurrent import pair as perturbed_pair
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 #: (name, arch, reduced() overrides): MHA, GQA + tied embeddings + rope
@@ -237,3 +239,36 @@ def test_configs_copied_verbatim(arch):
                 == dataclasses.asdict(tconfigs.SHAPES[shape]))
         assert (jconfigs.cell_supported(jcfg, shape)
                 == tconfigs.cell_supported(tcfg, shape))
+
+
+@pytest.mark.parametrize("arch", [a for a in tconfigs.ARCHS
+                                  if tconfigs.get(a).moe is None])
+def test_reduced_configs_at_head_16(arch):
+    """Every reduced config the port builds runs at head size 16 (the size
+    the attention kernels gained for it): the whole model, prefill and two
+    decode steps (forward for the encoder-only one), against repro's on
+    the same numpy-seeded weights, with the recurrent parameters init
+    leaves at zero filled."""
+    jm, params, _, tm = perturbed_pair(arch)
+    cfg = tm.cfg
+    assert cfg.d_head == jm.cfg.d_head == 16
+    rng = np.random.default_rng(11)
+    if cfg.embeds_only:
+        x = rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+        want, _ = jm.forward(params, {"embeds": jnp.asarray(x)})
+        got = tm({"embeds": torch.from_numpy(x)})
+        np.testing.assert_allclose(np32(got), np32(want), **TOL)
+        return
+    ids = rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+    jl, jc = jm.prefill(params, {"token_ids": jnp.asarray(ids)}, capacity=20)
+    tl, tc = tm.prefill({"token_ids": torch.from_numpy(ids)}, capacity=20)
+    np.testing.assert_allclose(np32(tl), np32(jl), **TOL)
+    lengths = np.array([12, 12], np.int32)
+    for _ in range(2):
+        tok = rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32)
+        jl, jc = jm.decode_step(params, jc, {"token_ids": jnp.asarray(tok),
+                                             "lengths": jnp.asarray(lengths)})
+        tl, tc = tm.decode_step(tc, {"token_ids": torch.from_numpy(tok),
+                                     "lengths": torch.from_numpy(lengths)})
+        np.testing.assert_allclose(np32(tl), np32(jl), **TOL)
+        lengths = lengths + 1

@@ -26,6 +26,7 @@ from repro.profiling import probes as jprobes
 from repro_torch.kernels import stream as tstream
 from repro_torch.profiling import TimerConfig, measure_wallclock
 from repro_torch.profiling import probes as tprobes
+from repro_torch.profiling.harness import measurement_from_times
 
 STREAM_RTOL = 1e-6
 CPU = "cpu"
@@ -100,6 +101,107 @@ def test_peak_bandwidth_on_cpu_is_positive():
     rate = tprobes.measure_peak_bandwidth(
         mbytes=0.05, timer=TimerConfig(warmup=1, repeats=3), device=CPU)
     assert rate > 0.0
+
+
+# ---------------------------------------------------------------------------
+# calibration sizes by device
+# ---------------------------------------------------------------------------
+def test_cpu_keeps_the_reference_sizes():
+    """On the CPU the probe, its peak pass and the CLI's target pass
+    keep the reference's sizes (read from the reference's own defaults),
+    so the CPU bundles still equal the reference's."""
+    import inspect
+
+    sizes = tprobes.probe_sizes(CPU)
+    assert sizes == tprobes.REFERENCE_SIZES
+    probe = inspect.signature(jprobes.MemoryProbe).parameters
+    peak = inspect.signature(jprobes.measure_peak_bandwidth).parameters
+    assert sizes.antagonist_mb == probe["mbytes"].default == 8.0
+    assert sizes.period_ms == probe["period_ms"].default
+    assert sizes.peak_mb == peak["mbytes"].default == 32.0
+    assert sizes.target_mb == 8.0 and sizes.sm_share is None
+    p = tprobes.MemoryProbe(demand=0.5, device=CPU)
+    assert not p.on_device and p.period_s == sizes.period_ms * 1e-3
+    assert p.bytes_per_pass() == tprobes.stream_bytes(
+        tprobes.make_buffers(8.0, device=CPU)[0])
+
+
+def test_card_passes_are_past_the_l2(monkeypatch):
+    """On CUDA every pass is at least 256 MB (the H100's L2 holds 50
+    MB) and the antagonist holds a quarter of the SMs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    sizes = tprobes.probe_sizes("cuda")
+    assert sizes == tprobes.CUDA_SIZES
+    assert min(sizes.target_mb, sizes.antagonist_mb, sizes.peak_mb) >= 256
+    assert sizes.sm_share == 0.25
+    # a target pass spans many duty periods, so it sees the mean demand
+    assert sizes.period_ms < 0.1
+
+
+def test_cli_records_the_probe_sizes_on_cpu(tmp_path):
+    from repro_torch.launch.profile import main
+    from repro_torch.profiling import ProfileBundle
+
+    out = tmp_path / "torch.json"
+    assert main(["--executor", "torch", "--reduced", "--device", "cpu",
+                 "--seq", "16", "--batch", "1", "--repeats", "3",
+                 "--warmup", "1", "--ext-levels", "0.5", "--fit",
+                 "piecewise", "--max-groups", "1", "--out", str(out)]) == 0
+    prov = ProfileBundle.load(out).provenance
+    assert prov["probe"] == tprobes.REFERENCE_SIZES.to_dict()
+    assert [c["probe_launches"] for c in prov["corun"]] == [0]
+
+
+@pytest.mark.parametrize("mbytes", [0.001, 8.0, 1000.0])
+def test_pass_bytes_equal_the_buffers(mbytes):
+    n = tprobes._elements(mbytes)
+    assert tprobes.pass_bytes(mbytes) == n * tstream.BYTES_PER_ELEM
+    if mbytes <= 8.0:
+        assert tprobes.pass_bytes(mbytes) == tprobes.stream_bytes(
+            tprobes.make_buffers(mbytes, device=CPU)[0])
+
+
+def test_stream_slowdowns_pair_each_co_run(monkeypatch):
+    """Each co-run is divided by the standalone pass timed just before
+    it: a standalone time drifting 10% a measurement leaves every ratio
+    at the co-run's true 1.2, where one standalone reading before the
+    sweep would not."""
+    calls = []
+
+    def fake(fn, *, timer, name=""):
+        k = len(calls)
+        calls.append(k)
+        drift = 1.0 + 0.1 * (k // 2)
+        ms = drift if k % 2 == 0 else 1.2 * drift
+        return measurement_from_times(name, [ms], timer)
+
+    monkeypatch.setattr(tprobes, "measure_wallclock", fake)
+    sizes = tprobes.ProbeSizes(target_mb=0.01, antagonist_mb=0.01,
+                               peak_mb=0.01, period_ms=1.0, sm_share=None)
+    base_ms, recs = tprobes.stream_slowdowns(
+        [0.5, 0.25, 1.0], sizes=sizes,
+        timer=TimerConfig(warmup=0, repeats=1), device=CPU)
+    assert len(calls) == 2 * 3
+    assert [r["ext"] for r in recs] == [0.5, 0.25, 1.0]
+    for i, r in enumerate(recs):
+        assert r["base_ms"] == pytest.approx(1.0 + 0.1 * i)
+        assert r["ratio"] == r["co_ms"] / r["base_ms"]
+        assert r["ratio"] == pytest.approx(1.2, rel=1e-12)
+        assert r["slowdown"] == r["ratio"]
+        assert r["probe_launches"] == 0           # a host thread
+    assert base_ms == pytest.approx(1.1)          # the median standalone
+
+
+def test_stream_slowdowns_floor_at_one_on_cpu():
+    sizes = tprobes.ProbeSizes(target_mb=0.05, antagonist_mb=0.05,
+                               peak_mb=0.05, period_ms=1.0, sm_share=None)
+    base_ms, recs = tprobes.stream_slowdowns(
+        [0.5, 1.0], sizes=sizes, timer=TimerConfig(warmup=1, repeats=3),
+        device=CPU)
+    assert base_ms > 0 and [r["ext"] for r in recs] == [0.5, 1.0]
+    for r in recs:
+        assert r["slowdown"] == max(1.0, r["ratio"]) >= 1.0
+        assert r["probe_bytes_per_pass"] == tprobes.pass_bytes(0.05)
 
 
 # ---------------------------------------------------------------------------
@@ -202,3 +304,53 @@ def test_probe_does_not_stretch_an_idle_measurement(cuda_device):
     pass_ms = probe.elapsed_s * 1e3 / probe.passes
     assert pass_ms > 0.25
     assert busy < idle + 0.1, (idle, busy, pass_ms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("demand", [1.0, 0.1])
+def test_duty_cycle_kernel_bitwise_and_stops(cuda_device, demand):
+    """The duty-cycled antagonist on a quarter of the SMs: one launch, its
+    output the plain version's bit for bit after its passes, and it stops
+    soon after its flag is raised."""
+    x, y = special_values(1 << 20, cuda_device)
+    out = torch.zeros_like(x)
+    moved = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    blocks = tstream.duty_blocks(cuda_device, 0.25)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert blocks == max(1, int(sms * 0.25))
+    side, ctl = torch.cuda.Stream(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = tstream.launches
+    with torch.cuda.stream(side):
+        tstream.duty_cycle(x, y, out, moved, flag, demand=demand,
+                           period_ms=0.02, blocks=blocks, max_s=10.0)
+    assert tstream.launches == before + 1
+    time.sleep(0.05)
+    with torch.cuda.stream(ctl):
+        flag.fill_(1)
+    t0 = time.perf_counter()
+    side.synchronize()
+    assert time.perf_counter() - t0 < 1.0
+    nbytes, span = tstream.moved_stats(moved)
+    assert nbytes >= 12 * x.numel() and 0 < span < 1.0
+    assert torch.equal(bits(out), bits(tstream.stream_torch(x, y)))
+
+
+@pytest.mark.cuda
+def test_card_probe_is_one_capped_launch(cuda_device):
+    """On the card the probe is one launch of the duty-cycle kernel: its
+    passes come from the device's byte count, and half the duty moves
+    less than full duty."""
+    rates = {}
+    for demand in (1.0, 0.5):
+        probe = tprobes.MemoryProbe(demand=demand, mbytes=256.0,
+                                    device=cuda_device)
+        assert probe.on_device
+        before = tstream.launches
+        with probe:
+            time.sleep(0.05)
+        assert tstream.launches == before + 1
+        assert probe.passes > 1 and probe.device_s > 0
+        rates[demand] = probe.achieved_bytes_per_s()
+    assert rates[0.5] < 0.8 * rates[1.0], rates

@@ -31,7 +31,7 @@ from repro.core import Scheduler as JScheduler
 from repro.core import search_jax, simulate_jax
 from repro.core.contention import PiecewiseModel as JPiecewise
 from repro_torch.core import prng
-from repro_torch.core import search_torch
+from repro_torch.core import search_torch, simulate_torch
 from repro_torch.core.accelerators import Accelerator, Platform
 from repro_torch.core.contention import ProportionalShareModel
 from repro_torch.core.graph import DNNGraph, LayerGroup
@@ -267,3 +267,176 @@ class TestValidation:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             search_torch.anneal_search(tiny, population=32)
+
+
+# ---------------------------------------------------------------------------
+# the steps as captured graphs (static buffers, device step and temperature)
+# ---------------------------------------------------------------------------
+
+def golden_tables(name="scenario4-exp8-orin-resnet101-googlenet-inception"):
+    """A golden Table-6 fixture under the PCCS surface, as search tables."""
+    import pathlib
+
+    from repro_torch.core import Plan
+    from repro_torch.core.contention import PiecewiseModel
+
+    req = Plan.load(pathlib.Path(__file__).parent / "fixtures" / "plans"
+                    / f"{name}.json").request
+    return search_torch.build_tables(
+        req.platform, list(req.graphs), PiecewiseModel(*PCCS),
+        req.max_transitions, list(req.iterations), list(req.depends_on))
+
+
+def host_loop(chains, chain_idx, asg0, seed, n_steps, ex_every, t0, t1):
+    """The steps as one plain eager host loop over ``chains``' own
+    methods (the evaluation tests for a finished population every
+    CHECK_EVERY waves, the temperature is a host float): the oracle the
+    graphs' step functions are held to."""
+    from repro_torch.kernels.search import anneal_select
+
+    dt = chains.tb["dur_t"].dtype
+    P = asg0.shape[0]
+    L = chains.tables.w * chains.tables.gmax
+    chain_keys = prng.fold_in(prng.key(seed, P, asg0.device), chain_idx)
+    temps = search_torch.temperature_schedule(t0, t1, n_steps, dt)
+    cur_obj, _ = chains.evaluate(asg0)
+    cur = best = asg0
+    best_obj = cur_obj
+    for step in range(n_steps):
+        km, ku = prng.split(prng.fold_in(chain_keys, step))
+        prop = chains.mutate(km, cur)
+        prop_obj, _ = chains.evaluate(prop)
+        u = prng.uniform_f32(ku).to(dt)
+        c, cur_obj, b, best_obj = anneal_select(
+            cur.reshape(P, L), prop.reshape(P, L), best.reshape(P, L),
+            cur_obj, prop_obj, best_obj, u, temps[step],
+            backend=chains.backend)
+        cur, best = c.reshape(asg0.shape), b.reshape(asg0.shape)
+        if (step + 1) % ex_every == 0:
+            cur, cur_obj = chains.migrate_step(cur, cur_obj, best, best_obj)
+    return best_obj, best
+
+
+def chains_of(tables, precision, device, island=8, migrate="island"):
+    """``anneal_search``'s ``_Chains`` and scattered start for ``tables``
+    at population 64 (seed 7, latency)."""
+    dt = simulate_torch.dtype_of(precision)
+    chains = search_torch._Chains(
+        tables, search_torch._device_tables(tables, dt, device), "latency",
+        island, migrate, "auto", bits=64 if precision == "x64" else 32)
+    asg0 = torch.as_tensor(search_torch._scatter_population(
+        tables, search_torch.default_init(tables), 64, 7), device=device)
+    return chains, torch.arange(64, device=device), asg0
+
+
+class TestGraphSteps:
+    @pytest.mark.parametrize("precision", ["x64", "float32"])
+    @pytest.mark.parametrize("problem", ["xavier", "orin"])
+    def test_graph_path_equals_host_loop_bitwise(self, precision, problem):
+        """The graphs' step functions (fixed wave budget plus overflow
+        waves, select with the device temperature, the device step folded
+        into the keys, migration into static buffers), run eagerly on the
+        CPU, give every chain the plain host loop's incumbent and
+        objective bit for bit."""
+        if problem == "xavier":
+            _, (tp, tg, tm) = xavier_pair("pccs")
+            tables = search_torch.build_tables(tp, tg, tm, 2)
+        else:
+            tables = golden_tables()
+        chains, idx, asg0 = chains_of(tables, precision, "cpu")
+        args = (idx, asg0, 7, 20, 4, 0.5, 5e-4)
+        want_obj, want = host_loop(chains, *args)
+        got_obj, got = chains.run(*args, eager=False)
+        assert chains.stats["graph"] is False
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert got_obj.numpy().tobytes() == want_obj.numpy().tobytes()
+
+    @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("n_steps", [1, 2, 24, 64])
+    def test_temperature_schedule_is_the_host_values(self, dt, n_steps):
+        """Each entry equals the step's host computation bit for bit, and
+        survives the trip through a tensor of the objectives' dtype."""
+        t0, t1 = 0.1 * 4.37, 1e-4 * 4.37
+        got = search_torch.temperature_schedule(t0, t1, n_steps, dt)
+        t0_, t1_ = (torch.tensor(v, dtype=dt) for v in (t0, t1))
+        denom = torch.tensor(max(n_steps - 1, 1), dtype=dt)
+        for step, temp in enumerate(got):
+            frac = torch.tensor(step, dtype=dt) / denom
+            want = float(t0_ * (t1_ / t0_) ** frac)
+            assert np.float64(temp).tobytes() == np.float64(want).tobytes()
+        dev = torch.tensor(got, dtype=dt)
+        assert [float(x) for x in dev] == got
+
+    def test_graph_stats_in_the_trace(self):
+        from repro_torch.obs import Tracer, set_tracer
+
+        tracer = Tracer()
+        prev = set_tracer(tracer)
+        try:
+            search_torch.anneal_search(golden_tables(), device="cpu",
+                                       **dict(KW, population=32, steps=6))
+        finally:
+            set_tracer(prev)
+        (chunk,) = [e["args"] for e in tracer.events()
+                    if e["name"] == "anneal.chunk"]
+        assert chunk["graph"] is False and chunk["waves"] > 0
+        assert chunk["waves"] % simulate_torch.CHECK_EVERY == 0
+        assert chunk["overflow_replays"] >= 0
+        assert chunk["launches_per_graph"] == {
+            "head": {}, "more": {}, "tail": {}, "migrate": {}}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are built with nvcc "
+                    "for sm_90a)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["x64", "float32"])
+def test_graph_steps_equal_host_loop_on_the_card(cuda_device, precision):
+    """On the orin fixture: the captured graphs give every chain the
+    plain host loop's incumbent and objective bit for bit on the card,
+    where the loop hands the select kernel a host-float temperature."""
+    chains, idx, asg0 = chains_of(golden_tables(), precision, cuda_device)
+    args = (idx, asg0, 7, 20, 4, 0.5, 5e-4)
+    want_obj, want = host_loop(chains, *args)
+    got_obj, got = chains.run(*args, eager=False)
+    assert chains.stats["graph"] is True
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (got_obj.cpu().numpy().tobytes()
+            == want_obj.cpu().numpy().tobytes())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["x64", "float32"])
+def test_graph_search_equals_eager_search_on_the_card(cuda_device,
+                                                      precision):
+    """On the orin fixture: the captured graphs and the same step
+    functions run eagerly on the card return the same incumbent bit for
+    bit; the graphs replay the select kernel once a step and the
+    slowdown kernel in every wave."""
+    from repro_torch.kernels import search as tsearch
+    from repro_torch.obs import Tracer, set_tracer
+
+    tables = golden_tables()
+    kw = dict(KW, population=256, steps=16, precision=precision,
+              device=cuda_device)
+    eager = search_torch.anneal_search(tables, eager=True, **kw)
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    try:
+        before = tsearch.launches
+        graph = search_torch.anneal_search(tables, **kw)
+        launched = tsearch.launches - before
+    finally:
+        set_tracer(prev)
+    assert graph == eager
+    (chunk,) = [e["args"] for e in tracer.events()
+                if e["name"] == "anneal.chunk"]
+    per = chunk["launches_per_graph"]
+    assert per["tail"] == {"search": 1}
+    assert per["head"]["slowdown"] > 0 and per["more"]["slowdown"] > 0
+    assert launched == kw["steps"] + 1          # + the warm-up's

@@ -148,6 +148,16 @@ class TestSelectParity:
                 np.testing.assert_array_equal(g.numpy(), want)
                 np.testing.assert_array_equal(g.numpy(), ref)
 
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    def test_tensor_temperature_is_the_float_one(self, dtype):
+        """A one-element tensor temperature decides as the float does."""
+        args = to_torch(*select_inputs(p=300, dtype=dtype)[:-1])
+        want = tsearch.anneal_select(*args, 0.37)
+        for temp in (torch.tensor([0.37], dtype=args[3].dtype),
+                     torch.tensor(0.37, dtype=args[3].dtype)):
+            for g, w in zip(tsearch.anneal_select(*args, temp), want):
+                np.testing.assert_array_equal(g.numpy(), w.numpy())
+
     def test_nonfinite_proposals_always_reject(self):
         cur, prop, best, curo, propo, besto, u, temp = select_inputs()
         propo[:] = -np.inf
@@ -219,4 +229,34 @@ def test_select_kernel_vs_plain_bitwise(cuda_device, dtype, p, temp):
     assert tsearch.launches == before + 1
     want = tsearch.anneal_select_torch(*args, temp)
     for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("temp", [0.37, 1e-40, 25.0])
+def test_select_kernel_reads_its_temperature_from_the_device(cuda_device,
+                                                             dtype, temp):
+    """The temperature as a one-element device tensor (a step's entry of
+    the search's schedule, as the captured graph passes it) gives the
+    plain version's decision bit for bit, as the Python float does, and
+    is read on the device: under sync debug mode "error" a host read
+    would raise."""
+    args = [t.to(cuda_device) for t in to_torch(
+        *select_inputs(p=4096, l=64, dtype=dtype)[:-1])]
+    schedule = torch.tensor([9.0, temp, 3.0], dtype=args[3].dtype,
+                            device=cuda_device)
+    step = torch.ones(1, dtype=torch.int64, device=cuda_device)
+    want = tsearch.anneal_select_torch(*args, temp)
+    tsearch.anneal_select(*args, schedule[1:2])            # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tsearch.anneal_select(*args, schedule.index_select(0, step))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    from_float = tsearch.anneal_select(*args, temp)
+    for g, w in zip(from_float, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())

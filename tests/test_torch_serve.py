@@ -76,6 +76,26 @@ def test_admission_gate_defers_fifo(served):
     assert eng.metrics()["queue_depth"] == 2
 
 
+@pytest.mark.parametrize("eager", [False, True])
+def test_decode_graph_bookkeeping_on_cpu(served, eager):
+    """The engine's graph path (static id and length buffers, the logits
+    in a static buffer, one step function over the engine's caches), run
+    eagerly on the CPU, gives the reference engine's greedy tokens, with
+    or without asking for eager steps."""
+    from repro_torch.kernels import graph as tgraph
+
+    jeng, _, tm = served
+    eng = tengine.ServingEngine(tm, max_slots=4, capacity=64, eager=eager)
+    assert isinstance(eng.graph, tengine.DecodeGraph)
+    assert isinstance(eng.graph.graph, tgraph.Eager)   # nothing captured
+    rng = np.random.default_rng(0)
+    for n in PROMPT_LENS:
+        eng.submit(rng.integers(0, tm.cfg.vocab, size=n), max_new=MAX_NEW)
+    eng.run_until_drained()
+    want = {r.rid: r.tokens for r in jeng.completed}
+    assert {r.rid: r.tokens for r in eng.completed} == want
+
+
 def test_launcher_serves_on_cpu(capsys):
     assert tserve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                         "--requests", "2", "--max-new", "3"]) == 0
@@ -102,3 +122,95 @@ def test_unported_modes_exit_nonzero(flags, capsys):
 def test_encoder_only_has_no_decode_service():
     assert tserve.main(["--arch", "hubert-xlarge", "--reduced",
                         "--device", "cpu"]) == 1
+
+
+# ---------------------------------------------------------------------------
+# card only: the decode step as a CUDA graph
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are built with nvcc "
+                    "for sm_90a)")
+    return torch.device("cuda")
+
+
+def _card_engines(dev, arch):
+    """Graph and eager engines over one reduced float32 model on the card,
+    each fed the same requests, admitted between steps."""
+    tcfg = tconfigs.get(arch).reduced()
+    tm = tbuild(tcfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    engines = {"graph": tengine.ServingEngine(tm, max_slots=4, capacity=64),
+               "eager": tengine.ServingEngine(tm, max_slots=4, capacity=64,
+                                              eager=True)}
+    return tm, engines
+
+
+class Recording:
+    """Calls ``fn`` and keeps a copy of each call's logits."""
+
+    def __init__(self, fn, pick=lambda out: out):
+        self.fn, self.pick, self.logits = fn, pick, []
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        self.logits.append(self.pick(out).clone())
+        return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "recurrentgemma-9b"])
+def test_graph_and_eager_decode_agree(cuda_device, arch, monkeypatch):
+    """20 steps with admissions in between: identical greedy tokens, and
+    every step's float32 logits within 1e-5 relative."""
+    from repro_torch.kernels import graph as tgraph
+
+    tm, engines = _card_engines(cuda_device, arch)
+    graph, eager = engines["graph"], engines["eager"]
+    assert isinstance(graph.graph.graph, tgraph.Graph)
+    assert isinstance(eager.graph.graph, tgraph.Eager)
+    graph.graph = Recording(graph.graph)
+    # the graph replays without Python, so only the eager engine calls this
+    eager_step = Recording(tm.decode_step, pick=lambda out: out[0])
+    monkeypatch.setattr(tm, "decode_step", eager_step)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, tm.cfg.vocab, size=n)
+               for n in (5, 9, 17, 33, 3)]
+    for eng in (graph, eager):
+        for step in range(20):
+            if step % 4 == 0:
+                eng.submit(prompts[step // 4], max_new=7)
+            eng.step()
+    assert len(graph.graph.logits) == len(eager_step.logits) == 20
+    for g, e in zip(graph.graph.logits, eager_step.logits):
+        rel = float((g - e).norm() / e.norm())
+        assert rel <= 1e-5, rel
+    got = {r.rid: r.tokens for r in graph.completed}
+    want = {r.rid: r.tokens for r in eager.completed}
+    assert got == want and len(got) >= 3
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_exact_launches(cuda_device):
+    """A replay adds each wrapper's launches of one step: the decode
+    kernel once per attention layer, nothing for the prefill kernel."""
+    from repro_torch.kernels import decode_attention as tdec
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import rglru as trg
+
+    tm, engines = _card_engines(cuda_device, "recurrentgemma-9b")
+    eng = engines["graph"]
+    kinds = tm.cfg.layer_kinds
+    attn = sum(k in ("attn", "local") for k in kinds)
+    assert eng.graph.graph.launches == {
+        "decode_attention": attn, "rglru": kinds.count("rglru")}
+    eng.submit(np.arange(6), max_new=50)
+    eng.step()                                   # admit + first step
+    before = (tfa.launches, tdec.launches, trg.launches)
+    for _ in range(5):
+        eng.step()
+    torch.cuda.synchronize()
+    assert (tfa.launches, tdec.launches, trg.launches) == (
+        before[0], before[1] + 5 * attn,
+        before[2] + 5 * kinds.count("rglru"))

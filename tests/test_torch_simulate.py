@@ -218,3 +218,72 @@ class TestErrors:
         bt = simulate_torch.simulate_batch(two_acc_platform(), [],
                                            ProportionalShareModel())
         assert len(bt) == 0
+
+
+# ---------------------------------------------------------------------------
+# a fixed budget of waves, then overflow waves (the search's graphs)
+# ---------------------------------------------------------------------------
+def machine_args(spec, precision):
+    """The event machine's arguments for a lowered spec on the CPU, as
+    ``simulate_spec`` builds them."""
+    import torch
+
+    dt = simulate_torch.dtype_of(precision)
+    i64 = torch.int64
+
+    def t(a, dtype):
+        return simulate_torch._tensor(a, dtype, "cpu")
+
+    return (t(spec.acc, i64), t(spec.dur, dt), t(spec.dem, dt),
+            t(spec.tau, dt), t(spec.ngroups, i64), t(spec.iters, i64),
+            t(spec.dep, i64), t(spec.arrival, dt), t(spec.domshare, dt),
+            t(spec.model_of_acc, i64),
+            tuple(simulate_torch.surface_params(s, dt, "cpu")
+                  for s in spec.surfaces))
+
+
+def golden_spec(path):
+    plan = TPlan.load(path)
+    req = plan.request
+    from repro_torch.core.lowering import lower_assignments
+    return lower_assignments(
+        req.platform, list(req.graphs), [list(plan.assignments)] * 3,
+        PiecewiseModel(*PCCS), iterations=list(req.iterations),
+        depends_on=list(req.depends_on))
+
+
+class TestWaveBudget:
+    @pytest.mark.parametrize("source", [f"seed{s}" for s in SEEDS[:6]]
+                             + [p.stem for p in FIXTURES])
+    @pytest.mark.parametrize("precision", ["x64", "float32"])
+    @pytest.mark.parametrize("record", [True, False])
+    def test_budget_then_overflow_equals_the_checked_loop(
+            self, source, precision, record):
+        """The search graphs' wave loop (``_Chains.run``: any budget W of
+        untested waves, then waves in steps of CHECK_EVERY until no lane
+        is active) ends in the state the loop that tests every
+        CHECK_EVERY waves reaches: the same finish times and errors (and
+        the recorded fields) bit for bit."""
+        spec = (port_spec(int(source[4:])) if source.startswith("seed")
+                else golden_spec(FIXTURES[[p.stem for p in FIXTURES]
+                                          .index(source)]))
+        machine = simulate_torch.make_event_machine(
+            tuple(s.kind for s in spec.surfaces), int(spec.iters.max()),
+            record=record)
+        args = machine_args(spec, precision)
+        checked = machine.start(*args)
+        checked.drive()
+        want = [x.numpy() for x in checked.result()]
+        assert checked.count % simulate_torch.CHECK_EVERY == 0
+        for budget in (0, 1, 3, checked.count - 1, checked.count,
+                       checked.count + 5):
+            waves = machine.start(*args)
+            for _ in range(max(budget, 0)):
+                waves.wave()
+            while waves.active().any():
+                for _ in range(simulate_torch.CHECK_EVERY):
+                    waves.wave()
+            assert not waves.active().any()
+            for got, w in zip(waves.result(), want):
+                np.testing.assert_array_equal(got.numpy(), w)
+        np.testing.assert_array_equal(machine(*args)[0].numpy(), want[0])
