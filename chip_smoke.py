@@ -8,7 +8,7 @@ Phases, each fatal on failure:
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: all seven CUDA kernels from ``src/repro_torch/kernels/csrc/``
    for ``sm_90a``, one ``nvcc`` per source, started together; ``ptxas``'s
-   registers and spills of the attention kernels are reported;
+   registers and spills of the attention and RWKV-6 kernels are reported;
 3. kernels: each kernel against its plain PyTorch version on the card
    (attention: float32 at atol = rtol = 2e-5, bfloat16 at 2e-2, the
    tolerances of ``tests/test_kernels.py``; PCCS slowdown: float64 at
@@ -16,10 +16,14 @@ Phases, each fatal on failure:
    streaming antagonist: bit for bit, with poisoned lanes, special values
    and offset views, the duty-cycled antagonist included; the RG-LRU scan
    at the attention tolerances and the RWKV-6 scan at
-   ``tests/test_kernels.py``'s 1e-4 / 5e-2, each with and without its
+   ``tests/test_kernels.py``'s 1e-4 / 5e-2 and bit for bit (it repeats
+   its plain version's arithmetic), each with and without its
    initial state, at lengths 1, odd and full width, and cut in two with
-   the state carried; attention at every head size the kernels are built
-   for (16, 32, 64, 80, 128, 256) and at 40, which the wrappers pad,
+   the state carried (RWKV-6 also at T of 1-65 around its 16 staged steps,
+   head sizes 16, 40, 64 and (20, 18), which no block divides, decays of
+   exactly 0 and 1 and in rwkv6-7b's own range); attention at every
+   head size the kernels are built for (16, 32, 64, 80, 128, 256) and at
+   40, which the wrappers pad,
    recurrentgemma-9b's MQA at 256, hubert-xlarge's 16 heads of 80, flash
    at q-tile edges (Sq of 1, 63, 65) and Sq < Skv, decode with one
    sequence over 8192 slots (the most splits), lengths 0, 1, S and on
@@ -29,7 +33,8 @@ Phases, each fatal on failure:
    the same function (``F.scaled_dot_product_attention`` for attention,
    ``torch.add(y, x, alpha=c)`` for the stream; none for the other four):
    flash in bf16 and in float32 (the characterization's shape), the scans
-   at a prefill's and at a decode step's shape, the stream at 32 MB, 256
+   at a prefill's and at a decode step's shape (RWKV-6's prefill in
+   float32 too), the stream at 32 MB, 256
    MB and the card's 1 GB calibration pass, whose rate past the L2 must
    not exceed 105% of the card's memory rate;
 4. serve: full-width stablelm-1.6b with random weights from a seeded
@@ -84,7 +89,9 @@ Phases, each fatal on failure:
    path (same argmax; relative logits error within the limit
    FLOOR_MARGIN explains), zeroing the RG-LRU scan's output on the plain
    path must move recurrentgemma-9b's logits by FAULT_MIN_REL or more,
-   and an eager engine must give the same tokens;
+   and an eager engine must give the same tokens; each prefill's device
+   ms (all kernels and the scan's, by the profiler) and the plain path's
+   top-2 logit gap are reported;
 10. float32 end to end on both recurrent models: kernel path against
    plain path, and prefill(n) plus one decode step against prefill(n +
    1), each within E2E_F32_REL_TOL with the same argmax.
@@ -235,12 +242,13 @@ def bound(flops: float, nbytes: float,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-#: the attention kernels ``ptxas_rows`` reports (demangled, shortened)
+#: the kernels ``ptxas_rows`` reports (demangled, shortened)
 PTXAS_KEEP = ("flash_mma<", "flash_kernel<float", "split_mma<", "combine<",
               "split_simt<bf16, bf16, 64, 1>",
               "split_simt<bf16, bf16, 256, 1>",
               "split_simt<float, float, 64, 1>",
-              "split_simt<float, float, 256, 8>")
+              "split_simt<float, float, 256, 8>",
+              "rwkv6_prefill<", "rwkv6_decode<")
 
 
 def ptxas_rows(build, name: str) -> dict:
@@ -513,23 +521,90 @@ def scan_checks(rg, gen, dev) -> int:
     return n
 
 
-def rwkv_inputs(B, T, H, D, Dv, dtype, gen, dev):
-    """tests/test_kernels.py:129-137's distributions."""
+#: RWKV-6 decays checked: tests/test_kernels.py:133's sigmoid(N + 2);
+#: that with w = 0 and w = 1 exactly on some steps and channels; w in
+#: 0.01-0.05, whose products underflow to denormals and 0 within tens of
+#: steps; and rwkv6-7b's own range, exp(-exp(w0 + lora)) around w0 = -6
+#: (models/recurrent.py), ~0.9975
+RWKV_DECAYS = ("sigmoid", "edges", "steep", "model")
+#: RWKV-6 lengths checked: decode, and around the prefill's 16 staged steps
+RWKV_TS = (1, 2, 15, 16, 17, 33, 64, 65)
+#: RWKV-6 head sizes (D, Dv) checked: 16, 40, 64 and (20, 18), which no
+#: block's 16 columns, decode vector of 4 or residue count of 8 divides
+RWKV_HEADS = ((16, 16), (40, 40), (64, 64), (16, 64), (64, 40), (20, 18))
+
+
+def rwkv_inputs(B, T, H, D, Dv, dtype, gen, dev, decay="sigmoid"):
+    """tests/test_kernels.py:129-137's distributions; ``decay`` picks w
+    from RWKV_DECAYS."""
     def normal(*shape):
         return torch.randn(shape, generator=gen, device=dev)
     r = normal(B, T, H, D).to(dtype)
     k = (normal(B, T, H, D) * 0.3).to(dtype)
     v = normal(B, T, H, Dv).to(dtype)
-    w = torch.sigmoid(normal(B, T, H, D) + 2.0).to(dtype)
+    w = torch.sigmoid(normal(B, T, H, D) + 2.0)
+    if decay == "model":
+        w = torch.exp(-torch.exp(-6.0 + 0.5 * normal(B, T, H, D)))
+    elif decay == "steep":
+        w = 0.01 + 0.04 * torch.rand((B, T, H, D), generator=gen, device=dev)
+    elif decay == "edges":
+        w[:, ::5, :, ::3] = 0.0
+        w[:, 2::7, :, 1::4] = 1.0
+    w = w.to(dtype)
     u = (normal(H, D) * 0.3).to(dtype)
     s0 = normal(B, H, D, Dv) * 0.1
     return r, k, v, w, u, s0
 
 
+def rwkv_grid(rk, gen, dev) -> int:
+    """The RWKV-6 kernel against its plain version at every T of RWKV_TS,
+    head sizes RWKV_HEADS, decay of RWKV_DECAYS, with and without state0,
+    in both types: each y and state finite, within RWKV_TOL and equal to
+    the plain version bit for bit (the kernel repeats its arithmetic); one
+    line a (type, decay) with the worst error."""
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = RWKV_TOL[dtype]
+        for decay in RWKV_DECAYS:
+            worst, first = 0.0, n
+            for T in RWKV_TS:
+                for D, Dv in RWKV_HEADS:
+                    r, k, v, w, u, s0 = rwkv_inputs(2, T, 2, D, Dv, dtype,
+                                                    gen, dev, decay)
+                    for init in (None, s0):
+                        got = rk.rwkv6_scan(r, k, v, w, u, init)
+                        want = rk.rwkv6_torch(r, k, v, w, u, init)
+                        for g, x in zip(got, want):
+                            g, x = g.float(), x.float()
+                            err = (g - x).abs()
+                            same = bool(torch.equal(g, x))
+                            label = (f"rwkv6 {str(dtype)[6:]} {decay} T{T} "
+                                     f"D{D} Dv{Dv} state0="
+                                     f"{'yes' if init is not None else 'no'}")
+                            require(bool(torch.isfinite(g).all()),
+                                    f"{label}: non-finite output")
+                            require(bool((err <= tol["atol"] + tol["rtol"]
+                                          * x.abs()).all()),
+                                    f"{label}: max_abs_err "
+                                    f"{float(err.max()):.3e} past "
+                                    f"{tol}")
+                            require(same, f"{label}: the kernel does not "
+                                    "repeat the plain version's bits")
+                            worst = max(worst, float(err.max()))
+                            n += 1
+            print(f"  rwkv6 {str(dtype)[6:]} decay {decay}: {n - first} "
+                  f"outputs at T {RWKV_TS}, heads {RWKV_HEADS}, equal bits, "
+                  f"max_abs_err={worst:.3e} (atol={tol['atol']:g}, "
+                  f"rtol={tol['rtol']:g}) ok")
+    return n
+
+
 def rwkv_checks(rk, gen, dev) -> int:
     """The RWKV-6 kernel against its plain version: T of 1 (decode), odd
-    sizes, the full-width prefill shape; with and without state0; a scan
-    cut in two with the state passed on equals one pass."""
+    sizes, the full-width prefill shape; with and without state0, each
+    within RWKV_TOL and equal bit for bit; a scan cut in two with the
+    state passed on equals one pass within RWKV_TOL; then
+    :func:`rwkv_grid`."""
     cases = [(4, 1, 64, 64, 64), (2, 17, 4, 32, 32), (1, 33, 3, 16, 40),
              (1, 64, 1, 64, 64), (1, 1000, 64, 64, 64)]
     n = 0
@@ -548,6 +623,9 @@ def rwkv_checks(rk, gen, dev) -> int:
                          f"Dv{Dv} state0={'yes' if init is not None else 'no'}")
                 compare(label + " y", got[0], want[0], dtype, tol)
                 compare(label + " state", got[1], want[1], dtype, tol)
+                require(all(torch.equal(g, x) for g, x in zip(got, want)),
+                        f"{label}: the kernel does not repeat the plain "
+                        "version's bits")
                 n += 2
         r, k, v, w, u, s0 = rwkv_inputs(1, 1000, 64, 64, 64, dtype, gen, dev)
         cut = 377
@@ -562,7 +640,7 @@ def rwkv_checks(rk, gen, dev) -> int:
         compare(f"rwkv6 {str(dtype)[6:]} chunked carry state", s2, state,
                 dtype, tol)
         n += 2
-    return n
+    return n + rwkv_grid(rk, gen, dev)
 
 
 def rglru_timing(rg, timer, gen, dev, B, S, D, with_h0) -> dict:
@@ -595,19 +673,26 @@ def time_rglru(rg, timer, gen, dev) -> dict:
                 "that underflows)")
 
 
-def rwkv6_timing(rk, timer, gen, dev, B, T, H, D, zero_state) -> dict:
-    r, k, v, w, u, s0 = rwkv_inputs(B, T, H, D, D, torch.bfloat16, gen, dev)
+def rwkv6_timing(rk, timer, gen, dev, B, T, H, D, zero_state,
+                 dtype=torch.bfloat16) -> dict:
+    """One shape's row.  The bound counts the function's own work, 4 D
+    Dv FLOP per (b, t, h) (rᵀ S and the rank-1 update), at the card's peak
+    rate for the inputs' type (the bf16 tensor cores for bf16), against r,
+    k, v, w and y, u, and state0 read and the state written once."""
+    r, k, v, w, u, s0 = rwkv_inputs(B, T, H, D, D, dtype, gen, dev)
     if zero_state:
         s0 = torch.zeros(B, H, D, D, device=dev)
-    err = compare(f"rwkv6 timed shape T{T}",
+    err = compare(f"rwkv6 timed shape T{T} {str(dtype)[6:]}",
                   rk.rwkv6_scan(r, k, v, w, u, s0)[0],
-                  rk.rwkv6_torch(r, k, v, w, u, s0)[0], torch.bfloat16,
-                  RWKV_TOL[torch.bfloat16])
+                  rk.rwkv6_torch(r, k, v, w, u, s0)[0], dtype,
+                  RWKV_TOL[dtype])
     flops = 4.0 * B * T * H * D * D
-    nbytes = 5 * B * T * H * D * 2 + H * D * 2 + 2 * B * H * D * D * 4
-    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    size = r.element_size()
+    nbytes = 5 * B * T * H * D * size + H * D * size + 2 * B * H * D * D * 4
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS
+                       if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
     return dict(
-        shape=f"B{B} T{T} H{H} D{D} Dv{D} bf16, "
+        shape=f"B{B} T{T} H{H} D{D} Dv{D} {str(dtype)[6:]}, "
               + ("zero state0" if zero_state else "f32 state0"),
         max_abs_err=err,
         ms=timer(lambda: rk.rwkv6_scan(r, k, v, w, u, s0)),
@@ -615,17 +700,30 @@ def rwkv6_timing(rk, timer, gen, dev, B, T, H, D, zero_state) -> dict:
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def state_copy_ms(timer, dev, B, H, D) -> float:
+    """``Tensor.copy_`` of a decode step's float32 state into another: the
+    bytes the decode step must read and write, with no arithmetic (a
+    yardstick for the step's memory traffic under this timer, not a
+    computation of the same function)."""
+    a = torch.randn(B, H, D, D, device=dev)
+    b = torch.empty_like(a)
+    return timer(lambda: b.copy_(a))
+
+
 def time_rwkv6(rk, timer, gen, dev) -> dict:
     """Prefill shape: one 1000-token prompt through an rwkv6-7b layer, 64
-    heads of 64, bf16, a float32 zero state0 (as a prefill calls it); and
-    the decode step's shape, one token for each of 4 slots with their
-    state."""
+    heads of 64, bf16, a float32 zero state0 (as a prefill calls it); the
+    decode step's shape, one token for each of 4 slots with their state;
+    and the prefill shape in float32 (phase 10's type)."""
     return dict(
         name="rwkv6_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/rwkv6.cu",
         replaces="src/repro/kernels/rwkv6.py:68",
         **rwkv6_timing(rk, timer, gen, dev, 1, 1000, 64, 64, True),
-        at_decode=rwkv6_timing(rk, timer, gen, dev, 4, 1, 64, 64, False),
+        at_decode=dict(rwkv6_timing(rk, timer, gen, dev, 4, 1, 64, 64, False),
+                       state_copy_ms=state_copy_ms(timer, dev, 4, 64, 64)),
+        at_f32=rwkv6_timing(rk, timer, gen, dev, 1, 1000, 64, 64, True,
+                            torch.float32),
         library="none: no single PyTorch call computes the matrix-state "
                 "recurrence")
 
@@ -1129,6 +1227,25 @@ def profile_decode(eng, prompts, steps: int = 4) -> dict:
     return out
 
 
+def profile_prefill(model, batch, views, scan: str) -> dict:
+    """Device ms of one prefill through the kernels (torch.profiler): all
+    kernels', and those whose names hold ``scan`` (the recurrent scan's);
+    "not measured" if the profiler records no device time.  Unlike the
+    prefill's wall time, which the eager host dispatch paces, this moves
+    with the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.prefill(batch, cache_out=views)
+        torch.cuda.synchronize()
+    kernels, _ = device_ms_by_kernel(prof)
+    if not kernels:
+        return {"device_ms": "not measured", "scan_ms": "not measured"}
+    return {"device_ms": sum(kernels.values()),
+            "scan_ms": sum(v for k, v in kernels.items() if scan in k)}
+
+
 # ---------------------------------------------------------------------------
 # serve the recurrent families
 # ---------------------------------------------------------------------------
@@ -1235,7 +1352,9 @@ def serve_recurrent(arch, mods, dev) -> dict:
                                    ("rwkv6_scan", "rwkv"))}
 
     views = [kvcache.select(c, 0) for c in eng.caches]
-    prefill_ms, rel_errs, floor, limits = [], [], [], []
+    prefill_ms, rel_errs, floor, limits, gaps = [], [], [], [], []
+    profiled = []
+    scan = "rglru" if kinds["rglru"] else "rwkv6"
     for p in prompts:
         batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
         out = {b: last_logits(model, b, batch, views)
@@ -1245,16 +1364,20 @@ def serve_recurrent(arch, mods, dev) -> dict:
         model.prefill(batch, cache_out=views)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        profiled.append(profile_prefill(model, batch, views, scan))
         g, w, r = out["cuda"], out["torch"], out["ref"]
         require(bool(torch.isfinite(g).all()), "non-finite prefill logits")
         rel_errs.append(rel_err(g, w))
         floor.append(rel_err(r, w))
         limits.append(max(E2E_REL_TOL, FLOOR_MARGIN * floor[-1]))
         top_g, top_w = int(g.argmax()), int(w.argmax())
+        two = torch.topk(w.float(), 2).values
+        gaps.append(float((two[0] - two[1]) / w.float().std()))
         print(f"  prefill S={len(p)}: kernel-vs-plain logits rel err "
               f"{rel_errs[-1]:.3e} (oracle-vs-plain {floor[-1]:.3e}, limit "
-              f"{limits[-1]:.3e}), argmax {top_g} vs {top_w}, "
-              f"{prefill_ms[-1]:.2f} ms")
+              f"{limits[-1]:.3e}), argmax {top_g} vs {top_w} (oracle "
+              f"{int(r.argmax())}; plain top-2 gap {gaps[-1]:.4f} sd), "
+              f"{prefill_ms[-1]:.2f} ms; profiled: {profiled[-1]}")
         require(top_g == top_w, f"S={len(p)}: argmax differs")
         require(rel_errs[-1] <= limits[-1],
                 f"S={len(p)}: rel err {rel_errs[-1]} > {limits[-1]}")
@@ -1266,7 +1389,9 @@ def serve_recurrent(arch, mods, dev) -> dict:
                tokens_per_s=m["tokens_out"] / wall,
                mean_decode_step_ms=m["mean_step_ms"], prefill_ms=prefill_ms,
                e2e_logits_rel_err=rel_errs, oracle_vs_plain_rel_err=floor,
-               e2e_limit=limits, max_memory_allocated=peak,
+               e2e_limit=limits, plain_top2_gap_sd=gaps,
+               prefill_device=profiled,
+               max_memory_allocated=peak,
                launches_by_phase=by_phase,
                graph_launches_per_replay=eng.graph.graph.launches)
     if kinds["rglru"]:
@@ -1892,8 +2017,10 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}: {len(KERNEL_SOURCES)} "
           f"kernels built in {build_s:.1f} s")
-    ptxas = {name: ptxas_rows(_build, name)
-             for name in ("flash_attention", "decode_attention")}
+    ptxas = {row: ptxas_rows(_build, name)
+             for row, name in (("flash_attention", "flash_attention"),
+                               ("decode_attention", "decode_attention"),
+                               ("rwkv6_scan", "rwkv6"))}
     for name, rows in ptxas.items():
         for kernel, line in rows.items():
             print(f"  ptxas {name}: {kernel}: {line}")

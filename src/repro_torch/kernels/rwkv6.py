@@ -121,3 +121,65 @@ def rwkv6_torch(r, k, v, w, u, state0=None):
         y[:, t] = terms[:, :, 0]
         S = wf[:, t, :, :, None] * S + kv
     return y.to(v.dtype), S
+
+
+#: a chunk of :func:`rwkv6_chunked_torch` forms A from the factorised
+#: ``(r ⊙ P_t) . (k / P_{s+1})`` only while every channel's decay product
+#: ``P_{t+1}`` stays at or above this, else from pairwise products
+FACTOR_MIN = 2.0 ** -64
+
+
+def rwkv6_chunked_torch(r, k, v, w, u, state0=None, chunk=16):
+    """The RWKV-6 recurrence in chunks of ``chunk`` steps, in float32: the
+    form whose work is two chained matrix products a chunk, held by the
+    tests against :func:`rwkv6_torch` and ``repro``'s backends.  Nothing
+    serves through it.
+
+    Same arguments and results as :func:`rwkv6_torch`.  With ``P_t = w_0
+    ... w_{t-1}`` within a chunk and ``Σ_s = w_{s+1} ... w_{C-1}``, a
+    chunk starting from S gives::
+
+        y_t  = (r_t ⊙ P_t)ᵀ S + Σ_{s<t} A_ts v_s + A_tt v_t
+        A_ts = Σ_i r_ti k_si (w_{s+1} ... w_{t-1})_i   (s < t)
+        A_tt = Σ_i r_ti u_i k_ti
+        S'   = diag(P_C) S + (k ⊙ Σ)ᵀ V
+
+    Decays enter only as running products, never as logarithms: w = 0
+    weighs exactly 0 and w = 1 exactly 1.  A (b, h, chunk) whose products
+    ``P_{t+1}`` all stay at or above :data:`FACTOR_MIN` forms A_ts as
+    ``(r_t ⊙ P_t) . (k_s / P_{s+1})``; any other forms each ``w_{s+1} ...
+    w_{t-1}`` as a running product.  T is padded to whole chunks (r = k =
+    v = 0, w = 1)."""
+    B, T, H, D = r.shape
+    Dv = v.shape[-1]
+    pt = -T % chunk
+    rf, kf, wf = (F.pad(x.float().transpose(1, 2), (0, 0, 0, pt), value=pad)
+                  for x, pad in ((r, 0.0), (k, 0.0), (w, 1.0)))
+    vf = F.pad(v.float().transpose(1, 2), (0, 0, 0, pt))    # (B, H, T', Dv)
+    uf = u.float()[None, :, None, :]                        # (1, H, 1, D)
+    S = (torch.zeros((B, H, D, Dv), dtype=torch.float32, device=r.device)
+         if state0 is None else state0.float())
+    lower = torch.ones(chunk, chunk, dtype=torch.bool,
+                       device=r.device).tril(-1)            # [t, s]: s < t
+    ys = []
+    for c0 in range(0, T + pt, chunk):
+        rc, kc, wc, vc = (x[:, :, c0:c0 + chunk] for x in (rf, kf, wf, vf))
+        ones = torch.ones_like(wc[:, :, :1])
+        P = torch.cumprod(torch.cat([ones, wc], 2), 2)      # P_0 .. P_C
+        sig = torch.cat([torch.cumprod(wc[:, :, 1:].flip(2), 2).flip(2),
+                         ones], 2)                          # Σ_0 .. Σ_{C-1}
+        q = rc * P[:, :, :chunk]
+        fast = (P[:, :, 1:] >= FACTOR_MIN).flatten(2).all(-1)
+        factored = q @ (kc / P[:, :, 1:]).transpose(-1, -2)
+        rows, dec = [], torch.ones_like(rc)     # dec[s] = w_{s+1} ... w_{t-1}
+        for t in range(chunk):
+            rows.append(((rc[:, :, t, None] * dec) * kc).sum(-1))
+            dec = torch.cat([dec[:, :, :t] * wc[:, :, t, None],
+                             dec[:, :, t:]], 2)
+        A = torch.where(fast[..., None, None], factored, torch.stack(rows, 2))
+        A = torch.where(lower, A, 0.0)
+        A = A + torch.diag_embed((rc * uf * kc).sum(-1))
+        ys.append(q @ S + A @ vc)
+        S = P[:, :, chunk, :, None] * S + (kc * sig).transpose(-1, -2) @ vc
+    y = torch.cat(ys, 2)[:, :, :T].transpose(1, 2)
+    return y.to(v.dtype), S

@@ -8,7 +8,8 @@ tolerances (scan: atol = rtol = 2e-5 in float32, 2e-2 in bfloat16;
 RWKV-6: atol 1e-4 / 5e-2, rtol 5e-2).
 
 Tests marked ``cuda`` hold the two scan kernels against their plain
-versions and skip on hosts without a CUDA device.
+versions (the RWKV-6 kernel bit for bit, at every length of RWKV_TS and
+decay of RWKV_DECAYS) and skip on hosts without a CUDA device.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -61,14 +62,33 @@ def scan_inputs(seed, B, S, D):
     return a, b, h0
 
 
-def rwkv_inputs(seed, B, T, H, D, Dv):
-    """tests/test_kernels.py:129-137's distributions."""
+#: RWKV-6 decays: tests/test_kernels.py's sigmoid(N + 2); that with w = 0
+#: and w = 1 exactly on some steps and channels; w in 0.01-0.05, whose
+#: products leave 2^-64 within 16 steps; rwkv6-7b's own range, exp(-exp(w0
+#: + lora)) around w0 = -6 (models/recurrent.py), ~0.9975
+RWKV_DECAYS = ("sigmoid", "edges", "steep", "model")
+#: RWKV-6 lengths: decode, and around 16-step chunks (the kernel's staging
+#: and the chunked form's)
+RWKV_TS = (1, 2, 15, 16, 17, 33, 64, 65)
+
+
+def rwkv_inputs(seed, B, T, H, D, Dv, decay="sigmoid"):
+    """tests/test_kernels.py:129-137's distributions, w by ``decay`` (one
+    of RWKV_DECAYS)."""
     rng = np.random.default_rng(seed)
 
     def normal(*shape):
         return rng.standard_normal(shape).astype(np.float32)
     r, k, v = normal(B, T, H, D), normal(B, T, H, D) * 0.3, normal(B, T, H, Dv)
     w = sigmoid(normal(B, T, H, D) + 2.0)
+    if decay == "edges":
+        w[:, ::5, :, ::3] = 0.0
+        w[:, 2::7, :, 1::4] = 1.0
+    elif decay == "steep":
+        w = rng.uniform(0.01, 0.05, (B, T, H, D)).astype(np.float32)
+    elif decay == "model":
+        w = np.exp(-np.exp(-6.0 + 0.5 * normal(B, T, H, D)))
+        w = w.astype(np.float32)
     u = normal(H, D) * 0.3
     s0 = normal(B, H, D, Dv) * 0.1
     return r, k, v, w, u, s0
@@ -225,6 +245,29 @@ def test_rwkv6_kernel_vs_plain(cuda_device, shape, dtype, with_state):
                                **rwkv_tol(dtype))
     np.testing.assert_allclose(np32(got_state.cpu()), np32(want_state.cpu()),
                                **rwkv_tol(dtype))
+    assert torch.equal(got, want) and torch.equal(got_state, want_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", RWKV_TS)
+@pytest.mark.parametrize("decay", RWKV_DECAYS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rwkv6_kernel_edges_vs_plain(cuda_device, T, decay, dtype):
+    """Around the kernel's 16 staged steps, with w = 0 and w = 1
+    exactly, steep decays and the model's own range; head sizes that the
+    prefill's 16-column blocks, 8 residues and the decode's 4-wide vectors
+    do not divide: finite and equal to the plain version bit for bit."""
+    for D, Dv, with_state in ((40, 24, True), (24, 40, False),
+                              (20, 18, True)):
+        r, k, v, w, u, s0 = rwkv_inputs(22 + T, 2, T, 2, D, Dv, decay)
+        ts = [_card(x, dtype, cuda_device) for x in (r, k, v, w, u)]
+        st = torch.from_numpy(s0).to(cuda_device) if with_state else None
+        got = tops.rwkv6(*ts, st)
+        want = trk.rwkv6_torch(*ts, st)
+        torch.cuda.synchronize()
+        for g, x in zip(got, want):
+            assert bool(torch.isfinite(g).all())
+            assert torch.equal(g, x)
 
 
 @pytest.mark.cuda
