@@ -15,11 +15,13 @@ Phases, each fatal on failure:
    atol = rtol = 1e-12, float32 at 5e-6; annealing select and the
    streaming antagonist: bit for bit, with poisoned lanes, special values
    and offset views, the duty-cycled antagonist included; the RG-LRU scan
-   at the attention tolerances and the RWKV-6 scan at
-   ``tests/test_kernels.py``'s 1e-4 / 5e-2 and bit for bit (it repeats
-   its plain version's arithmetic), each with and without its
-   initial state, at lengths 1, odd and full width, and cut in two with
-   the state carried (RWKV-6 also at T of 1-65 around its 16 staged steps,
+   bit for bit (at every served prefill length, a ragged D, and inputs
+   one element off a 16-byte boundary, which take its element copies)
+   and the RWKV-6 scan at ``tests/test_kernels.py``'s 1e-4 / 5e-2 and bit
+   for bit (both repeat their plain versions' arithmetic), each with and
+   without its initial state, at lengths 1, odd and full width, and cut
+   in two with the state carried (RWKV-6 also at T of 1-65 around its 16
+   staged steps,
    head sizes 16, 40, 64 and (20, 18), which no block divides, decays of
    exactly 0 and 1 and in rwkv6-7b's own range); attention at every
    head size the kernels are built for (16, 32, 64, 80, 128, 256) and at
@@ -31,10 +33,12 @@ Phases, each fatal on failure:
    L2 flushed before each call, median) beside its plain version, its
    roofline bound and a library yardstick where one PyTorch call computes
    the same function (``F.scaled_dot_product_attention`` for attention,
-   ``torch.add(y, x, alpha=c)`` for the stream; none for the other four):
-   flash in bf16 and in float32 (the characterization's shape), the scans
-   at a prefill's and at a decode step's shape (RWKV-6's prefill in
-   float32 too), the stream at 32 MB, 256
+   ``torch.add(y, x, alpha=c)`` for the stream; none for the other four),
+   beside the timer's launch floor (a one-element ``add_`` timed the same
+   way): flash in bf16 and in float32 (the characterization's shape), the
+   scans at a prefill's and at a decode step's shape (RG-LRU at every
+   served prompt length, RWKV-6's prefill in float32 too), the stream at
+   32 MB, 256
    MB and the card's 1 GB calibration pass, whose rate past the L2 must
    not exceed 105% of the card's memory rate;
 4. serve: full-width stablelm-1.6b with random weights from a seeded
@@ -65,7 +69,9 @@ Phases, each fatal on failure:
    population 1024 (128 steps) must be no worse than greedy; both search
    kernels must have launched in each solve (the select kernel once a
    step plus its warm-up before capture); the graphs' wave budget W and
-   overflow replays are reported;
+   overflow replays are reported, and one 16-step solve is profiled: the
+   card's busy share and the slowdown kernel's summed device time over
+   its eager evaluation and graph replays;
 8. characterize: the port's profiling CLI (``repro_torch.launch.profile
    --executor torch --arch stablelm-1.6b --fit piecewise --solve --solver
    anneal``) measures the 8 layer groups of full-width stablelm-1.6b
@@ -96,9 +102,18 @@ Phases, each fatal on failure:
    plain path, and prefill(n) plus one decode step against prefill(n +
    1), each within E2E_F32_REL_TOL with the same argmax.
 
+``python3 chip_smoke.py --against DIR`` runs phases 1-3 and then holds
+the slowdown and RG-LRU kernels against those of the checkout in DIR
+(for example the parent commit, unpacked by ``git archive``): the
+slowdown bit for bit at N of 1, 1000, 8192 and 2^20 in both types, the
+RG-LRU at every timed shape, each timed shape in turns (DIR's, this
+one's, this one's, DIR's), and the slowdown's device time in one
+profiled solve with each build's kernel; it prints ``{"against": ...}``.
+
 Each phase prints its seconds.  The last line is the contract line
 ``{"ok": true, "device": {...}}``; before it come the ``{"phase_s": ...}``,
-``{"serve": ...}``, ``{"serve_reduced": ...}``, ``{"search": ...}``,
+``{"timer": ...}``, ``{"serve": ...}``, ``{"serve_reduced": ...}``,
+``{"search": ...}``,
 ``{"characterize": ...}`` and ``{"serve_recurrent": ...}`` lines, one
 ``{"kernels": [...]}`` line and the card's ``nvidia-smi`` name and power
 limit.  Without a CUDA device the
@@ -235,6 +250,14 @@ class Timer:
         return statistics.median(times)
 
 
+def launch_floor(timer, dev) -> float:
+    """The timer's floor: a one-element ``add_`` (one launch, 4 bytes
+    loaded and stored) timed as every kernel is, L2 flushed and the spin
+    queued.  A launch-bound kernel is read against it."""
+    x = torch.zeros(1, device=dev)
+    return timer(lambda: x.add_(1.0))
+
+
 def bound(flops: float, nbytes: float,
           peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
@@ -248,7 +271,8 @@ PTXAS_KEEP = ("flash_mma<", "flash_kernel<float", "split_mma<", "combine<",
               "split_simt<bf16, bf16, 256, 1>",
               "split_simt<float, float, 64, 1>",
               "split_simt<float, float, 256, 8>",
-              "rwkv6_prefill<", "rwkv6_decode<")
+              "rwkv6_prefill<", "rwkv6_decode<", "rglru_prefill<",
+              "rglru_decode<", "slowdown_kernel<")
 
 
 def ptxas_rows(build, name: str) -> dict:
@@ -483,12 +507,25 @@ def scan_inputs(B, S, D, dtype, gen, dev):
     return a.to(dtype), b.to(dtype), h0
 
 
+def bits_check(name, got, want) -> float:
+    """Require ``got`` to equal ``want`` bit for bit; returns the largest
+    |got - want| (0 when equal) for the record."""
+    mae = max_abs_diff(got.float(), want.float())
+    same = bit_equal(got, want)
+    print(f"  {name}: bitwise {'equal' if same else 'DIFFERENT'} "
+          f"(max_abs_err={mae:.3e})")
+    require(same, f"{name}: kernel differs from its plain version")
+    return mae
+
+
 def scan_checks(rg, gen, dev) -> int:
-    """The RG-LRU kernel against its plain version: S of 1 (decode), an
-    odd size, the full-width prefill shapes; with and without h0; h_last
-    float32; a scan cut in two with the carry passed on equals one pass."""
-    cases = [(4, 1, 4096), (3, 33, 128), (2, 17, 4099), (1, 1000, 4096),
-             (1, 2300, 4096)]
+    """The RG-LRU kernel against its plain version, bit for bit: S of 1
+    (decode), odd sizes, every served prefill length at full width, a
+    ragged D and inputs at an odd element offset (element copies); with
+    and without h0; h_last float32; a scan cut in two with the carry
+    passed on equals one pass."""
+    cases = [(4, 1, 4096), (3, 33, 128), (2, 17, 4099)] + [
+        (1, s, 4096) for s in RG_PROMPT_LENS]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for B, S, D in cases:
@@ -502,9 +539,25 @@ def scan_checks(rg, gen, dev) -> int:
                         f"rglru dtypes {got[0].dtype}/{got[1].dtype}")
                 label = (f"rglru {str(dtype)[6:]} B{B} S{S} D{D} "
                          f"h0={'yes' if init is not None else 'no'}")
-                compare(label, got[0], want[0], dtype)
-                compare(label + " h_last", got[1], want[1], dtype)
+                bits_check(label, got[0], want[0])
+                bits_check(label + " h_last", got[1], want[1])
                 n += 2
+        # a and b one element past a 16-byte boundary: element copies
+        a, b, h0 = scan_inputs(1, 300, 4096, dtype, gen, dev)
+        store = torch.empty(2 * a.numel() + 2, dtype=dtype, device=dev)
+        a1 = store[1:1 + a.numel()].view(a.shape)
+        b1 = store[a.numel() + 2:].view(a.shape)
+        a1.copy_(a)
+        b1.copy_(b)
+        require(not rg.scan_plan(1, 300, 4096, dtype,
+                                 a1.data_ptr() % 16 == 0).vector,
+                "rglru: offset inputs did not take element copies")
+        got = rg.rglru_scan(a1, b1, h0)
+        want = rg.linear_scan_torch(a, b, h0)
+        torch.cuda.synchronize()
+        label = f"rglru {str(dtype)[6:]} B1 S300 D4096 element copies"
+        bits_check(label, got[0], want[0])
+        bits_check(label + " h_last", got[1], want[1])
         a, b, h0 = scan_inputs(1, 1000, 4096, dtype, gen, dev)
         cut = 377
         full, last = rg.rglru_scan(a, b, h0)
@@ -513,11 +566,10 @@ def scan_checks(rg, gen, dev) -> int:
         h2_all, h2 = rg.rglru_scan(a[:, cut:].contiguous(),
                                    b[:, cut:].contiguous(), h1)
         torch.cuda.synchronize()
-        compare(f"rglru {str(dtype)[6:]} chunked carry h_all",
-                torch.cat([h1_all, h2_all], dim=1), full, dtype)
-        compare(f"rglru {str(dtype)[6:]} chunked carry h_last", h2, last,
-                dtype)
-        n += 2
+        bits_check(f"rglru {str(dtype)[6:]} chunked carry h_all",
+                   torch.cat([h1_all, h2_all], dim=1), full)
+        bits_check(f"rglru {str(dtype)[6:]} chunked carry h_last", h2, last)
+        n += 4
     return n
 
 
@@ -646,8 +698,9 @@ def rwkv_checks(rk, gen, dev) -> int:
 def rglru_timing(rg, timer, gen, dev, B, S, D, with_h0) -> dict:
     a, b, h0 = scan_inputs(B, S, D, torch.bfloat16, gen, dev)
     h0 = h0 if with_h0 else None
-    err = compare(f"rglru timed shape S{S}", rg.rglru_scan(a, b, h0)[0],
-                  rg.linear_scan_torch(a, b, h0)[0], torch.bfloat16)
+    err = bits_check(f"rglru timed shape B{B} S{S}",
+                     rg.rglru_scan(a, b, h0)[0],
+                     rg.linear_scan_torch(a, b, h0)[0])
     # a, b in and h out (bf16), h0 in and h_last out (f32)
     nbytes = 3 * B * S * D * 2 + (2 if with_h0 else 1) * B * D * 4
     b_ms, b_by = bound(2.0 * B * S * D, nbytes, PEAK_F32_FLOPS)
@@ -659,14 +712,19 @@ def rglru_timing(rg, timer, gen, dev, B, S, D, with_h0) -> dict:
 
 
 def time_rglru(rg, timer, gen, dev) -> dict:
-    """Prefill shape: one 1000-token prompt through a recurrentgemma-9b
-    RG-LRU layer, d_rnn 4096, bf16, no h0 (as a prefill calls it); and the
-    decode step's shape, one token for each of 4 slots with their h0."""
+    """Every served prefill: one prompt of each RG_PROMPT_LENS length
+    through a recurrentgemma-9b RG-LRU layer, d_rnn 4096, bf16, no h0 (as
+    a prefill calls it; the row's own numbers are at 1000 tokens); and
+    the decode step's shape, one token for each of 4 slots with their
+    h0."""
+    rows = {s: rglru_timing(rg, timer, gen, dev, 1, s, 4096, False)
+            for s in RG_PROMPT_LENS}
     return dict(
         name="rglru_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru.cu",
         replaces="src/repro/kernels/rglru.py:63",
-        **rglru_timing(rg, timer, gen, dev, 1, 1000, 4096, False),
+        **rows.pop(1000),
+        **{f"at_S{s}": row for s, row in rows.items()},
         at_decode=rglru_timing(rg, timer, gen, dev, 4, 1, 4096, True),
         library="none: no single PyTorch call computes a linear recurrence "
                 "(torch.cumsum/cumprod give it only through a division "
@@ -793,11 +851,13 @@ def select_inputs(P, L, gen, dev, dtype):
     return cur, prop, best, cur_obj, prop_obj, best_obj, u
 
 
+#: the integer type of each floating type's width, for comparing bits
+BITS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
 def bit_equal(a, b) -> bool:
     if a.dtype.is_floating_point:
-        a, b = a.view(torch.int64 if a.dtype == torch.float64
-                      else torch.int32), b.view(
-            torch.int64 if b.dtype == torch.float64 else torch.int32)
+        a, b = (x.view(BITS[x.element_size()]) for x in (a, b))
     return bool(torch.equal(a, b))
 
 
@@ -1719,7 +1779,7 @@ def search(sd, se, dev) -> dict:
     _, f32 = solve(sd, se, req, model, dev, solver="anneal",
                    precision="float32", population=4096,
                    steps=SEARCH_STEPS, seed=0)
-    prof = profile_search(req, model, dev)
+    prof = profile_search(req, model, dev, (sd,))
     return dict(model="PCCS 5x5 (repro/profiling/virtual.py:42-50)",
                 steps=SEARCH_STEPS, fixture_steps=FIXTURE_STEPS, orin_x64_cuda=gpu, orin_x64_cpu=cpu_row,
                 same_assignment=same, device_objective_rel=rel,
@@ -1727,11 +1787,15 @@ def search(sd, se, dev) -> dict:
                 profile=prof)
 
 
-def profile_search(req, model, dev, steps: int = 16) -> dict:
+def profile_search(req, model, dev, counted, steps: int = 16) -> dict:
     """Device busy share of the orin float64 solve at 4096 chains, the
     graphs' capture included: ``steps`` steps, timed once unprofiled and
     then under torch.profiler (whose trace of all 64 steps holds ~600,000
-    kernels and takes a minute to read back)."""
+    kernels and takes a minute to read back).  ``counted``: the slowdown
+    modules whose launch counts are summed (``kernels/graph.py`` credits
+    graph replays to this build's); the profile sums the slowdown
+    kernel's device time over the solve's eager evaluation and graph
+    replays."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import Scheduler
@@ -1750,20 +1814,25 @@ def profile_search(req, model, dev, steps: int = 16) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     sched = fresh()
+    for mod in counted:
+        mod.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sched.solve(list(req.graphs), req.objective, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    slowdown_launches = sum(mod.launches for mod in counted)
     kernels, launches = device_ms_by_kernel(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     out = {"population": 4096, "steps": steps, "precision": "x64",
            "wall_ms": wall_ms, "unprofiled_wall_ms": plain_ms,
-           "device_kernels": launches}
+           "device_kernels": launches,
+           "slowdown_launches": slowdown_launches}
     if busy == 0:
         out["device_busy_share"] = "not measured"
+        out["slowdown_device_ms"] = "not measured"
     else:
         out["device_busy_share"] = busy / wall_ms
         out["unprofiled_busy_share"] = busy / plain_ms
@@ -1773,7 +1842,105 @@ def profile_search(req, model, dev, steps: int = 16) -> dict:
         out["search_kernels_ms"] = {
             name: sum(v for k, v in kernels.items() if name in k)
             for name in ("slowdown_kernel", "select_kernel")}
+        out["slowdown_device_ms"] = out["search_kernels_ms"][
+            "slowdown_kernel"]
+        print(f"  slowdown kernel in one solve: "
+              f"{out['slowdown_device_ms']:.4f} ms of device time over "
+              f"{slowdown_launches} launches; the solve {wall_ms:.1f} ms of wall "
+              f"time ({plain_ms:.1f} unprofiled), the card busy "
+              f"{busy / wall_ms:.1%} ({busy / plain_ms:.1%} of the "
+              f"unprofiled)")
     print(f"  profiled one solve: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# against another build (--against DIR)
+# ---------------------------------------------------------------------------
+#: the slowdown's lengths compared bit for bit with the other build: one,
+#: ragged, one wave of the orin search, and a long pass
+AGAINST_NS = (1, 1000, 4096 * 2, 1 << 20)
+
+
+def load_kernels(root: Path, names) -> dict:
+    """The kernel modules ``names`` of another checkout of this repository
+    (for example the parent commit, unpacked by ``git archive``), imported
+    as the package ``other_kernels``: they build from that checkout's
+    ``csrc/`` into its own ``build/``."""
+    import importlib
+    import importlib.util
+
+    init = root / "src" / "repro_torch" / "kernels" / "__init__.py"
+    require(init.is_file(), f"--against: no kernels under {root}")
+    spec = importlib.util.spec_from_file_location(
+        "other_kernels", init, submodule_search_locations=[str(init.parent)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules["other_kernels"] = pkg
+    spec.loader.exec_module(pkg)
+    return {n: importlib.import_module(f"other_kernels.{n}") for n in names}
+
+
+def against(root: Path, sd, rg, dev) -> dict:
+    """This build's slowdown and RG-LRU kernels against another build's,
+    in one process on one card: the slowdown bit for bit at AGAINST_NS in
+    both types and the RG-LRU at every timed shape; each timed shape in
+    turns (other, this, this, other) under one Timer, beside its launch
+    floor; and the slowdown's device time in one profiled orin solve with
+    each build's kernel in the evaluator (other, this, this, other)."""
+    from repro_torch.core import simulate_torch
+
+    other = load_kernels(root, ("slowdown", "rglru"))
+    osd, org = other["slowdown"], other["rglru"]
+    with ThreadPoolExecutor() as pool:
+        list(pool.map(lambda m: m._lib(), (osd, org)))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    timer = Timer(dev)
+    out = {"dir": str(root), "slowdown_bits": {}, "rglru_bits": {},
+           "ms": {}}
+    for dtype in (torch.float64, torch.float32):
+        ok, ek, tab = pccs_tensors(dev, dtype)
+        for n in AGAINST_NS:
+            own, ext = demands(n, gen, dev, dtype)
+            key = f"{str(dtype)[6:]} N={n}"
+            out["slowdown_bits"][key] = bits_check(
+                f"slowdown vs other build, {key}",
+                sd.piecewise_slowdown(own, ext, ok, ek, tab),
+                osd.piecewise_slowdown(own, ext, ok, ek, tab))
+
+    def turns(name, f_other, f_this):
+        t = [timer(f_other), timer(f_this), timer(f_this), timer(f_other)]
+        out["ms"][name] = dict(other=[t[0], t[3]], this=[t[1], t[2]])
+        print(f"  {name}: other {t[0]:.4f} / {t[3]:.4f} ms, this "
+              f"{t[1]:.4f} / {t[2]:.4f} ms")
+
+    out["launch_floor_ms"] = launch_floor(timer, dev)
+    print(f"  timer launch floor (one-element add_): "
+          f"{out['launch_floor_ms']:.4f} ms")
+    ok, ek, tab = pccs_tensors(dev)
+    own, ext = demands(4096 * 2, gen, dev, torch.float64)
+    turns("slowdown N=8192 float64",
+          lambda: osd.piecewise_slowdown(own, ext, ok, ek, tab),
+          lambda: sd.piecewise_slowdown(own, ext, ok, ek, tab))
+    for B, S in [(1, s) for s in RG_PROMPT_LENS] + [(4, 1)]:
+        a, b, h0 = scan_inputs(B, S, 4096, torch.bfloat16, gen, dev)
+        h0 = h0 if S == 1 else None
+        key = f"B{B} S{S}"
+        got, want = rg.rglru_scan(a, b, h0), org.rglru_scan(a, b, h0)
+        out["rglru_bits"][key] = bits_check(
+            f"rglru vs other build, {key}", got[0], want[0])
+        bits_check(f"rglru vs other build, {key} h_last", got[1], want[1])
+        turns(f"rglru {key} D4096 bf16",
+              lambda: org.rglru_scan(a, b, h0), lambda: rg.rglru_scan(a, b, h0))
+    req, model = fixture_requests()[ORIN]
+    solves = []
+    for mod in (osd, sd, sd, osd):
+        simulate_torch.piecewise_slowdown = mod.piecewise_slowdown
+        try:
+            solves.append(profile_search(req, model, dev, {sd, mod}))
+        finally:
+            simulate_torch.piecewise_slowdown = sd.piecewise_slowdown
+    out["solve"] = dict(
+        other=[solves[0], solves[3]], this=[solves[1], solves[2]])
     return out
 
 
@@ -1974,7 +2141,16 @@ def characterize(fa, da, sd, se, st) -> dict:
                                  greedy_objective=greedy.objective))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", type=Path, default=None, metavar="DIR",
+                    help="after the kernel phase, compare the slowdown and "
+                         "RG-LRU kernels with those of the checkout in DIR "
+                         "(bits, times in turns, the slowdown's device time "
+                         "in one solve) and stop")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -1990,6 +2166,7 @@ def main() -> int:
     from repro_torch.runtime import resolve_device
 
     dev = resolve_device("cuda")
+    phases = 4 if args.against else PHASES
     phase_s = {}
     t_phase = time.perf_counter()
 
@@ -2003,7 +2180,7 @@ def main() -> int:
         t_phase = now
         if name is not None:
             phase_s[name] = None
-            print(f"[{len(phase_s)}/{PHASES}] {name}")
+            print(f"[{len(phase_s)}/{phases}] {name}")
 
     phase("environment")
     print(f"  card: {card_line()}")
@@ -2020,7 +2197,9 @@ def main() -> int:
     ptxas = {row: ptxas_rows(_build, name)
              for row, name in (("flash_attention", "flash_attention"),
                                ("decode_attention", "decode_attention"),
-                               ("rwkv6_scan", "rwkv6"))}
+                               ("rwkv6_scan", "rwkv6"),
+                               ("rglru_scan", "rglru"),
+                               ("piecewise_slowdown", "slowdown"))}
     for name, rows in ptxas.items():
         for kernel, line in rows.items():
             print(f"  ptxas {name}: {kernel}: {line}")
@@ -2041,6 +2220,9 @@ def main() -> int:
                time_stream(st, probes, timer, dev),
                time_rglru(rg, timer, gen, dev),
                time_rwkv6(rk, timer, gen, dev)]
+    floor_ms = launch_floor(timer, dev)
+    print(f"  timer launch floor (one-element add_, as every row is "
+          f"timed): {floor_ms:.4f} ms")
     for kr in kernels:
         for row in [kr] + [v for k, v in kr.items() if k.startswith("at_")]:
             lib = ("none" if row["library_ms"] is None
@@ -2049,6 +2231,18 @@ def main() -> int:
                   f"plain {row['plain_ms']:.4f} ms, library {lib}, "
                   f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     print(f"  {n} comparisons passed")
+    if args.against:
+        phase(f"against the kernels of {args.against}")
+        compared = against(args.against.resolve(), sd, rg, dev)
+        phase(None)
+        print(json.dumps({"phase_s": phase_s}))
+        print(json.dumps({"timer": {"launch_floor_ms": floor_ms}}))
+        print(json.dumps({"against": compared}))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     phase("serve full-width stablelm-1.6b (CUDA graph, then eager)")
     result = serve(fa, da, dev)
@@ -2102,6 +2296,7 @@ def main() -> int:
             "launches_per_replay"]
     found["build_s"] = build_s
     print(json.dumps({"phase_s": phase_s}))
+    print(json.dumps({"timer": {"launch_floor_ms": floor_ms}}))
     print(json.dumps({"serve": result}))
     print(json.dumps({"serve_reduced": reduced}))
     print(json.dumps({"search": found}))

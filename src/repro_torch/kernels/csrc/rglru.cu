@@ -12,31 +12,70 @@
 // What bounds it on the card: one multiply and one add for every three
 // elements moved (a and b read, h written), so it is bound by bytes:
 // 3 * B * S * D * sizeof(a) over 3.35 TB/s, ~7.3 us at B = 1, S = 1000,
-// D = 4096 in bf16 (24.6 MB).
+// D = 4096 in bf16 (24.6 MB).  The order of the sums is fixed: the plain
+// version (kernels/rglru.py::linear_scan_torch) walks time in sequence in
+// float32, rounding the product and the sum separately, and the served
+// checks hold the kernel to it bit for bit (recurrentgemma-9b with seeded
+// weights flips its argmax under any change of rounding).  So time is
+// never split; the parallelism is across channels and the speed comes
+// from keeping loads in flight.
 //
-// Design.  The TPU grid (b, channel tile, time tile) walks time innermost
-// with the carry in VMEM scratch; here one thread owns one (b, channel),
-// keeps h in an f32 register and walks t itself.  Neighbouring threads own
-// neighbouring channels, so every step's loads of a and b and store of h
-// are coalesced rows.  The loads of U = 8 steps are issued before their 8
-// dependent updates, so 16 loads are in flight per thread rather than 2.
-// The product and the sum are rounded separately (__fmul_rn, __fadd_rn),
-// as the plain version's two eager ops round them, so in float32 the
-// kernel equals the plain version bit for bit.  What this costs: B * D
-// threads (4096 at batch 1: 32 blocks of 128 on 132 SMs) walking S steps
-// in sequence leave most of the card idle and each step waits on a load's
-// latency, far from the byte bound; a chunked parallel scan (chunks of
-// time in separate blocks, then a pass carrying each chunk's h in) is
-// later work.
+// Prefill (S > 1), rglru_prefill.  One warp owns 32 consecutive channels
+// of one batch row, one lane a channel, h in an f32 register, walking
+// time in order; one warp a block, B * ceil(D / 32) blocks (128 at B = 1,
+// D = 4096: one an SM).  a and b come through a ring of STAGES stages in
+// shared memory, each STEPS steps x 32 channels of both (8 KB: 64 steps
+// in bf16, 32 in float32), filled STAGES - 1 stages ahead (24 KB in
+// flight a warp) by the tensor memory accelerator: one instruction a
+// stage for each of a and b brings a 2-D box of the (B * S, D) tensor,
+// and an mbarrier says when it has landed, so the warp spends no
+// instructions on addresses or copies.  Rows whose byte stride or base is
+// not a multiple of 16, which a tensor map cannot describe, take element
+// copies on the same path (the wrapper chooses:
+// kernels/rglru.py::scan_plan).  In the step loop each lane reads its
+// column of the next AHEAD steps from the ring (64 bytes a row, no bank
+// conflict) before their updates, so the dependent chain waits on the
+// multiply and the add alone.  A full chunk's h is staged in shared
+// memory and leaves as 16-byte stores, so no step spends instructions on
+// a global address; the partial last chunk stores each step's row
+// directly.  A ragged last warp masks its lanes (the box's columns past D
+// arrive as zeros).  What bounds it now: the one warp's step loop, about
+// 20 cycles a step, not the card's bytes.  16-byte cp.async copies in
+// place of the boxes, more or smaller stages, a TMA store of h, boxes
+// shared by two or four warps of a block, and two or four channels a lane
+// all measured slower.
+//
+// Decode (S = 1), rglru_decode.  One thread per (b, channel) over a
+// full-width grid, no ring: three loads, one update, two stores.  It has
+// no dynamic shared memory, so nothing is set on the function when the
+// engine captures the step into a CUDA graph.
+//
+// Numbers: __fmul_rn then __fadd_rn (no FMA contraction), as the plain
+// version's two eager ops round them; bf16 results rounded to nearest
+// even; h_last written in float32.
+#include <type_traits>
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int U = 8;                // steps whose loads are issued together
+constexpr int LANES = 32;            // channels a warp owns
+constexpr int STAGES = 4;            // ring depth
+constexpr int STAGE_BYTES = 8192;    // a and b of one stage
+constexpr int AHEAD = 16;            // steps read from the ring ahead
+constexpr int DECODE_THREADS = 128;
 
+// The ring keeps the inputs' bits: float, or a bf16's 16 bits, which
+// widen to float exactly.
+template <typename T>
+using Bits = std::conditional_t<sizeof(T) == 2, unsigned short, float>;
 __device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(unsigned short x) {
+  return __uint_as_float((unsigned)x << 16);
+}
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -53,47 +92,291 @@ __device__ __forceinline__ float step(float a, float h, float b) {
   return __fadd_rn(__fmul_rn(a, h), b);
 }
 
+template <typename T> __device__ __forceinline__ Bits<T> to_bits(float x);
+template <> __device__ __forceinline__ float to_bits<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ unsigned short to_bits<__nv_bfloat16>(
+    float x) {
+  return __bfloat16_as_ushort(__float2bfloat16(x));
+}
+
+// The tensor memory accelerator (TMA): a 2-D box of a tensor map into
+// shared memory, its arrival counted by an mbarrier (PTX ISA,
+// cp.async.bulk.tensor and mbarrier).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
+      smem_addr(bar)));
+}
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{ .reg .pred p;\n"
+        "  mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "  selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(smem_addr(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rglru_kernel(const T* __restrict__ a, const T* __restrict__ b,
+struct Ring {
+  static constexpr int STEPS = STAGE_BYTES / (2 * LANES * (int)sizeof(T));
+  static constexpr int EACH = 16 / (int)sizeof(T);     // elements a store
+  static constexpr int PIECES = LANES / EACH;          // stores a row
+  static constexpr int ROWS = LANES / PIECES;          // rows a warp store
+  alignas(128) Bits<T> a[STAGES][STEPS][LANES];        // TMA boxes
+  alignas(128) Bits<T> b[STAGES][STEPS][LANES];
+  alignas(16) Bits<T> h[STEPS][LANES];                 // a chunk's h
+  uint64_t full[STAGES];                               // a stage landed
+};
+
+// Stage `slot` <- steps [0, n) of rows row, row + 1, ... (element (t, c)
+// of a at a[(row + t) * D + c]) for channels c0 .. c0 + 31.  TMA: lane 0
+// asks for a STEPS x 32 box of each of a and b (rows past the tensor and
+// columns past D arrive as zeros; rows past this batch row's S belong to
+// the next and go unused); bar_wait(full[slot]) then finds them in
+// place.  Element copies: each lane its own column, so no other lane
+// reads what it writes.
+template <typename T, bool TMA>
+__device__ __forceinline__ void fill(Ring<T>& r, int slot,
+                                     const CUtensorMap* ma,
+                                     const CUtensorMap* mb,
+                                     const T* __restrict__ a,
+                                     const T* __restrict__ b, size_t row,
+                                     int n, int c0, int D, int lane) {
+  if constexpr (TMA) {
+    if (lane == 0) {
+      bar_expect(&r.full[slot], sizeof(r.a[0]) + sizeof(r.b[0]));
+      tma_load(r.a[slot], ma, &r.full[slot], c0, (int)row);
+      tma_load(r.b[slot], mb, &r.full[slot], c0, (int)row);
+    }
+  } else {
+    const int c = c0 + lane;
+    if (c >= D) return;
+    const Bits<T>* ap =
+        reinterpret_cast<const Bits<T>*>(a) + row * (size_t)D + c;
+    const Bits<T>* bp =
+        reinterpret_cast<const Bits<T>*>(b) + row * (size_t)D + c;
+#pragma unroll 8
+    for (int t = 0; t < n; ++t) {
+      r.a[slot][t][lane] = ap[(size_t)t * D];
+      r.b[slot][t][lane] = bp[(size_t)t * D];
+    }
+  }
+}
+
+// A full chunk's h, staged in r.h, out to rows hrow, hrow + D, ... (each
+// row's channels c0 .. c0 + 31): 16-byte stores, lane l taking piece
+// l % PIECES of rows l / PIECES, + ROWS, ...; or each lane its own
+// column.
+template <typename T, bool VEC>
+__device__ __forceinline__ void drain(const Ring<T>& r, T* __restrict__ hrow,
+                                      int c0, int D, int lane) {
+  constexpr int STEPS = Ring<T>::STEPS, EACH = Ring<T>::EACH,
+                PIECES = Ring<T>::PIECES, ROWS = Ring<T>::ROWS;
+  const size_t ld = (size_t)D;
+  if constexpr (VEC) {
+    const int t0 = lane / PIECES, p = lane % PIECES;
+    if (c0 + p * EACH >= D) return;
+    T* dst = hrow + t0 * ld + c0 + p * EACH;
+#pragma unroll
+    for (int j = 0; j < STEPS / ROWS; ++j)
+      *reinterpret_cast<uint4*>(dst + j * ROWS * ld) =
+          *reinterpret_cast<const uint4*>(&r.h[t0 + j * ROWS][p * EACH]);
+  } else {
+    const int c = c0 + lane;
+    if (c >= D) return;
+    Bits<T>* dst = reinterpret_cast<Bits<T>*>(hrow) + c;
+#pragma unroll 8
+    for (int t = 0; t < STEPS; ++t) dst[t * ld] = r.h[t][lane];
+  }
+}
+
+template <typename T, bool TMA>
+__global__ void __launch_bounds__(LANES)
+rglru_prefill(const __grid_constant__ CUtensorMap ma,
+              const __grid_constant__ CUtensorMap mb,
+              const T* __restrict__ a, const T* __restrict__ b,
+              const float* __restrict__ h0, T* __restrict__ h,
+              float* __restrict__ h_last, int S, int D) {
+  constexpr int STEPS = Ring<T>::STEPS;
+  __shared__ __align__(128) Ring<T> ring;
+  const int lane = threadIdx.x;
+  const int tiles = (D + LANES - 1) / LANES;
+  const size_t bi = blockIdx.x / tiles;
+  const int c0 = (int)(blockIdx.x % tiles) * LANES;
+  const int c = c0 + lane;
+  const bool live = c < D;
+  const size_t row0 = bi * (size_t)S;
+  const int chunks = (S + STEPS - 1) / STEPS;
+  const size_t ld = (size_t)D;
+
+  if (TMA && lane == 0) {
+    for (int k = 0; k < STAGES; ++k) bar_init(&ring.full[k]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncwarp();
+  for (int k = 0; k < STAGES - 1 && k < chunks; ++k)
+    fill<T, TMA>(ring, k, &ma, &mb, a, b, row0 + (size_t)k * STEPS,
+                 min(STEPS, S - k * STEPS), c0, D, lane);
+  float hv = (h0 != nullptr && live) ? h0[bi * ld + c] : 0.f;
+  T* hp = h + row0 * ld + c;
+
+  for (int k = 0; k < chunks; ++k) {
+    const int pre = k + STAGES - 1;     // its slot was read at k - 1
+    if (pre < chunks)
+      fill<T, TMA>(ring, pre % STAGES, &ma, &mb, a, b,
+                   row0 + (size_t)pre * STEPS, min(STEPS, S - pre * STEPS),
+                   c0, D, lane);
+    if (TMA) bar_wait(&ring.full[k % STAGES], (k / STAGES) & 1);
+    const Bits<T>(*sa)[LANES] = ring.a[k % STAGES];
+    const Bits<T>(*sb)[LANES] = ring.b[k % STAGES];
+    const int n = min(STEPS, S - k * STEPS);
+    if (n == STEPS) {
+      // h goes to shared memory first (no address arithmetic a step),
+      // then out as 16-byte rows
+#pragma unroll
+      for (int g = 0; g < STEPS; g += AHEAD) {
+        Bits<T> av[AHEAD], bv[AHEAD];
+#pragma unroll
+        for (int i = 0; i < AHEAD; ++i) {
+          av[i] = sa[g + i][lane];
+          bv[i] = sb[g + i][lane];
+        }
+#pragma unroll
+        for (int i = 0; i < AHEAD; ++i) {
+          hv = step(to_f(av[i]), hv, to_f(bv[i]));
+          ring.h[g + i][lane] = to_bits<T>(hv);
+        }
+      }
+      __syncwarp();
+      drain<T, TMA>(ring, h + (row0 + (size_t)k * STEPS) * ld, c0, D, lane);
+    } else {
+#pragma unroll 4
+      for (int t = 0; t < n; ++t) {
+        hv = step(to_f(sa[t][lane]), hv, to_f(sb[t][lane]));
+        if (live) hp[(size_t)t * ld] = from_f<T>(hv);
+      }
+    }
+    hp += (size_t)STEPS * ld;
+    __syncwarp();                       // the ring's slot and h are free
+  }
+  if (live) h_last[bi * ld + c] = hv;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(DECODE_THREADS)
+rglru_decode(const T* __restrict__ a, const T* __restrict__ b,
              const float* __restrict__ h0, T* __restrict__ h,
-             float* __restrict__ h_last, int S, int D) {
-  const int c = blockIdx.x * THREADS + threadIdx.x;
-  const size_t bi = blockIdx.y;
-  if (c >= D) return;
-  const size_t base = bi * S * D + c;
-  float hv = h0 != nullptr ? h0[bi * D + c] : 0.f;
-  int t = 0;
-  for (; t + U <= S; t += U) {
-    float av[U], bv[U];
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      const size_t o = base + (size_t)(t + i) * D;
-      av[i] = to_f(a[o]);
-      bv[i] = to_f(b[o]);
-    }
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      hv = step(av[i], hv, bv[i]);
-      h[base + (size_t)(t + i) * D] = from_f<T>(hv);
-    }
+             float* __restrict__ h_last, long long n) {
+  const long long i = (long long)blockIdx.x * DECODE_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const float hv = step(to_f(a[i]), h0 != nullptr ? h0[i] : 0.f,
+                        to_f(b[i]));
+  h[i] = from_f<T>(hv);
+  h_last[i] = hv;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (the libraries
+// link no libcuda).
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess
+        && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-  for (; t < S; ++t) {
-    const size_t o = base + (size_t)t * D;
-    hv = step(to_f(a[o]), hv, to_f(b[o]));
-    h[o] = from_f<T>(hv);
-  }
-  h_last[bi * D + c] = hv;
+  return fn;
+}
+
+// The (rows, D) row-major tensor at base as TMA boxes of STEPS rows x 32
+// channels.
+template <typename T>
+bool tensor_map(CUtensorMap* map, const void* base, long long rows, int D) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t stride[1] = {(cuuint64_t)D * sizeof(T)};
+  const cuuint32_t box[2] = {LANES, (cuuint32_t)Ring<T>::STEPS};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                2, const_cast<void*>(base), dims, stride, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T>
 int launch(const void* a, const void* b, const void* h0, void* h,
-           void* h_last, int B, int S, int D, cudaStream_t stream) {
-  const dim3 grid((D + THREADS - 1) / THREADS, B);
-  rglru_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const float*>(h0), static_cast<T*>(h),
-      static_cast<float*>(h_last), S, D);
+           void* h_last, int B, int S, int D, int branch, int vec,
+           long long blocks, int threads, cudaStream_t stream) {
+  const T* at = static_cast<const T*>(a);
+  const T* bt = static_cast<const T*>(b);
+  const float* h0t = static_cast<const float*>(h0);
+  T* ht = static_cast<T*>(h);
+  float* hl = static_cast<float*>(h_last);
+  if (branch == 0) {                    // decode
+    const long long n = (long long)B * D;
+    if (S != 1 || vec || threads != DECODE_THREADS
+        || blocks != (n + DECODE_THREADS - 1) / DECODE_THREADS)
+      return (int)cudaErrorInvalidValue;
+    rglru_decode<T><<<(unsigned)blocks, DECODE_THREADS, 0, stream>>>(
+        at, bt, h0t, ht, hl, n);
+  } else if (branch == 1) {             // prefill
+    if (threads != LANES
+        || blocks != (long long)B * ((D + LANES - 1) / LANES)
+        || (long long)B * S > 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap ma{}, mb{};
+    if (vec) {
+      if ((D * (int)sizeof(T)) % 16 != 0 || !aligned16(a) || !aligned16(b))
+        return (int)cudaErrorInvalidValue;
+      if (!tensor_map<T>(&ma, a, (long long)B * S, D)
+          || !tensor_map<T>(&mb, b, (long long)B * S, D))
+        return (int)cudaErrorNotSupported;
+      rglru_prefill<T, true><<<(unsigned)blocks, LANES, 0, stream>>>(
+          ma, mb, at, bt, h0t, ht, hl, S, D);
+    } else {
+      rglru_prefill<T, false><<<(unsigned)blocks, LANES, 0, stream>>>(
+          ma, mb, at, bt, h0t, ht, hl, S, D);
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -102,16 +385,25 @@ int launch(const void* a, const void* b, const void* h0, void* h,
 extern "C" {
 
 // a, b, h: (B, S, D) contiguous, of one type (0 = float32, 1 = bfloat16);
-// h0: (B, D) float32 or NULL (zeros); h_last: (B, D) float32.
-// Returns cudaGetLastError() after launch.
+// h0: (B, D) float32 or NULL (zeros); h_last: (B, D) float32.  branch 0 is
+// the decode kernel (S = 1), 1 the prefill; vec asks for the ring to be
+// filled by TMA boxes (else element copies);
+// blocks and threads are the grid kernels/rglru.py::scan_plan chose, and
+// are checked against the branch.  Returns cudaGetLastError() after
+// launch, or cudaErrorInvalidValue for arguments the kernels do not take.
 int rglru_fwd(const void* a, const void* b, const void* h0, void* h,
-              void* h_last, int dtype, int B, int S, int D, void* stream) {
-  if (B < 0 || S < 1 || D < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+              void* h_last, int dtype, int B, int S, int D, int branch,
+              int vec, long long blocks, int threads, void* stream) {
+  if (B < 0 || S < 1 || D < 0 || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || D == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, b, h0, h, h_last, B, S, D, s);
+  if (dtype == 0)
+    return launch<float>(a, b, h0, h, h_last, B, S, D, branch, vec, blocks,
+                         threads, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(a, b, h0, h, h_last, B, S, D, s);
+    return launch<__nv_bfloat16>(a, b, h0, h, h_last, B, S, D, branch, vec,
+                                 blocks, threads, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -26,6 +26,16 @@ launches = 0
 BACKENDS = ("auto", "cuda", "torch", "ref")
 MAX_KNOTS = 32
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+#: threads a block, and the most blocks before the grid strides (the
+#: thread count of 132 x 16 blocks of 256, the first design's cap)
+THREADS, MAX_BLOCKS = 128, 132 * 32
+
+
+def launch_grid(n: int) -> tuple[int, int]:
+    """(blocks, threads) of ``csrc/slowdown.cu`` for n elements: one
+    thread an element in blocks of THREADS, at most MAX_BLOCKS blocks
+    (beyond that the kernel's loop strides over the grid)."""
+    return max(1, min(-(-n // THREADS), MAX_BLOCKS)), THREADS
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,7 +43,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.piecewise_slowdown_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i,
+                       p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -83,10 +94,11 @@ def _launch(own, ext, ok, ek, tab):
     out = torch.empty_like(own_c)
     lib = _lib()
     stream = torch.cuda.current_stream(own.device).cuda_stream
+    blocks, threads = launch_grid(own_c.numel())
     code = lib.piecewise_slowdown_fwd(
         own_c.data_ptr(), ext_c.data_ptr(), ok.data_ptr(), ek.data_ptr(),
         tab.data_ptr(), out.data_ptr(), own_c.numel(), K, M,
-        _DTYPE_CODE[own.dtype], stream)
+        _DTYPE_CODE[own.dtype], blocks, threads, stream)
     _build.check(lib, code, "piecewise_slowdown")
     launches += 1
     return out

@@ -8,8 +8,9 @@ tolerances (scan: atol = rtol = 2e-5 in float32, 2e-2 in bfloat16;
 RWKV-6: atol 1e-4 / 5e-2, rtol 5e-2).
 
 Tests marked ``cuda`` hold the two scan kernels against their plain
-versions (the RWKV-6 kernel bit for bit, at every length of RWKV_TS and
-decay of RWKV_DECAYS) and skip on hosts without a CUDA device.
+versions bit for bit (RG-LRU at every served prefill length and through
+its element copies; RWKV-6 at every length of RWKV_TS and decay of
+RWKV_DECAYS) and skip on hosts without a CUDA device.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -199,6 +200,31 @@ class TestRWKV6Parity:
                                    rtol=1e-5)
 
 
+@pytest.mark.parametrize("B, S, D, dtype, aligned, want", [
+    # decode: one thread per (b, channel), 128 a block
+    (4, 1, 4096, torch.bfloat16, True, ("decode", 128, 128, False)),
+    (3, 1, 100, torch.float32, False, ("decode", 3, 128, False)),
+    # prefill: one warp a block per 32 channels of a batch row
+    (1, 1000, 4096, torch.bfloat16, True, ("prefill", 128, 32, True)),
+    (1, 2, 4096, torch.bfloat16, True, ("prefill", 128, 32, True)),
+    (3, 33, 128, torch.float32, True, ("prefill", 12, 32, True)),
+    (2, 17, 40, torch.bfloat16, True, ("prefill", 4, 32, True)),
+    # rows whose byte stride is not a multiple of 16, or inputs off a
+    # 16-byte boundary: element copies
+    (2, 17, 4099, torch.bfloat16, True, ("prefill", 258, 32, False)),
+    (1, 9, 36, torch.bfloat16, True, ("prefill", 2, 32, False)),
+    (1, 9, 6, torch.float32, True, ("prefill", 1, 32, False)),
+    (1, 300, 4096, torch.bfloat16, False, ("prefill", 128, 32, False)),
+])
+def test_scan_plan(B, S, D, dtype, aligned, want):
+    plan = trg.scan_plan(B, S, D, dtype, aligned)
+    assert tuple(plan) == want
+    if plan.branch == "decode":
+        assert plan.blocks * plan.threads >= B * D
+    else:
+        assert plan.blocks * trg.LANES >= B * D
+
+
 # ---------------------------------------------------------------------------
 # card only: the hand-written scan kernels vs their plain versions
 # ---------------------------------------------------------------------------
@@ -206,12 +232,20 @@ def _card(x, dtype, dev):
     return torch.from_numpy(x).to(dev).to(DTYPES[dtype][1])
 
 
+#: recurrentgemma-9b's served prefills: one prompt of each length at d_rnn
+#: 4096 (chip_smoke.py's RG_PROMPT_LENS)
+SERVED_SCANS = [(1, s, 4096) for s in (8, 100, 513, 1000, 2300)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", SCAN_SHAPES + [(4, 1, 4096),
-                                                 (1, 300, 4099)])
+                                                 (1, 300, 4099)]
+                         + SERVED_SCANS)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_rglru_kernel_vs_plain(cuda_device, shape, dtype, with_h0):
+    """The kernel walks each channel's time in the plain version's order
+    and rounding, so they agree bit for bit."""
     a, b, h0 = scan_inputs(20, *shape)
     at, bt = (_card(x, dtype, cuda_device) for x in (a, b))
     ht = torch.from_numpy(h0).to(cuda_device) if with_h0 else None
@@ -221,10 +255,29 @@ def test_rglru_kernel_vs_plain(cuda_device, shape, dtype, with_h0):
     assert trg.launches == before + 1
     assert got_last.dtype == torch.float32
     want, want_last = trg.linear_scan_torch(at, bt, ht)
-    np.testing.assert_allclose(np32(got.cpu()), np32(want.cpu()),
-                               **scan_tol(dtype))
-    np.testing.assert_allclose(np32(got_last.cpu()), np32(want_last.cpu()),
-                               **scan_tol(dtype))
+    assert torch.equal(got, want) and torch.equal(got_last, want_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(1, 300, 4096), (2, 65, 64)])
+def test_rglru_kernel_element_copies(cuda_device, dtype, shape):
+    """Inputs one element past a 16-byte boundary take the ring's element
+    copies and give the same bits."""
+    a, b, h0 = scan_inputs(23, *shape)
+    n = a.size
+    store = torch.empty(2 * n + 2, dtype=DTYPES[dtype][1],
+                        device=cuda_device)
+    at, bt = store[1:1 + n].view(shape), store[n + 2:].view(shape)
+    at.copy_(_card(a, dtype, cuda_device))
+    bt.copy_(_card(b, dtype, cuda_device))
+    assert not trg.scan_plan(*shape, at.dtype,
+                             at.data_ptr() % 16 == 0).vector
+    ht = torch.from_numpy(h0).to(cuda_device)
+    got = trg.rglru_scan(at, bt, ht)
+    want = trg.linear_scan_torch(at.clone(), bt.clone(), ht)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -10,7 +10,9 @@ versions.  Tolerances: the slowdown at atol = rtol = 5e-6 in float32
 only in summation order); the select step bit for bit.
 
 Tests marked ``cuda`` hold the hand-written kernels against their plain
-versions and skip on hosts without a CUDA device.
+versions (the slowdown also bit for bit against ``slowdown_gather``, its
+per-element formula written as gathers) and skip on hosts without a CUDA
+device.
 """
 import jax
 import numpy as np
@@ -107,6 +109,115 @@ class TestSlowdownParity:
                         for x in (ok, ek, tab)))
         want = [m.slowdown(o, e) for o, e in pts]
         np.testing.assert_allclose(got.numpy(), want, atol=1e-12)
+
+
+#: tables for the kernel's per-element formula: one row (K = 1), one
+#: column (M = 1), one entry, and 32 x 32 (the most the kernel takes,
+#: read by __ldg rather than from the lanes), beside SURFACES
+_K32 = np.sort(np.random.default_rng(7).uniform(0.0, 1.2, 32))
+GATHER_SURFACES = dict(
+    SURFACES,
+    one_row=((0.4,), (0.1, 0.3, 0.5, 0.7, 0.9),
+             ((1.00, 1.02, 1.06, 1.12, 1.20),)),
+    one_column=((0.1, 0.3, 0.5, 0.7, 0.9), (0.6,),
+                ((1.00,), (1.02,), (1.05,), (1.08,), (1.12,))),
+    one_entry=((0.5,), (0.5,), ((1.3,),)),
+    k32=(tuple(_K32), tuple(_K32),
+         tuple(tuple(1.0 + 0.05 * i + 0.01 * j for j in range(32))
+               for i in range(32))))
+
+
+def slowdown_gather(own, ext, own_knots, ext_knots, table):
+    """The kernel's per-element formula as gathers, op for op: on each
+    axis the bracket (the last knot <= x, kept in [0, n - 2]), the two hat
+    weights by the oracle's formula with all four divisions, then the
+    two-level sum with the fmas the kernel writes out (fma(x, y, z * w)
+    for x * y + z * w; on one row or column fma(w1, t[i+1], w0 * t[i])).
+    ``torch.addcmul(z, x, y)`` is that fma on the card: it rounds once
+    (test_addcmul_rounds_once_on_the_card)."""
+    dt, dev = own.dtype, own.device
+    tiny = torch.tensor(1e-30, dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    def hat(kprev, k, knext, first, last, x):
+        dk0, dk1 = k - kprev, knext - k
+        up = (x - kprev) / torch.where(dk0 > tiny, dk0, tiny)
+        dn = (knext - x) / torch.where(dk1 > tiny, dk1, tiny)
+        h = torch.where(up < dn, up, dn)
+        h = torch.where(h < 0, zero, torch.where(h > 1, one, h))
+        h = torch.where(first & (x <= k), one, h)
+        return torch.where(last & (x >= k), one, h)
+
+    def bracket(knots, x):
+        n = knots.shape[0]
+        i = torch.zeros(x.shape, dtype=torch.long, device=dev)
+        for q in range(1, n - 1):
+            i = torch.where(knots[q] <= x, q, i)
+        km, k0, k1 = knots[(i - 1).clamp_min(0)], knots[i], knots[i + 1]
+        k2 = knots[(i + 2).clamp_max(n - 1)]
+        no = torch.zeros_like(i, dtype=torch.bool)
+        return i, hat(km, k0, k1, i == 0, no, x), hat(k0, k1, k2, no,
+                                                      i + 1 == n - 1, x)
+
+    K, M = table.shape
+    t = table.reshape(-1)
+    if K == 1 and M == 1:
+        s = t[0].expand(own.shape)
+    elif K == 1:
+        j, w0, w1 = bracket(ext_knots, ext)
+        s = torch.addcmul(w0 * t[j], w1, t[j + 1])
+    elif M == 1:
+        i, w0, w1 = bracket(own_knots, own)
+        s = torch.addcmul(w0 * t[i], w1, t[i + 1])
+    else:
+        i, hi0, hi1 = bracket(own_knots, own)
+        j, hj0, hj1 = bracket(ext_knots, ext)
+        r0 = i * M + j
+        r1 = r0 + M
+        a = torch.addcmul(t[r0 + 1] * hj1, t[r0], hj0)
+        b = torch.addcmul(t[r1 + 1] * hj1, t[r1], hj0)
+        s = torch.addcmul(hi1 * b, hi0, a)
+    return torch.where((own <= 0) | (ext <= 0), one, s)
+
+
+def gather_inputs(name, n, dtype, seed=3):
+    """Demands over [-0.1, 1.4): every own/ext knot pair exactly, then
+    random values; the knots and table of GATHER_SURFACES[name]."""
+    ok, ek, tab = GATHER_SURFACES[name]
+    rng = np.random.default_rng(seed)
+    own = rng.uniform(-0.1, 1.4, size=n)
+    ext = rng.uniform(-0.1, 1.4, size=n)
+    pairs = [(o, e) for o in ok for e in ek]
+    for i, (o, e) in enumerate(pairs[:n]):
+        own[i], ext[i] = o, e
+    np_dt = FLOATS[dtype][0]
+    return to_torch(own.astype(np_dt), ext.astype(np_dt),
+                    np.asarray(ok, np_dt), np.asarray(ek, np_dt),
+                    np.asarray(tab, np_dt))
+
+
+@pytest.mark.parametrize("surface", list(GATHER_SURFACES))
+@pytest.mark.parametrize("dtype", list(FLOATS))
+def test_gather_form_is_the_plain_version(surface, dtype):
+    """The gather form computes the surface: it agrees with the plain
+    version (the hat-basis contraction) within SLOW_TOL."""
+    args = gather_inputs(surface, 3000, dtype)
+    got = slowdown_gather(*args)
+    want = tslow.piecewise_slowdown_torch(*args)
+    tol = SLOW_TOL[dtype]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("n, want", [
+    (1, (1, 128)), (128, (1, 128)), (129, (2, 128)), (8192, (64, 128)),
+    (132 * 32 * 128, (132 * 32, 128)), (1 << 20, (132 * 32, 128))])
+def test_slowdown_launch_grid(n, want):
+    """One thread an element in blocks of 128 (the search's 8192 elements
+    on 64 SMs), capped at 132 x 32 blocks, beyond which the kernel strides
+    over the grid."""
+    assert tslow.launch_grid(n) == want
 
 
 def select_inputs(p=64, l=6, dtype=np.float32, seed=0):
@@ -214,6 +325,38 @@ def test_slowdown_kernel_vs_plain(cuda_device, surface, dtype, n):
     tol = SLOW_TOL[dtype]
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(FLOATS))
+def test_addcmul_rounds_once_on_the_card(cuda_device, dtype):
+    """slowdown_gather's premise: addcmul(z, x, y) is fma(x, y, z) on the
+    card.  (1 + e)^2 - (1 + 2e) is e^2 exactly, and 0 when x * y is
+    rounded first."""
+    e = 2.0 ** (-30 if dtype == "float64" else -12)
+    dt = FLOATS[dtype][1]
+    x = torch.tensor([1 + e], dtype=dt, device=cuda_device)
+    z = torch.tensor([-(1 + 2 * e)], dtype=dt, device=cuda_device)
+    assert torch.addcmul(z, x, x).item() == e * e
+    assert (x * x + z).item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surface", list(GATHER_SURFACES))
+@pytest.mark.parametrize("dtype", list(FLOATS))
+@pytest.mark.parametrize("n", [1, 4099, 1 << 18])
+def test_slowdown_kernel_bitwise_gather_form(cuda_device, surface, dtype,
+                                             n):
+    """The kernel equals its per-element formula (slowdown_gather) bit
+    for bit: repeated knots, one row, one column, one entry, 5 x 5 and
+    32 x 32 tables, both types."""
+    args = [t.to(cuda_device) for t in gather_inputs(surface, n, dtype)]
+    before = tslow.launches
+    got = tslow.piecewise_slowdown(*args)
+    torch.cuda.synchronize()
+    assert tslow.launches == before + 1
+    want = slowdown_gather(*args)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
