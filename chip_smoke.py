@@ -102,14 +102,6 @@ Phases, each fatal on failure:
    plain path, and prefill(n) plus one decode step against prefill(n +
    1), each within E2E_F32_REL_TOL with the same argmax.
 
-``python3 chip_smoke.py --against DIR`` runs phases 1-3 and then holds
-the slowdown and RG-LRU kernels against those of the checkout in DIR
-(for example the parent commit, unpacked by ``git archive``): the
-slowdown bit for bit at N of 1, 1000, 8192 and 2^20 in both types, the
-RG-LRU at every timed shape, each timed shape in turns (DIR's, this
-one's, this one's, DIR's), and the slowdown's device time in one
-profiled solve with each build's kernel; it prints ``{"against": ...}``.
-
 Each phase prints its seconds.  The last line is the contract line
 ``{"ok": true, "device": {...}}``; before it come the ``{"phase_s": ...}``,
 ``{"timer": ...}``, ``{"serve": ...}``, ``{"serve_reduced": ...}``,
@@ -549,9 +541,6 @@ def scan_checks(rg, gen, dev) -> int:
         b1 = store[a.numel() + 2:].view(a.shape)
         a1.copy_(a)
         b1.copy_(b)
-        require(not rg.scan_plan(1, 300, 4096, dtype,
-                                 a1.data_ptr() % 16 == 0).vector,
-                "rglru: offset inputs did not take element copies")
         got = rg.rglru_scan(a1, b1, h0)
         want = rg.linear_scan_torch(a, b, h0)
         torch.cuda.synchronize()
@@ -1779,7 +1768,7 @@ def search(sd, se, dev) -> dict:
     _, f32 = solve(sd, se, req, model, dev, solver="anneal",
                    precision="float32", population=4096,
                    steps=SEARCH_STEPS, seed=0)
-    prof = profile_search(req, model, dev, (sd,))
+    prof = profile_search(req, model, dev, sd)
     return dict(model="PCCS 5x5 (repro/profiling/virtual.py:42-50)",
                 steps=SEARCH_STEPS, fixture_steps=FIXTURE_STEPS, orin_x64_cuda=gpu, orin_x64_cpu=cpu_row,
                 same_assignment=same, device_objective_rel=rel,
@@ -1787,15 +1776,13 @@ def search(sd, se, dev) -> dict:
                 profile=prof)
 
 
-def profile_search(req, model, dev, counted, steps: int = 16) -> dict:
+def profile_search(req, model, dev, sd, steps: int = 16) -> dict:
     """Device busy share of the orin float64 solve at 4096 chains, the
     graphs' capture included: ``steps`` steps, timed once unprofiled and
     then under torch.profiler (whose trace of all 64 steps holds ~600,000
-    kernels and takes a minute to read back).  ``counted``: the slowdown
-    modules whose launch counts are summed (``kernels/graph.py`` credits
-    graph replays to this build's); the profile sums the slowdown
-    kernel's device time over the solve's eager evaluation and graph
-    replays."""
+    kernels and takes a minute to read back).  The profile sums the
+    slowdown kernel (``sd``) over the solve's eager evaluation and graph
+    replays: its launches and its device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import Scheduler
@@ -1814,15 +1801,14 @@ def profile_search(req, model, dev, counted, steps: int = 16) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     sched = fresh()
-    for mod in counted:
-        mod.launches = 0
+    sd.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sched.solve(list(req.graphs), req.objective, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    slowdown_launches = sum(mod.launches for mod in counted)
+    slowdown_launches = sd.launches
     kernels, launches = device_ms_by_kernel(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
@@ -1851,96 +1837,6 @@ def profile_search(req, model, dev, counted, steps: int = 16) -> dict:
               f"{busy / wall_ms:.1%} ({busy / plain_ms:.1%} of the "
               f"unprofiled)")
     print(f"  profiled one solve: {out}")
-    return out
-
-
-# ---------------------------------------------------------------------------
-# against another build (--against DIR)
-# ---------------------------------------------------------------------------
-#: the slowdown's lengths compared bit for bit with the other build: one,
-#: ragged, one wave of the orin search, and a long pass
-AGAINST_NS = (1, 1000, 4096 * 2, 1 << 20)
-
-
-def load_kernels(root: Path, names) -> dict:
-    """The kernel modules ``names`` of another checkout of this repository
-    (for example the parent commit, unpacked by ``git archive``), imported
-    as the package ``other_kernels``: they build from that checkout's
-    ``csrc/`` into its own ``build/``."""
-    import importlib
-    import importlib.util
-
-    init = root / "src" / "repro_torch" / "kernels" / "__init__.py"
-    require(init.is_file(), f"--against: no kernels under {root}")
-    spec = importlib.util.spec_from_file_location(
-        "other_kernels", init, submodule_search_locations=[str(init.parent)])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules["other_kernels"] = pkg
-    spec.loader.exec_module(pkg)
-    return {n: importlib.import_module(f"other_kernels.{n}") for n in names}
-
-
-def against(root: Path, sd, rg, dev) -> dict:
-    """This build's slowdown and RG-LRU kernels against another build's,
-    in one process on one card: the slowdown bit for bit at AGAINST_NS in
-    both types and the RG-LRU at every timed shape; each timed shape in
-    turns (other, this, this, other) under one Timer, beside its launch
-    floor; and the slowdown's device time in one profiled orin solve with
-    each build's kernel in the evaluator (other, this, this, other)."""
-    from repro_torch.core import simulate_torch
-
-    other = load_kernels(root, ("slowdown", "rglru"))
-    osd, org = other["slowdown"], other["rglru"]
-    with ThreadPoolExecutor() as pool:
-        list(pool.map(lambda m: m._lib(), (osd, org)))
-    gen = torch.Generator(device=dev).manual_seed(1)
-    timer = Timer(dev)
-    out = {"dir": str(root), "slowdown_bits": {}, "rglru_bits": {},
-           "ms": {}}
-    for dtype in (torch.float64, torch.float32):
-        ok, ek, tab = pccs_tensors(dev, dtype)
-        for n in AGAINST_NS:
-            own, ext = demands(n, gen, dev, dtype)
-            key = f"{str(dtype)[6:]} N={n}"
-            out["slowdown_bits"][key] = bits_check(
-                f"slowdown vs other build, {key}",
-                sd.piecewise_slowdown(own, ext, ok, ek, tab),
-                osd.piecewise_slowdown(own, ext, ok, ek, tab))
-
-    def turns(name, f_other, f_this):
-        t = [timer(f_other), timer(f_this), timer(f_this), timer(f_other)]
-        out["ms"][name] = dict(other=[t[0], t[3]], this=[t[1], t[2]])
-        print(f"  {name}: other {t[0]:.4f} / {t[3]:.4f} ms, this "
-              f"{t[1]:.4f} / {t[2]:.4f} ms")
-
-    out["launch_floor_ms"] = launch_floor(timer, dev)
-    print(f"  timer launch floor (one-element add_): "
-          f"{out['launch_floor_ms']:.4f} ms")
-    ok, ek, tab = pccs_tensors(dev)
-    own, ext = demands(4096 * 2, gen, dev, torch.float64)
-    turns("slowdown N=8192 float64",
-          lambda: osd.piecewise_slowdown(own, ext, ok, ek, tab),
-          lambda: sd.piecewise_slowdown(own, ext, ok, ek, tab))
-    for B, S in [(1, s) for s in RG_PROMPT_LENS] + [(4, 1)]:
-        a, b, h0 = scan_inputs(B, S, 4096, torch.bfloat16, gen, dev)
-        h0 = h0 if S == 1 else None
-        key = f"B{B} S{S}"
-        got, want = rg.rglru_scan(a, b, h0), org.rglru_scan(a, b, h0)
-        out["rglru_bits"][key] = bits_check(
-            f"rglru vs other build, {key}", got[0], want[0])
-        bits_check(f"rglru vs other build, {key} h_last", got[1], want[1])
-        turns(f"rglru {key} D4096 bf16",
-              lambda: org.rglru_scan(a, b, h0), lambda: rg.rglru_scan(a, b, h0))
-    req, model = fixture_requests()[ORIN]
-    solves = []
-    for mod in (osd, sd, sd, osd):
-        simulate_torch.piecewise_slowdown = mod.piecewise_slowdown
-        try:
-            solves.append(profile_search(req, model, dev, {sd, mod}))
-        finally:
-            simulate_torch.piecewise_slowdown = sd.piecewise_slowdown
-    out["solve"] = dict(
-        other=[solves[0], solves[3]], this=[solves[1], solves[2]])
     return out
 
 
@@ -2141,16 +2037,7 @@ def characterize(fa, da, sd, se, st) -> dict:
                                  greedy_objective=greedy.objective))
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--against", type=Path, default=None, metavar="DIR",
-                    help="after the kernel phase, compare the slowdown and "
-                         "RG-LRU kernels with those of the checkout in DIR "
-                         "(bits, times in turns, the slowdown's device time "
-                         "in one solve) and stop")
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -2166,7 +2053,6 @@ def main(argv=None) -> int:
     from repro_torch.runtime import resolve_device
 
     dev = resolve_device("cuda")
-    phases = 4 if args.against else PHASES
     phase_s = {}
     t_phase = time.perf_counter()
 
@@ -2180,7 +2066,7 @@ def main(argv=None) -> int:
         t_phase = now
         if name is not None:
             phase_s[name] = None
-            print(f"[{len(phase_s)}/{phases}] {name}")
+            print(f"[{len(phase_s)}/{PHASES}] {name}")
 
     phase("environment")
     print(f"  card: {card_line()}")
@@ -2231,18 +2117,6 @@ def main(argv=None) -> int:
                   f"plain {row['plain_ms']:.4f} ms, library {lib}, "
                   f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     print(f"  {n} comparisons passed")
-    if args.against:
-        phase(f"against the kernels of {args.against}")
-        compared = against(args.against.resolve(), sd, rg, dev)
-        phase(None)
-        print(json.dumps({"phase_s": phase_s}))
-        print(json.dumps({"timer": {"launch_floor_ms": floor_ms}}))
-        print(json.dumps({"against": compared}))
-        print(card_line())
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return 0
 
     phase("serve full-width stablelm-1.6b (CUDA graph, then eager)")
     result = serve(fa, da, dev)

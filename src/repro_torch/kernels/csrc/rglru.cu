@@ -31,8 +31,7 @@
 // and an mbarrier says when it has landed, so the warp spends no
 // instructions on addresses or copies.  Rows whose byte stride or base is
 // not a multiple of 16, which a tensor map cannot describe, take element
-// copies on the same path (the wrapper chooses:
-// kernels/rglru.py::scan_plan).  In the step loop each lane reads its
+// copies on the same path.  In the step loop each lane reads its
 // column of the next AHEAD steps from the ring (64 bytes a row, no bank
 // conflict) before their updates, so the dependent chain waits on the
 // multiply and the add alone.  A full chunk's h is staged in shared
@@ -342,40 +341,35 @@ bool tensor_map(CUtensorMap* map, const void* base, long long rows, int D) {
 
 template <typename T>
 int launch(const void* a, const void* b, const void* h0, void* h,
-           void* h_last, int B, int S, int D, int branch, int vec,
-           long long blocks, int threads, cudaStream_t stream) {
+           void* h_last, int B, int S, int D, cudaStream_t stream) {
   const T* at = static_cast<const T*>(a);
   const T* bt = static_cast<const T*>(b);
   const float* h0t = static_cast<const float*>(h0);
   T* ht = static_cast<T*>(h);
   float* hl = static_cast<float*>(h_last);
-  if (branch == 0) {                    // decode
+  if (S == 1) {                         // decode
     const long long n = (long long)B * D;
-    if (S != 1 || vec || threads != DECODE_THREADS
-        || blocks != (n + DECODE_THREADS - 1) / DECODE_THREADS)
-      return (int)cudaErrorInvalidValue;
+    const long long blocks = (n + DECODE_THREADS - 1) / DECODE_THREADS;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     rglru_decode<T><<<(unsigned)blocks, DECODE_THREADS, 0, stream>>>(
         at, bt, h0t, ht, hl, n);
-  } else if (branch == 1) {             // prefill
-    if (threads != LANES
-        || blocks != (long long)B * ((D + LANES - 1) / LANES)
-        || (long long)B * S > 0x7fffffffLL)
-      return (int)cudaErrorInvalidValue;
-    CUtensorMap ma{}, mb{};
-    if (vec) {
-      if ((D * (int)sizeof(T)) % 16 != 0 || !aligned16(a) || !aligned16(b))
-        return (int)cudaErrorInvalidValue;
-      if (!tensor_map<T>(&ma, a, (long long)B * S, D)
-          || !tensor_map<T>(&mb, b, (long long)B * S, D))
-        return (int)cudaErrorNotSupported;
-      rglru_prefill<T, true><<<(unsigned)blocks, LANES, 0, stream>>>(
-          ma, mb, at, bt, h0t, ht, hl, S, D);
-    } else {
-      rglru_prefill<T, false><<<(unsigned)blocks, LANES, 0, stream>>>(
-          ma, mb, at, bt, h0t, ht, hl, S, D);
-    }
-  } else {
+    return (int)cudaGetLastError();
+  }
+  const long long blocks = (long long)B * ((D + LANES - 1) / LANES);
+  if (blocks > 0x7fffffffLL || (long long)B * S > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  CUtensorMap ma{}, mb{};
+  // TMA boxes where a tensor map can describe the inputs: rows of a
+  // multiple of 16 bytes, a and b on 16-byte boundaries
+  if ((D * sizeof(T)) % 16 == 0 && aligned16(a) && aligned16(b)) {
+    if (!tensor_map<T>(&ma, a, (long long)B * S, D)
+        || !tensor_map<T>(&mb, b, (long long)B * S, D))
+      return (int)cudaErrorNotSupported;
+    rglru_prefill<T, true><<<(unsigned)blocks, LANES, 0, stream>>>(
+        ma, mb, at, bt, h0t, ht, hl, S, D);
+  } else {
+    rglru_prefill<T, false><<<(unsigned)blocks, LANES, 0, stream>>>(
+        ma, mb, at, bt, h0t, ht, hl, S, D);
   }
   return (int)cudaGetLastError();
 }
@@ -385,25 +379,18 @@ int launch(const void* a, const void* b, const void* h0, void* h,
 extern "C" {
 
 // a, b, h: (B, S, D) contiguous, of one type (0 = float32, 1 = bfloat16);
-// h0: (B, D) float32 or NULL (zeros); h_last: (B, D) float32.  branch 0 is
-// the decode kernel (S = 1), 1 the prefill; vec asks for the ring to be
-// filled by TMA boxes (else element copies);
-// blocks and threads are the grid kernels/rglru.py::scan_plan chose, and
-// are checked against the branch.  Returns cudaGetLastError() after
-// launch, or cudaErrorInvalidValue for arguments the kernels do not take.
+// h0: (B, D) float32 or NULL (zeros); h_last: (B, D) float32.  S = 1
+// launches the decode kernel, S > 1 the prefill.  Returns
+// cudaGetLastError() after launch, or cudaErrorInvalidValue for
+// arguments the kernels do not take.
 int rglru_fwd(const void* a, const void* b, const void* h0, void* h,
-              void* h_last, int dtype, int B, int S, int D, int branch,
-              int vec, long long blocks, int threads, void* stream) {
-  if (B < 0 || S < 1 || D < 0 || blocks > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+              void* h_last, int dtype, int B, int S, int D, void* stream) {
+  if (B < 0 || S < 1 || D < 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || D == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(a, b, h0, h, h_last, B, S, D, branch, vec, blocks,
-                         threads, s);
+  if (dtype == 0) return launch<float>(a, b, h0, h, h_last, B, S, D, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(a, b, h0, h, h_last, B, S, D, branch, vec,
-                                 blocks, threads, s);
+    return launch<__nv_bfloat16>(a, b, h0, h, h_last, B, S, D, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,7 +15,6 @@ return it; ``repro``'s Pallas path alone returns ``a``'s dtype.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import torch
 
@@ -25,33 +24,6 @@ from . import _build
 launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: channels a prefill warp (and block) owns; threads of a decode block
-#: (``csrc/rglru.cu``: LANES, DECODE_THREADS)
-LANES, DECODE_THREADS = 32, 128
-
-
-class ScanPlan(NamedTuple):
-    """How ``csrc/rglru.cu`` is launched for one scan."""
-    branch: str       # "decode" (S = 1) or "prefill"
-    blocks: int
-    threads: int
-    vector: bool      # prefill ring filled by TMA boxes (else element copies)
-
-
-def scan_plan(B: int, S: int, D: int, dtype: torch.dtype,
-              aligned: bool = True) -> ScanPlan:
-    """The launch of a (B, S, D) scan in ``dtype``.  Decode (S = 1): one
-    thread per (b, channel), DECODE_THREADS a block.  Prefill: one warp a
-    block owning 32 channels of one batch row, B * ceil(D / 32) blocks;
-    its ring takes TMA boxes where a tensor map can describe the inputs
-    (a row's byte stride a multiple of 16 and ``aligned``: a and b start
-    on 16 bytes), else element copies."""
-    if S == 1:
-        return ScanPlan("decode", -(-B * D // DECODE_THREADS),
-                        DECODE_THREADS, False)
-    row_bytes = D * torch.empty((), dtype=dtype).element_size()
-    return ScanPlan("prefill", B * -(-D // LANES), LANES,
-                    aligned and row_bytes % 16 == 0)
 
 
 def _lib() -> ctypes.CDLL:
@@ -59,8 +31,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.rglru_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_longlong,
-                       i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -97,16 +68,13 @@ def _launch(a, b, h0):
         h0 = h0.to(torch.float32).contiguous()
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("rglru_scan: a and b must be contiguous")
-    plan = scan_plan(B, S, D, a.dtype,
-                     a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     lib = _lib()
     h = torch.empty_like(a)
     h_last = torch.empty((B, D), dtype=torch.float32, device=a.device)
     code = lib.rglru_fwd(
         a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
         h.data_ptr(), h_last.data_ptr(), _DTYPE_CODE[a.dtype], B, S, D,
-        int(plan.branch == "prefill"), int(plan.vector), plan.blocks,
-        plan.threads, torch.cuda.current_stream(a.device).cuda_stream)
+        torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, code, "rglru_scan")
     launches += 1
     return h, h_last

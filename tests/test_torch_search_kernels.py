@@ -344,12 +344,13 @@ def test_addcmul_rounds_once_on_the_card(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("surface", list(GATHER_SURFACES))
 @pytest.mark.parametrize("dtype", list(FLOATS))
-@pytest.mark.parametrize("n", [1, 4099, 1 << 18])
+@pytest.mark.parametrize("n", [1, 1000, 8192, 1 << 20])
 def test_slowdown_kernel_bitwise_gather_form(cuda_device, surface, dtype,
                                              n):
     """The kernel equals its per-element formula (slowdown_gather) bit
     for bit: repeated knots, one row, one column, one entry, 5 x 5 and
-    32 x 32 tables, both types."""
+    32 x 32 tables, both types; one element, a ragged length, one wave of
+    the orin search (8192) and a length past the grid's cap."""
     args = [t.to(cuda_device) for t in gather_inputs(surface, n, dtype)]
     before = tslow.launches
     got = tslow.piecewise_slowdown(*args)
