@@ -14,7 +14,9 @@ Phases, each fatal on failure:
    tolerances of ``tests/test_kernels.py``; PCCS slowdown: float64 at
    atol = rtol = 1e-12, float32 at 5e-6; annealing select and the
    streaming antagonist: bit for bit, with poisoned lanes, special values
-   and offset views, the duty-cycled antagonist included; the RG-LRU scan
+   and offset views, the duty-cycled antagonist included (the select
+   kernel out of place, into fresh tensors and in place, at row lengths
+   3, 6, 64 and 130); the RG-LRU scan
    bit for bit (at every served prefill length, a ragged D, and inputs
    one element off a 16-byte boundary, which take its element copies)
    and the RWKV-6 scan at ``tests/test_kernels.py``'s 1e-4 / 5e-2 and bit
@@ -37,7 +39,8 @@ Phases, each fatal on failure:
    beside the timer's launch floor (a one-element ``add_`` timed the same
    way): flash in bf16 and in float32 (the characterization's shape), the
    scans at a prefill's and at a decode step's shape (RG-LRU at every
-   served prompt length, RWKV-6's prefill in float32 too), the stream at
+   served prompt length, RWKV-6's prefill in float32 too), the select
+   kernel out of place and in place, the stream at
    32 MB, 256
    MB and the card's 1 GB calibration pass, whose rate past the L2 must
    not exceed 105% of the card's memory rate;
@@ -69,9 +72,13 @@ Phases, each fatal on failure:
    population 1024 (128 steps) must be no worse than greedy; both search
    kernels must have launched in each solve (the select kernel once a
    step plus its warm-up before capture); the graphs' wave budget W and
-   overflow replays are reported, and one 16-step solve is profiled: the
-   card's busy share and the slowdown kernel's summed device time over
-   its eager evaluation and graph replays;
+   overflow replays are reported; the orin fixture under §4.4's
+   ``ScaledContentionModel(pccs, 1.5)`` in float64 at population 1024
+   must give the CPU's incumbent too, and a plan ``reschedule_plan``
+   rescaled must load back with its model, factor and request hash; one
+   16-step solve is profiled: the card's busy share, the device kernels
+   of the whole solve and the slowdown and select kernels' summed device
+   time over its eager evaluation and graph replays;
 8. characterize: the port's profiling CLI (``repro_torch.launch.profile
    --executor torch --arch stablelm-1.6b --fit piecewise --solve --solver
    anneal``) measures the 8 layer groups of full-width stablelm-1.6b
@@ -225,11 +232,17 @@ class Timer:
                                  device=device)
         self.reps, self.warmup, self.spin = reps, warmup, SPIN_CYCLES
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, before=None) -> float:
+        """``before``, if given, runs ahead of each call, untimed (to
+        restore the state an in-place call changed)."""
         for _ in range(self.warmup):
+            if before is not None:
+                before()
             fn()
         times = []
         for _ in range(self.reps):
+            if before is not None:
+                before()
             self.flush.zero_()
             torch.cuda._sleep(self.spin)
             start = torch.cuda.Event(enable_timing=True)
@@ -857,20 +870,70 @@ def max_abs_diff(got, want) -> float:
     return float(torch.where(same, 0.0, (got - want).abs()).max())
 
 
-def select_checks(se, gen, dev, L: int) -> int:
+#: the select kernel's row lengths L = w x gmax: its 16-byte path at 64
+#: (the orin search's 2 x 32), its 4-byte path at 3, 6 and 130
+SELECT_LS = (3, 6, 64, 130)
+
+
+def offset_copy(t):
+    """``t`` copied into a view one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def select_forms(se, args, temp, offset=False):
+    """The select kernel's three forms on ``args``: out of place, into
+    fresh tensors, and in place into copies of the state (``offset``:
+    the rows one element off a 16-byte boundary, the 4-byte path)."""
+    cur, prop, best, cur_obj, prop_obj, best_obj, u = args
+    move = offset_copy if offset else torch.clone
+    if offset:
+        cur, prop, best = (offset_copy(t) for t in (cur, prop, best))
+    fresh = (move(torch.zeros_like(cur)), torch.empty_like(cur_obj),
+             move(torch.zeros_like(best)), torch.empty_like(best_obj))
+    state = (move(cur), cur_obj.clone(), move(best), best_obj.clone())
+    return {
+        "out of place": se.anneal_select(cur, prop, best, cur_obj, prop_obj,
+                                         best_obj, u, temp),
+        "into out": se.anneal_select(cur, prop, best, cur_obj, prop_obj,
+                                     best_obj, u, temp, out=fresh),
+        "in place": se.anneal_select(state[0], prop, state[2], state[1],
+                                     prop_obj, state[3], u, temp,
+                                     out=state)}
+
+
+def select_checks(se, gen, dev) -> int:
+    """Every form at every row length, P 32 / 4096 / 65536, both types,
+    and at L 64 and 130 with rows off a 16-byte boundary: each bit for
+    bit the plain version, each one launch."""
     n = 0
+    cases = [(P, L, False) for L in SELECT_LS for P in (32, 4096, 65536)]
+    cases += [(4096, 64, True), (4096, 130, True)]
     for dtype in (torch.float64, torch.float32):
-        for P in (32, 4096, 65536):
+        for P, L, offset in cases:
             for temp in (0.37, 1e-40):         # 1e-40 takes the 1e-30 clamp
                 args = select_inputs(P, L, gen, dev, dtype)
-                got = se.anneal_select(*args, temp)
                 want = se.anneal_select_torch(*args, temp)
+                before = se.launches
+                forms = select_forms(se, args, temp, offset)
                 torch.cuda.synchronize()
-                same = all(bit_equal(g, w) for g, w in zip(got, want))
-                print(f"  select {str(dtype)[6:]} P={P} L={L} temp={temp:g}:"
-                      f" bitwise {'equal' if same else 'DIFFERENT'}")
-                require(same, "select: kernel differs from its plain version")
-                n += 1
+                require(se.launches == before + len(forms),
+                        f"select: {se.launches - before} launches for "
+                        f"{len(forms)} calls")
+                for form, got in forms.items():
+                    same = all(bit_equal(g, w) for g, w in zip(got, want))
+                    if not same:
+                        print(f"  select {str(dtype)[6:]} P={P} L={L} "
+                              f"temp={temp:g} offset={offset} {form}: "
+                              f"DIFFERENT")
+                    require(same, f"select ({form}): kernel differs from "
+                            f"its plain version")
+                    n += 1
+        print(f"  select {str(dtype)[6:]}: three forms x L {SELECT_LS} x "
+              f"P 32 / 4096 / 65536, offset rows at L 64 and 130, temp "
+              f"0.37 and 1e-40: bitwise equal")
     return n
 
 
@@ -899,26 +962,53 @@ def time_slowdown(sd, timer, gen, dev, n) -> dict:
 def time_select(se, timer, gen, dev, P, L) -> dict:
     """Search shape: one step of the float64 search, P chains of L =
     workloads x padded groups, the temperature on the device as the
-    search's graph passes it."""
+    search's graph passes it; out of place, and in place into the state
+    as the search's step calls it (the state restored, untimed, before
+    each call)."""
     dtype = torch.float64
     args = select_inputs(P, L, gen, dev, dtype)
+    cur, prop, best, cur_obj, prop_obj, best_obj, u = args
     temp = torch.full((1,), 0.37, dtype=dtype, device=dev)
-    got = se.anneal_select(*args, temp)
     want = se.anneal_select_torch(*args, 0.37)
-    diff = sum(int((g != w).sum()) for g, w in zip(got[::2], want[::2]))
-    diff += sum(int((~((g == w) | (g.isnan() & w.isnan()))).sum())
-                for g, w in zip(got[1::2], want[1::2]))
+    forms = select_forms(se, args, temp)
+    err = max(max_abs_diff(g.double(), w.double())
+              for got in forms.values() for g, w in zip(got, want))
     nbytes = 3 * P * L * 4 + 4 * P * 8 + 2 * P * L * 4 + 2 * P * 8
     b_ms, b_by = bound(0.0, nbytes)
+    # in place: prop and the four scalars in; out only the rows and
+    # objectives whose values change
+    rows = int((want[0] != cur).any(1).sum() + (want[2] != best).any(1).sum())
+    objs = sum(int((~((w == x) | (w.isnan() & x.isnan()))).sum())
+               for w, x in ((want[1], cur_obj), (want[3], best_obj)))
+    ip_ms, ip_by = bound(0.0, P * L * 4 + 4 * P * 8 + rows * L * 4
+                         + objs * 8)
+    saved = tuple(t.clone() for t in (cur, cur_obj, best, best_obj))
+    state = tuple(t.clone() for t in saved)
+
+    def restore():
+        for t, s0 in zip(state, saved):
+            t.copy_(s0)
+
+    def in_place(select):
+        return lambda: select(state[0], prop, state[2], state[1], prop_obj,
+                              state[3], u, temp, out=state)
+
     return dict(
         name="anneal_select", route="cuda",
         source="src/repro_torch/kernels/csrc/search.cu",
         replaces="src/repro/kernels/search.py:76",
-        shape=f"P={P} L={L} float64",
-        max_abs_err=float(diff),
+        shape=f"P={P} L={L} float64, out of place",
+        max_abs_err=err,
         ms=timer(lambda: se.anneal_select(*args, temp)),
         plain_ms=timer(lambda: se.anneal_select_torch(*args, temp)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        at_in_place=dict(
+            shape=f"P={P} L={L} float64, in place ({rows} rows and {objs} "
+                  f"objectives change)",
+            max_abs_err=err,
+            ms=timer(in_place(se.anneal_select), before=restore),
+            plain_ms=timer(in_place(se.anneal_select_torch), before=restore),
+            bound_ms=ip_ms, bound_by=ip_by, library_ms=None))
 
 
 def stream_operands(n, gen, dev):
@@ -1768,21 +1858,88 @@ def search(sd, se, dev) -> dict:
     _, f32 = solve(sd, se, req, model, dev, solver="anneal",
                    precision="float32", population=4096,
                    steps=SEARCH_STEPS, seed=0)
-    prof = profile_search(req, model, dev, sd)
+    scaled = scaled_search(sd, se, req, model, dev)
+    prof = profile_search(req, model, dev, sd, se)
     return dict(model="PCCS 5x5 (repro/profiling/virtual.py:42-50)",
-                steps=SEARCH_STEPS, fixture_steps=FIXTURE_STEPS, orin_x64_cuda=gpu, orin_x64_cpu=cpu_row,
+                steps=SEARCH_STEPS, fixture_steps=FIXTURE_STEPS,
+                orin_x64_cuda=gpu, orin_x64_cpu=cpu_row,
                 same_assignment=same, device_objective_rel=rel,
                 scalar_resim_rel=resim, fixtures=fixtures, orin_float32=f32,
-                profile=prof)
+                scaled=scaled, profile=prof)
 
 
-def profile_search(req, model, dev, sd, steps: int = 16) -> dict:
+#: the §4.4 severity the scaled solve prices contention at, and the
+#: observed slowdown the rescheduled plan is made from (quantized 1.625)
+SCALED_FACTOR = 1.5
+OBSERVED_FACTOR = 1.6
+
+
+def scaled_search(sd, se, req, pccs, dev) -> dict:
+    """§4.4 on the card: the orin fixture under ``ScaledContentionModel(
+    pccs, 1.5)`` (the scaled surface through the slowdown kernel, then
+    the select kernel in every step), float64 at 1024 chains, must give
+    the CPU's incumbent; then a plan ``reschedule_plan`` rescaled, saved
+    and loaded back, keeps its model, factor and request hash (the
+    format ``tests/test_torch_dynamic.py`` holds to the reference's, both
+    ways)."""
+    from repro_torch.core import Plan, Scheduler
+    from repro_torch.core.dynamic import (ScaledContentionModel,
+                                          quantize_severity, reschedule_plan)
+
+    model = ScaledContentionModel(pccs, SCALED_FACTOR)
+    knobs = dict(solver="anneal", precision="x64", population=1024,
+                 steps=SEARCH_STEPS, seed=0)
+    gpu_plan, gpu = solve(sd, se, req, model, dev, **knobs)
+    require(gpu["graph"] and gpu["launches"]["piecewise_slowdown"] > 0
+            and gpu["launches"]["anneal_select"]
+            == SEARCH_STEPS + gpu["select_warmups"],
+            f"scaled search kernels did not launch: {gpu['launches']}")
+    cpu_plan, cpu = solve(sd, se, req, model, torch.device("cpu"), **knobs)
+    require(cpu["launches"] == {"piecewise_slowdown": 0,
+                                "anneal_select": 0},
+            "a kernel launched for CPU tensors")
+    d_gpu, d_cpu = gpu["device_objective"], cpu["device_objective"]
+    rel = abs(d_gpu - d_cpu) / abs(d_cpu)
+    same = gpu_plan.assignments == cpu_plan.assignments
+    print(f"  scaled x{SCALED_FACTOR} x64 cuda vs cpu: chain {gpu['chain']} "
+          f"vs {cpu['chain']}, same assignment {same}, device objective "
+          f"{d_gpu!r} vs {d_cpu!r} (rel {rel:.2e})")
+    require(rel <= 1e-9, f"scaled: cuda and cpu incumbents differ: {rel}")
+
+    sched = Scheduler(req.platform, model=pccs, device=dev)
+    plan = reschedule_plan(sched, list(req.graphs), OBSERVED_FACTOR,
+                           objective=req.objective,
+                           max_transitions=req.max_transitions,
+                           iterations=list(req.iterations),
+                           depends_on=list(req.depends_on))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "rescheduled.json"
+        plan.save(path)
+        back = Plan.load(path)
+    loaded = back.request.model
+    ok = (type(loaded) is ScaledContentionModel
+          and loaded.factor == quantize_severity(OBSERVED_FACTOR)
+          and loaded.base == pccs and back.request_hash == plan.request_hash
+          and back.assignments == plan.assignments)
+    print(f"  rescheduled plan (observed {OBSERVED_FACTOR}, factor "
+          f"{loaded.factor}, {plan.solver}) saved and loaded: "
+          f"{'same model and request hash' if ok else 'DIFFERENT'}")
+    require(ok, "a rescaled plan did not load back as it was saved")
+    return dict(factor=SCALED_FACTOR, cuda=gpu, cpu=cpu,
+                same_assignment=same, device_objective_rel=rel,
+                rescheduled=dict(observed=OBSERVED_FACTOR,
+                                 factor=loaded.factor, solver=plan.solver,
+                                 request_hash=plan.request_hash))
+
+
+def profile_search(req, model, dev, sd, se, steps: int = 16) -> dict:
     """Device busy share of the orin float64 solve at 4096 chains, the
     graphs' capture included: ``steps`` steps, timed once unprofiled and
     then under torch.profiler (whose trace of all 64 steps holds ~600,000
     kernels and takes a minute to read back).  The profile sums the
-    slowdown kernel (``sd``) over the solve's eager evaluation and graph
-    replays: its launches and its device time."""
+    slowdown kernel (``sd``) and the select kernel (``se``) over the
+    solve's eager evaluation and graph replays: their launches and device
+    time, and the device kernels of the whole solve."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import Scheduler
@@ -1801,24 +1958,26 @@ def profile_search(req, model, dev, sd, steps: int = 16) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     sched = fresh()
-    sd.launches = 0
+    sd.launches = se.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sched.solve(list(req.graphs), req.objective, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    slowdown_launches = sd.launches
+    slowdown_launches, select_launches = sd.launches, se.launches
     kernels, launches = device_ms_by_kernel(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     out = {"population": 4096, "steps": steps, "precision": "x64",
            "wall_ms": wall_ms, "unprofiled_wall_ms": plain_ms,
            "device_kernels": launches,
-           "slowdown_launches": slowdown_launches}
+           "slowdown_launches": slowdown_launches,
+           "select_launches": select_launches}
     if busy == 0:
         out["device_busy_share"] = "not measured"
         out["slowdown_device_ms"] = "not measured"
+        out["select_device_ms"] = "not measured"
     else:
         out["device_busy_share"] = busy / wall_ms
         out["unprofiled_busy_share"] = busy / plain_ms
@@ -1830,9 +1989,13 @@ def profile_search(req, model, dev, sd, steps: int = 16) -> dict:
             for name in ("slowdown_kernel", "select_kernel")}
         out["slowdown_device_ms"] = out["search_kernels_ms"][
             "slowdown_kernel"]
+        out["select_device_ms"] = out["search_kernels_ms"]["select_kernel"]
         print(f"  slowdown kernel in one solve: "
               f"{out['slowdown_device_ms']:.4f} ms of device time over "
-              f"{slowdown_launches} launches; the solve {wall_ms:.1f} ms of wall "
+              f"{slowdown_launches} launches, select kernel "
+              f"{out['select_device_ms']:.4f} ms over {select_launches}; "
+              f"{launches} device kernels in all; "
+              f"the solve {wall_ms:.1f} ms of wall "
               f"time ({plain_ms:.1f} unprofiled), the card busy "
               f"{busy / wall_ms:.1%} ({busy / plain_ms:.1%} of the "
               f"unprofiled)")
@@ -2094,7 +2257,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     n = flash_checks(fa, gen, dev) + decode_checks(da, gen, dev)
     slowdown_checks(sd, gen, dev)
-    n += 6 + select_checks(se, gen, dev, L=2 * 32)
+    n += 6 + select_checks(se, gen, dev)
     n += stream_checks(st, gen, dev)
     n += scan_checks(rg, gen, dev) + rwkv_checks(rk, gen, dev)
     timer = Timer(dev)

@@ -477,10 +477,12 @@ def decode_model(cfg: Mapping[str, Any]) -> Any:
             f"registry.register_contention_model(...) for it (before "
             f"solving) to make its plans deserializable")
     if kind not in _MODEL_CODECS:
-        # core.dynamic (home of the "scaled" codec) is not ported yet
+        # built-in codecs that live outside core.contention register on
+        # import of their home module — pull it in before giving up.
+        from . import dynamic  # noqa: F401  (registers "scaled")
+    if kind not in _MODEL_CODECS:
         raise UnknownEntryError(
-            f"unknown contention model kind {kind!r} (not ported yet, or "
-            f"not registered); registered "
+            f"unknown contention model kind {kind!r}; registered "
             f"contention models: {', '.join(contention_model_names())} — "
             f"import the module that registers it before loading this "
             f"plan") from None

@@ -451,10 +451,11 @@ class _Chains:
         ``head`` (fold the device step into the keys, mutate, start the
         machine, W waves, raise the flag if a lane is still active),
         ``more`` (CHECK_EVERY waves, the flag again) while the flag is
-        up, ``tail`` (score, draw, select with the device temperature,
-        commit, step + 1), and ``migrate`` on its steps.  Off the card,
-        or with ``eager`` (:func:`repro_torch.kernels.graph.capture`),
-        the same functions run eagerly."""
+        up, ``tail`` (score, draw, select with the device temperature
+        into the state in place, step + 1), and ``migrate`` on its
+        steps.  Off the card, or with ``eager``
+        (:func:`repro_torch.kernels.graph.capture`), the same functions
+        run eagerly."""
         dt = self.tb["dur_t"].dtype
         P = asg0.shape[0]
         L = self.tables.w * self.tables.gmax
@@ -494,14 +495,13 @@ class _Chains:
             prop_obj = self.objective(*stage["waves"].result())
             u = prng.uniform_f32(stage["ku"]).to(dt)
             temp = temp_of.index_select(0, step.view(1))
-            c, co, b, bo = anneal_select(
-                cur.view(P, L), stage["prop"].view(P, L), best.view(P, L),
-                cur_obj, prop_obj, best_obj, u, temp, backend=self.backend)
+            state = (cur.view(P, L), cur_obj, best.view(P, L), best_obj)
+            if not commit:          # the warm-up: the same launch, on copies
+                state = tuple(t.clone() for t in state)
+            c, co, b, bo = state
+            anneal_select(c, stage["prop"].view(P, L), b, co, prop_obj, bo,
+                          u, temp, out=state, backend=self.backend)
             if commit:
-                cur.view(P, L).copy_(c)
-                cur_obj.copy_(co)
-                best.view(P, L).copy_(b)
-                best_obj.copy_(bo)
                 step.add_(1)
 
         def migrate(commit=True):

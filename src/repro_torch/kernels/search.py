@@ -41,7 +41,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def anneal_select(cur, prop, best, cur_obj, prop_obj, best_obj, u, temp, *,
-                  backend: str = "auto"):
+                  out=None, backend: str = "auto"):
     """Metropolis accept + per-chain incumbent update over (P, L) rows.
 
     Semantics (and the oracle) live in :func:`repro_torch.kernels.ref.
@@ -49,21 +49,72 @@ def anneal_select(cur, prop, best, cur_obj, prop_obj, best_obj, u, temp, *,
     taken in the objectives' dtype; the kernel reads it from the device,
     so a temperature already there (a step's entry of the search's
     schedule) costs no host read and can be captured in a CUDA graph.
-    Returns ``(new_cur, new_cur_obj, new_best,
-    new_best_obj)``.
+    Returns ``(new_cur, new_cur_obj, new_best, new_best_obj)``: new
+    tensors, or ``out`` written.  ``out`` is either ``(cur, cur_obj, best,
+    best_obj)`` themselves, updated in place (the kernel then stores only
+    what the decision changes), or four contiguous tensors that overlap no
+    input (:func:`check_out`).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
+    args = (cur, prop, best, cur_obj, prop_obj, best_obj, u, temp)
+    if out is not None:
+        check_out(out, args[:7])
     if backend == "ref":
-        return _ref.anneal_select(cur, prop, best, cur_obj, prop_obj,
-                                  best_obj, u, temp)
+        return _into(out, _ref.anneal_select(*args))
     if backend == "torch" or (backend == "auto" and not cur.is_cuda):
-        return anneal_select_torch(cur, prop, best, cur_obj, prop_obj,
-                                   best_obj, u, temp)
-    return _launch(cur, prop, best, cur_obj, prop_obj, best_obj, u, temp)
+        return _into(out, anneal_select_torch(*args))
+    return _launch(*args, out)
 
 
-def _launch(cur, prop, best, cur_obj, prop_obj, best_obj, u, temp):
+def _span(t):
+    start = t.data_ptr()
+    return start, start + t.numel() * t.element_size()
+
+
+def _overlap(a, b) -> bool:
+    (a0, a1), (b0, b1) = _span(a), _span(b)
+    return a0 < b1 and b0 < a1 and a.numel() > 0 and b.numel() > 0
+
+
+def check_out(out, inputs) -> None:
+    """``out`` for ``inputs`` ``(cur, prop, best, cur_obj, prop_obj,
+    best_obj, u)``: four contiguous tensors shaped and typed as ``(cur,
+    cur_obj, best, best_obj)`` on their device, which either are those
+    four (the same memory: in place) or overlap no input and no other
+    output.  Raises ``ValueError`` otherwise."""
+    if len(out) != 4:
+        raise ValueError(f"anneal_select: out holds four tensors, got "
+                         f"{len(out)}")
+    cur, prop, best, cur_obj, prop_obj, best_obj, u = inputs
+    like = (cur, cur_obj, best, best_obj)
+    for o, x in zip(out, like):
+        if (o.shape != x.shape or o.dtype != x.dtype
+                or o.device != x.device or not o.is_contiguous()):
+            raise ValueError(
+                f"anneal_select: out must be contiguous tensors shaped and "
+                f"typed as (cur, cur_obj, best, best_obj), got "
+                f"{[(tuple(t.shape), str(t.dtype)) for t in out]}")
+    in_place = all(_span(o) == _span(x) and x.is_contiguous()
+                   for o, x in zip(out, like))
+    others = (prop, prop_obj, u) if in_place else inputs
+    pairs = [(o, x) for o in out for x in others]
+    pairs += [(a, b) for i, a in enumerate(out) for b in out[i + 1:]]
+    if any(_overlap(a, b) for a, b in pairs):
+        raise ValueError("anneal_select: out is either (cur, cur_obj, "
+                         "best, best_obj) themselves or four tensors that "
+                         "overlap no input; no output overlaps another")
+
+
+def _into(out, result):
+    if out is None:
+        return result
+    for o, r in zip(out, result):
+        o.copy_(r)
+    return tuple(out)
+
+
+def _launch(cur, prop, best, cur_obj, prop_obj, best_obj, u, temp, out):
     global launches
     rows, objs = (cur, prop, best), (cur_obj, prop_obj, best_obj, u)
     if not all(t.is_cuda and t.device == cur.device for t in rows + objs):
@@ -83,6 +134,9 @@ def _launch(cur, prop, best, cur_obj, prop_obj, best_obj, u, temp):
     if L < 1 or any(t.shape != (P,) for t in objs):
         raise ValueError(f"anneal_select: objectives and draws must be "
                          f"({P},) for rows ({P}, {L})")
+    if P * L >= 1 << 31:
+        raise ValueError(f"anneal_select: P * L must be below 2^31 (32-bit "
+                         f"offsets), got {P} x {L}")
     rows = tuple(t.contiguous() for t in rows)
     objs = tuple(t.contiguous() for t in objs)
     if isinstance(temp, torch.Tensor):
@@ -92,24 +146,26 @@ def _launch(cur, prop, best, cur_obj, prop_obj, best_obj, u, temp):
         temp_d = temp.to(device=cur.device, dtype=dt).reshape(())
     else:
         temp_d = torch.full((), float(temp), dtype=dt, device=cur.device)
-    new_cur, new_best = torch.empty_like(rows[0]), torch.empty_like(rows[0])
-    new_cur_obj, new_best_obj = torch.empty_like(objs[0]), \
-        torch.empty_like(objs[0])
+    if out is None:
+        out = (torch.empty_like(rows[0]), torch.empty_like(objs[0]),
+               torch.empty_like(rows[0]), torch.empty_like(objs[0]))
     lib = _lib()
     stream = torch.cuda.current_stream(cur.device).cuda_stream
     code = lib.anneal_select_fwd(
         *(t.data_ptr() for t in rows), *(t.data_ptr() for t in objs),
-        temp_d.data_ptr(), new_cur.data_ptr(), new_cur_obj.data_ptr(),
-        new_best.data_ptr(), new_best_obj.data_ptr(), P, L, _DTYPE_CODE[dt],
-        stream)
+        temp_d.data_ptr(), *(t.data_ptr() for t in out), P, L,
+        _DTYPE_CODE[dt], stream)
     _build.check(lib, code, "anneal_select")
     launches += 1
-    return new_cur, new_cur_obj, new_best, new_best_obj
+    return tuple(out)
 
 
 def anneal_select_torch(cur, prop, best, cur_obj, prop_obj, best_obj, u,
-                        temp):
+                        temp, *, out=None):
     """Plain PyTorch version: the TPU kernel body is the oracle's decision
-    (:func:`repro_torch.kernels.ref.anneal_select`), bit for bit."""
-    return _ref.anneal_select(cur, prop, best, cur_obj, prop_obj, best_obj,
-                              u, temp)
+    (:func:`repro_torch.kernels.ref.anneal_select`), bit for bit; with
+    ``out``, the result is copied into it."""
+    if out is not None:
+        check_out(out, (cur, prop, best, cur_obj, prop_obj, best_obj, u))
+    return _into(out, _ref.anneal_select(cur, prop, best, cur_obj, prop_obj,
+                                         best_obj, u, temp))

@@ -191,8 +191,10 @@ class TestRegistry:
             e.name for e in jreg.auto_order() if e.name != "anneal"] \
             + ["anneal"]
         assert treg.ANNEAL_KNOBS == jreg.ANNEAL_KNOBS
-        assert treg.contention_model_names() == \
-            tuple(n for n in jreg.contention_model_names() if n != "scaled")
+        # "scaled" registers on import of each package's core.dynamic
+        import repro.core.dynamic  # noqa: F401
+        import repro_torch.core.dynamic  # noqa: F401
+        assert treg.contention_model_names() == jreg.contention_model_names()
         assert treg.baseline_names() == jreg.baseline_names()
 
     def test_anneal_knobs_validated_as_in_the_reference(self):
@@ -226,11 +228,16 @@ class TestRegistry:
         # missing here
         with pytest.raises(FileNotFoundError):
             TScheduler.from_bundle("no-such-bundle.json")
-        with pytest.raises(treg.UnknownEntryError, match="not ported yet"):
-            treg.decode_model({"kind": "scaled", "factor": 1.5,
-                               "base": {"kind": "proportional",
-                                        "capacity": 1.0,
-                                        "sensitivity": 1.0}})
+        # the "scaled" codec is ported (core.dynamic, imported on demand);
+        # a kind no module registers still raises, naming the registered
+        scaled = treg.decode_model({"kind": "scaled", "factor": 1.5,
+                                    "base": {"kind": "proportional",
+                                             "capacity": 1.0,
+                                             "sensitivity": 1.0}})
+        assert type(scaled).__name__ == "ScaledContentionModel"
+        assert scaled.factor == 1.5
+        with pytest.raises(treg.UnknownEntryError, match="scaled"):
+            treg.decode_model({"kind": "no-such-model"})
 
     def test_scheduler_defaults_to_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

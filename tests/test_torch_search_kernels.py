@@ -299,6 +299,72 @@ class TestSelectParity:
             tsearch.anneal_select(*args, 0.3, backend="xla")
 
 
+#: row lengths L = w x gmax the search gives (gmax a power of two): the
+#: kernel's 16-byte path at 64, its 4-byte path at 3, 6 and 130
+SELECT_LS = (3, 6, 64, 130)
+
+
+def select_forms(args, temp, backend="auto"):
+    """The out-of-place result, then the same call with ``out`` into
+    fresh tensors and in place into copies of the state."""
+    cur, prop, best, curo, propo, besto, u = args
+    want = tsearch.anneal_select(*args, temp, backend=backend)
+    fresh = tuple(torch.empty_like(t) for t in (cur, curo, best, besto))
+    into = tsearch.anneal_select(*args, temp, out=fresh, backend=backend)
+    assert all(a is b for a, b in zip(into, fresh))
+    state = tuple(t.clone() for t in (cur, curo, best, besto))
+    inplace = tsearch.anneal_select(state[0], prop, state[2], state[1],
+                                    propo, state[3], u, temp, out=state,
+                                    backend=backend)
+    assert all(a is b for a, b in zip(inplace, state))
+    return want, into, inplace
+
+
+def assert_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes()
+
+
+class TestSelectOut:
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("l", SELECT_LS)
+    @pytest.mark.parametrize("temp", [0.37, 1e-40])
+    def test_out_forms_equal_the_out_of_place_form(self, dtype, l, temp):
+        args = to_torch(*select_inputs(p=64, l=l, dtype=dtype)[:-1])
+        want, into, inplace = select_forms(args, temp)
+        assert_bits(into, want)
+        assert_bits(inplace, want)
+        for backend in ("torch", "ref"):
+            for got in select_forms(args, temp, backend):
+                assert_bits(got, want)
+
+    def test_out_refusals(self):
+        args = to_torch(*select_inputs()[:-1])
+        cur, prop, best, curo, propo, besto, u = args
+        fresh = lambda: tuple(torch.empty_like(t)  # noqa: E731
+                              for t in (cur, curo, best, besto))
+        bad = {
+            "three tensors": fresh()[:3],
+            "mixed": (cur, curo, fresh()[2], fresh()[3]),
+            "overlaps prop": (prop, fresh()[1], fresh()[2], fresh()[3]),
+            "two outputs share memory": (lambda f: (f[0], f[1], f[0], f[3]))(
+                fresh()),
+            "wrong type": (fresh()[0], fresh()[1].float()
+                           if curo.dtype == torch.float64
+                           else fresh()[1].double(), fresh()[2], fresh()[3]),
+            "not contiguous": (torch.empty(6, 64, dtype=torch.int32).t(),
+                               *fresh()[1:]),
+        }
+        for name, out in bad.items():
+            with pytest.raises(ValueError, match="out"):
+                tsearch.anneal_select(*args, 0.3, out=out)
+        # in place, the state may not be the proposal
+        with pytest.raises(ValueError, match="out"):
+            tsearch.anneal_select(cur, cur, best, curo, propo, besto, u,
+                                  0.3, out=(cur, curo, best, besto))
+
+
 # ---------------------------------------------------------------------------
 # card only: the hand-written kernels vs their plain versions
 # ---------------------------------------------------------------------------
@@ -404,3 +470,77 @@ def test_select_kernel_reads_its_temperature_from_the_device(cuda_device,
     from_float = tsearch.anneal_select(*args, temp)
     for g, w in zip(from_float, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("p", [32, 4096, 65536])
+@pytest.mark.parametrize("l", SELECT_LS)
+def test_select_kernel_forms_vs_plain_bitwise(cuda_device, dtype, p, l):
+    """Out of place, into fresh tensors and in place, at the search's row
+    lengths (both the 16-byte and the 4-byte path), each one launch, all
+    equal to the plain version bit for bit; the 1e-30 clamp too."""
+    args = [t.to(cuda_device) for t in to_torch(
+        *select_inputs(p=p, l=l, dtype=dtype)[:-1])]
+    for temp in (0.37, 1e-40):
+        want = tsearch.anneal_select_torch(*args, temp)
+        before = tsearch.launches
+        forms = select_forms(args, temp)
+        torch.cuda.synchronize()
+        assert tsearch.launches == before + 3
+        for got in forms:
+            assert_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("l", [64, 130])
+def test_select_kernel_offset_rows_take_the_scalar_path(cuda_device, dtype,
+                                                        l):
+    """Rows one int32 past a 16-byte boundary (views into a larger
+    buffer) take the 4-byte path, out of place and in place, and still
+    equal the plain version bit for bit."""
+    host = to_torch(*select_inputs(p=4096, l=l, dtype=dtype)[:-1])
+    args = [t.to(cuda_device) for t in host]
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        return view
+
+    rows = [offset(t) for t in args[:3]]
+    shifted = [rows[0], rows[1], rows[2], *args[3:]]
+    for temp in (0.37, 1e-40):
+        want = tsearch.anneal_select_torch(*args, temp)
+        assert_bits(tsearch.anneal_select(*shifted, temp), want)
+        out = (offset(torch.zeros_like(args[0])), torch.empty_like(args[3]),
+               offset(torch.zeros_like(args[2])), torch.empty_like(args[5]))
+        assert_bits(tsearch.anneal_select(*shifted, temp, out=out), want)
+        state = (offset(args[0]), args[3].clone(), offset(args[2]),
+                 args[5].clone())
+        tsearch.anneal_select(state[0], rows[1], state[2], state[1],
+                              args[4], state[3], args[6], temp, out=state)
+        assert_bits(state, want)
+
+
+@pytest.mark.cuda
+def test_select_kernel_refuses_what_it_cannot_take(cuda_device):
+    """No fallback: P * L past 32-bit offsets, and out that overlaps
+    the inputs other than as the state itself, raise on the card."""
+    args = [t.to(cuda_device) for t in to_torch(
+        *select_inputs(p=64, l=64)[:-1])]
+    cur, prop, best, curo, propo, besto, u = args
+    with pytest.raises(ValueError, match="out"):
+        tsearch.anneal_select(*args, 0.3,
+                              out=(cur, torch.empty_like(curo),
+                                   torch.empty_like(best),
+                                   torch.empty_like(besto)))
+    big = torch.zeros((1 << 31) // 64 + 1, 1, dtype=torch.int32,
+                      device=cuda_device).expand(-1, 64)
+    objs = torch.zeros(big.shape[0], dtype=torch.float32,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="2\\^31"):
+        tsearch.anneal_select(big, big, big, objs, objs, objs, objs, 0.3)
+
