@@ -15,8 +15,8 @@ Phases, each fatal on failure:
    atol = rtol = 1e-12, float32 at 5e-6; annealing select and the
    streaming antagonist: bit for bit, with poisoned lanes, special values
    and offset views, the duty-cycled antagonist included (the select
-   kernel out of place, into fresh tensors and in place, at row lengths
-   3, 6, 64 and 130); the RG-LRU scan
+   kernel out of place and in place, at row lengths 3, 6, 64 and 130,
+   and on rows off a 16-byte boundary); the RG-LRU scan
    bit for bit (at every served prefill length, a ragged D, and inputs
    one element off a 16-byte boundary, which take its element copies)
    and the RWKV-6 scan at ``tests/test_kernels.py``'s 1e-4 / 5e-2 and bit
@@ -884,21 +884,17 @@ def offset_copy(t):
 
 
 def select_forms(se, args, temp, offset=False):
-    """The select kernel's three forms on ``args``: out of place, into
-    fresh tensors, and in place into copies of the state (``offset``:
-    the rows one element off a 16-byte boundary, the 4-byte path)."""
+    """The select kernel's two forms on ``args``: out of place, and in
+    place into copies of the state (``offset``: the rows one element off
+    a 16-byte boundary, the 4-byte path)."""
     cur, prop, best, cur_obj, prop_obj, best_obj, u = args
     move = offset_copy if offset else torch.clone
     if offset:
         cur, prop, best = (offset_copy(t) for t in (cur, prop, best))
-    fresh = (move(torch.zeros_like(cur)), torch.empty_like(cur_obj),
-             move(torch.zeros_like(best)), torch.empty_like(best_obj))
     state = (move(cur), cur_obj.clone(), move(best), best_obj.clone())
     return {
         "out of place": se.anneal_select(cur, prop, best, cur_obj, prop_obj,
                                          best_obj, u, temp),
-        "into out": se.anneal_select(cur, prop, best, cur_obj, prop_obj,
-                                     best_obj, u, temp, out=fresh),
         "in place": se.anneal_select(state[0], prop, state[2], state[1],
                                      prop_obj, state[3], u, temp,
                                      out=state)}
@@ -931,7 +927,7 @@ def select_checks(se, gen, dev) -> int:
                     require(same, f"select ({form}): kernel differs from "
                             f"its plain version")
                     n += 1
-        print(f"  select {str(dtype)[6:]}: three forms x L {SELECT_LS} x "
+        print(f"  select {str(dtype)[6:]}: two forms x L {SELECT_LS} x "
               f"P 32 / 4096 / 65536, offset rows at L 64 and 130, temp "
               f"0.37 and 1e-40: bitwise equal")
     return n
@@ -959,12 +955,35 @@ def time_slowdown(sd, timer, gen, dev, n) -> dict:
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def select_bytes(P, L, accept, improved, rows, objs) -> tuple[int, int]:
+    """Bytes the select function must move at (P, L) float64 given this
+    run's decisions, out of place and in place.  Both read every chain's
+    four scalars and the temperature.  Out of place, each output row needs
+    one source row (``prop`` where the chain accepts or improves, else
+    ``cur`` or ``best``), so a chain reads one row when it both accepts
+    and improves and two otherwise, and writes both rows and both
+    objectives.  In place, only the chains that accept or improve read
+    their ``prop`` row, and only the ``rows`` and ``objs`` whose values
+    change are written."""
+    row, scalars = L * 4, 4 * P * 8 + 8
+    both = int((accept & improved).sum())
+    either = int((accept | improved).sum())
+    out_of_place = (scalars + (2 * P - both) * row
+                    + 2 * P * row + 2 * P * 8)
+    in_place = scalars + either * row + rows * row + objs * 8
+    return out_of_place, in_place
+
+
 def time_select(se, timer, gen, dev, P, L) -> dict:
     """Search shape: one step of the float64 search, P chains of L =
     workloads x padded groups, the temperature on the device as the
     search's graph passes it; out of place, and in place into the state
     as the search's step calls it (the state restored, untimed, before
-    each call)."""
+    each call).  The bounds count the bytes this run's decisions need:
+    the four scalars of every chain, and of the rows only what each
+    output takes (see ``select_bytes``)."""
+    from repro_torch.kernels.ref import select_decision
+
     dtype = torch.float64
     args = select_inputs(P, L, gen, dev, dtype)
     cur, prop, best, cur_obj, prop_obj, best_obj, u = args
@@ -973,15 +992,15 @@ def time_select(se, timer, gen, dev, P, L) -> dict:
     forms = select_forms(se, args, temp)
     err = max(max_abs_diff(g.double(), w.double())
               for got in forms.values() for g, w in zip(got, want))
-    nbytes = 3 * P * L * 4 + 4 * P * 8 + 2 * P * L * 4 + 2 * P * 8
-    b_ms, b_by = bound(0.0, nbytes)
-    # in place: prop and the four scalars in; out only the rows and
-    # objectives whose values change
+    accept, improved = select_decision(cur_obj, prop_obj, best_obj, u, 0.37)
     rows = int((want[0] != cur).any(1).sum() + (want[2] != best).any(1).sum())
     objs = sum(int((~((w == x) | (w.isnan() & x.isnan()))).sum())
                for w, x in ((want[1], cur_obj), (want[3], best_obj)))
-    ip_ms, ip_by = bound(0.0, P * L * 4 + 4 * P * 8 + rows * L * 4
-                         + objs * 8)
+    nbytes, ip_bytes = select_bytes(P, L, accept, improved, rows, objs)
+    b_ms, b_by = bound(0.0, nbytes)
+    ip_ms, ip_by = bound(0.0, ip_bytes)
+    n_acc, n_imp = int(accept.sum()), int(improved.sum())
+    n_both = int((accept & improved).sum())
     saved = tuple(t.clone() for t in (cur, cur_obj, best, best_obj))
     state = tuple(t.clone() for t in saved)
 
@@ -997,7 +1016,8 @@ def time_select(se, timer, gen, dev, P, L) -> dict:
         name="anneal_select", route="cuda",
         source="src/repro_torch/kernels/csrc/search.cu",
         replaces="src/repro/kernels/search.py:76",
-        shape=f"P={P} L={L} float64, out of place",
+        shape=f"P={P} L={L} float64, out of place ({n_acc} chains "
+              f"accept, {n_imp} improve, {n_both} both)",
         max_abs_err=err,
         ms=timer(lambda: se.anneal_select(*args, temp)),
         plain_ms=timer(lambda: se.anneal_select_torch(*args, temp)),
@@ -1809,32 +1829,46 @@ def solve(sd, se, req, model, device, **knobs) -> tuple:
     return plan, row
 
 
-def search(sd, se, dev) -> dict:
-    reqs = fixture_requests()
-    cpu = torch.device("cpu")
-    req, model = reqs[ORIN]
-    x64 = dict(solver="anneal", precision="x64", population=4096,
-               steps=SEARCH_STEPS, seed=0)
-    gpu_plan, gpu = solve(sd, se, req, model, dev, **x64)
-    require(gpu["graph"], "the card's search did not run as graphs")
+def card_vs_cpu(sd, se, req, model, dev, population, label) -> tuple:
+    """The float64 anneal solve of ``req`` under ``model`` at
+    ``population`` chains, on the card (as graphs, both search kernels
+    launched, the select kernel once a step plus its warm-ups) and on the
+    CPU (no kernel launched): the card's device objective must be the
+    CPU's to 1e-9.  Returns the card's plan, both rows, whether the
+    assignments are the same and the relative difference."""
+    knobs = dict(solver="anneal", precision="x64", population=population,
+                 steps=SEARCH_STEPS, seed=0)
+    gpu_plan, gpu = solve(sd, se, req, model, dev, **knobs)
+    require(gpu["graph"], f"{label}: the card's search did not run as "
+            f"graphs")
     require(gpu["launches"]["piecewise_slowdown"] > 0
             and gpu["launches"]["anneal_select"]
             == SEARCH_STEPS + gpu["select_warmups"],
-            f"search kernels did not launch: {gpu['launches']}")
-    cpu_plan, cpu_row = solve(sd, se, req, model, cpu, **x64)
-    require(cpu_row["launches"] == {"piecewise_slowdown": 0,
-                                    "anneal_select": 0},
-            "a kernel launched for CPU tensors")
-    d_gpu, d_cpu = gpu["device_objective"], cpu_row["device_objective"]
+            f"{label}: search kernels did not launch: {gpu['launches']}")
+    cpu_plan, cpu = solve(sd, se, req, model, torch.device("cpu"), **knobs)
+    require(cpu["launches"] == {"piecewise_slowdown": 0,
+                                "anneal_select": 0},
+            f"{label}: a kernel launched for CPU tensors")
+    d_gpu, d_cpu = gpu["device_objective"], cpu["device_objective"]
     rel = abs(d_gpu - d_cpu) / abs(d_cpu)
     same = gpu_plan.assignments == cpu_plan.assignments
-    print(f"  orin x64 cuda vs cpu: chain {gpu['chain']} vs "
-          f"{cpu_row['chain']}, same assignment {same}, device objective "
-          f"{d_gpu!r} vs {d_cpu!r} (rel {rel:.2e})")
+    print(f"  {label} cuda vs cpu: chain {gpu['chain']} vs {cpu['chain']}, "
+          f"same assignment {same}, device objective {d_gpu!r} vs "
+          f"{d_cpu!r} (rel {rel:.2e})")
     if not same:
         print(f"  tie: cuda {gpu['assignments']}\n       cpu  "
-              f"{cpu_row['assignments']}")
-    require(rel <= 1e-9, f"cuda and cpu incumbents differ: rel {rel}")
+              f"{cpu['assignments']}")
+    require(rel <= 1e-9, f"{label}: cuda and cpu incumbents differ: rel "
+            f"{rel}")
+    return gpu_plan, gpu, cpu, same, rel
+
+
+def search(sd, se, dev) -> dict:
+    reqs = fixture_requests()
+    req, model = reqs[ORIN]
+    gpu_plan, gpu, cpu_row, same, rel = card_vs_cpu(
+        sd, se, req, model, dev, 4096, "orin x64")
+    d_gpu = gpu["device_objective"]
     resim = abs(gpu_plan.objective - d_gpu) / abs(gpu_plan.objective)
     print(f"  device objective vs scalar re-simulation: rel {resim:.2e}")
     require(resim <= 1e-6, f"device objective off the scalar one: {resim}")
@@ -1886,26 +1920,9 @@ def scaled_search(sd, se, req, pccs, dev) -> dict:
     from repro_torch.core.dynamic import (ScaledContentionModel,
                                           quantize_severity, reschedule_plan)
 
-    model = ScaledContentionModel(pccs, SCALED_FACTOR)
-    knobs = dict(solver="anneal", precision="x64", population=1024,
-                 steps=SEARCH_STEPS, seed=0)
-    gpu_plan, gpu = solve(sd, se, req, model, dev, **knobs)
-    require(gpu["graph"] and gpu["launches"]["piecewise_slowdown"] > 0
-            and gpu["launches"]["anneal_select"]
-            == SEARCH_STEPS + gpu["select_warmups"],
-            f"scaled search kernels did not launch: {gpu['launches']}")
-    cpu_plan, cpu = solve(sd, se, req, model, torch.device("cpu"), **knobs)
-    require(cpu["launches"] == {"piecewise_slowdown": 0,
-                                "anneal_select": 0},
-            "a kernel launched for CPU tensors")
-    d_gpu, d_cpu = gpu["device_objective"], cpu["device_objective"]
-    rel = abs(d_gpu - d_cpu) / abs(d_cpu)
-    same = gpu_plan.assignments == cpu_plan.assignments
-    print(f"  scaled x{SCALED_FACTOR} x64 cuda vs cpu: chain {gpu['chain']} "
-          f"vs {cpu['chain']}, same assignment {same}, device objective "
-          f"{d_gpu!r} vs {d_cpu!r} (rel {rel:.2e})")
-    require(rel <= 1e-9, f"scaled: cuda and cpu incumbents differ: {rel}")
-
+    _, gpu, cpu, same, rel = card_vs_cpu(
+        sd, se, req, ScaledContentionModel(pccs, SCALED_FACTOR), dev, 1024,
+        f"scaled x{SCALED_FACTOR} x64")
     sched = Scheduler(req.platform, model=pccs, device=dev)
     plan = reschedule_plan(sched, list(req.graphs), OBSERVED_FACTOR,
                            objective=req.objective,

@@ -150,15 +150,22 @@ def anneal_select(cur, prop, best, cur_obj, prop_obj, best_obj, u, temp):
     dt = cur_obj.dtype
     prop_obj = prop_obj.to(dt)
     best_obj = best_obj.to(dt)
-    u = u.to(dt)
-    temp = torch.clamp_min(torch.as_tensor(temp, dtype=dt,
-                                           device=cur_obj.device), 1e-30)
-    delta = prop_obj - cur_obj
-    accept = (delta <= 0) | (u < torch.exp(-delta / temp))
-    accept &= torch.isfinite(prop_obj)
-    improved = prop_obj < best_obj
+    accept, improved = select_decision(cur_obj, prop_obj, best_obj, u, temp)
     new_cur = torch.where(accept[:, None], prop, cur)
     new_cur_obj = torch.where(accept, prop_obj, cur_obj)
     new_best = torch.where(improved[:, None], prop, best)
     new_best_obj = torch.where(improved, prop_obj, best_obj)
     return new_cur, new_cur_obj, new_best, new_best_obj
+
+
+def select_decision(cur_obj, prop_obj, best_obj, u, temp):
+    """The per-chain decision of :func:`anneal_select`: ``(accept,
+    improved)``, two (P,) bool tensors, computed in ``cur_obj``'s dtype."""
+    dt = cur_obj.dtype
+    prop_obj, best_obj, u = (t.to(dt) for t in (prop_obj, best_obj, u))
+    temp = torch.clamp_min(torch.as_tensor(temp, dtype=dt,
+                                           device=cur_obj.device), 1e-30)
+    delta = prop_obj - cur_obj
+    accept = (delta <= 0) | (u < torch.exp(-delta / temp))
+    accept &= torch.isfinite(prop_obj)
+    return accept, prop_obj < best_obj

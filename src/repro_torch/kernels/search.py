@@ -50,10 +50,9 @@ def anneal_select(cur, prop, best, cur_obj, prop_obj, best_obj, u, temp, *,
     so a temperature already there (a step's entry of the search's
     schedule) costs no host read and can be captured in a CUDA graph.
     Returns ``(new_cur, new_cur_obj, new_best, new_best_obj)``: new
-    tensors, or ``out`` written.  ``out`` is either ``(cur, cur_obj, best,
-    best_obj)`` themselves, updated in place (the kernel then stores only
-    what the decision changes), or four contiguous tensors that overlap no
-    input (:func:`check_out`).
+    tensors, or with ``out=(cur, cur_obj, best, best_obj)`` the state
+    itself, updated in place (the kernel then stores only what the
+    decision changes; :func:`check_out`).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
@@ -79,31 +78,24 @@ def _overlap(a, b) -> bool:
 
 def check_out(out, inputs) -> None:
     """``out`` for ``inputs`` ``(cur, prop, best, cur_obj, prop_obj,
-    best_obj, u)``: four contiguous tensors shaped and typed as ``(cur,
-    cur_obj, best, best_obj)`` on their device, which either are those
-    four (the same memory: in place) or overlap no input and no other
-    output.  Raises ``ValueError`` otherwise."""
-    if len(out) != 4:
-        raise ValueError(f"anneal_select: out holds four tensors, got "
-                         f"{len(out)}")
+    best_obj, u)``: the contiguous state ``(cur, cur_obj, best,
+    best_obj)`` itself (the same memory), four tensors that overlap
+    neither ``prop``, ``prop_obj`` and ``u`` nor one another.  Raises
+    ``ValueError`` otherwise."""
     cur, prop, best, cur_obj, prop_obj, best_obj, u = inputs
-    like = (cur, cur_obj, best, best_obj)
-    for o, x in zip(out, like):
-        if (o.shape != x.shape or o.dtype != x.dtype
-                or o.device != x.device or not o.is_contiguous()):
-            raise ValueError(
-                f"anneal_select: out must be contiguous tensors shaped and "
-                f"typed as (cur, cur_obj, best, best_obj), got "
-                f"{[(tuple(t.shape), str(t.dtype)) for t in out]}")
-    in_place = all(_span(o) == _span(x) and x.is_contiguous()
-                   for o, x in zip(out, like))
-    others = (prop, prop_obj, u) if in_place else inputs
-    pairs = [(o, x) for o in out for x in others]
+    state = (cur, cur_obj, best, best_obj)
+    if len(out) != 4 or not all(
+            _span(o) == _span(x) and o.shape == x.shape
+            and o.dtype == x.dtype and o.device == x.device
+            and o.is_contiguous() and x.is_contiguous()
+            for o, x in zip(out, state)):
+        raise ValueError("anneal_select: out must be the contiguous state "
+                         "(cur, cur_obj, best, best_obj) itself")
+    pairs = [(o, x) for o in out for x in (prop, prop_obj, u)]
     pairs += [(a, b) for i, a in enumerate(out) for b in out[i + 1:]]
     if any(_overlap(a, b) for a, b in pairs):
-        raise ValueError("anneal_select: out is either (cur, cur_obj, "
-                         "best, best_obj) themselves or four tensors that "
-                         "overlap no input; no output overlaps another")
+        raise ValueError("anneal_select: out (the state) overlaps prop, "
+                         "prop_obj, u or itself")
 
 
 def _into(out, result):

@@ -45,6 +45,7 @@ from repro_torch.core import api as tapi
 from repro_torch.core import dynamic as tdyn
 from repro_torch.core import grouping as tgrp
 from repro_torch.core import plan as tplan
+from repro_torch.core import registry as treg
 from repro_torch.core.lowering import lower_surface as tlower_surface
 from repro_torch.core.lowering import slowdown_array as tslowdown_array
 from repro_torch.core.lowering import surface_slowdown as tsurface_slowdown
@@ -212,8 +213,6 @@ class TestScaledModel:
                                       jslowdown_array(jm, own, ext))
 
     def test_codec_round_trip(self):
-        from repro_torch.core import registry as treg
-
         jm, tm = scaled_pair("pccs", (2.0, 1.5))
         assert treg.encode_model(tm) == jreg.encode_model(jm)
         assert treg.decode_model(jreg.encode_model(jm)) == tm
@@ -355,30 +354,32 @@ RESCHEDULE = (["vgg19", "resnet152"], 1.6)   # observed factor -> 1.625
 @pytest.mark.parametrize("direction", ["reference_to_port",
                                        "port_to_reference"])
 def test_rescheduled_plan_loads_in_the_other_package(direction, tmp_path):
+    """One package rescales and saves a plan; the other loads it with the
+    same model, factor, base, request hash, assignments and objective."""
     graphs, observed = RESCHEDULE
-    jsched, tsched = JScheduler("agx-orin"), TScheduler("agx-orin",
-                                                        device="cpu")
-    jp = jdyn.reschedule_plan(jsched, jsched.graphs(graphs), observed)
-    tp = tdyn.reschedule_plan(tsched, tsched.graphs(graphs), observed)
-    assert tp.request_hash == jp.request_hash
-    assert tp.assignments == jp.assignments
-    assert tp.objective == jp.objective
-    path = tmp_path / "plan.json"
     if direction == "reference_to_port":
-        jp.save(path)
-        back, model_type = TPlan.load(path), tdyn.ScaledContentionModel
-        want = jp
+        sched, dyn, reg = JScheduler("agx-orin"), jdyn, jreg
+        load, back_reg = TPlan.load, treg
+        model_type = tdyn.ScaledContentionModel
     else:
-        tp.save(path)
-        back, model_type = JPlan.load(path), jdyn.ScaledContentionModel
-        want = tp
+        sched, dyn, reg = TScheduler("agx-orin", device="cpu"), tdyn, treg
+        load, back_reg = JPlan.load, jreg
+        model_type = jdyn.ScaledContentionModel
+    want = dyn.reschedule_plan(sched, sched.graphs(graphs), observed)
+    path = tmp_path / "plan.json"
+    want.save(path)
+    back = load(path)
     model = back.request.model
     assert type(model) is model_type
+    assert model.factor == want.request.model.factor
     assert model.factor == jdyn.quantize_severity(observed) == 1.625
     assert type(model.base).__name__ == "ProportionalShareModel"
+    assert (back_reg.encode_model(model.base)
+            == reg.encode_model(want.request.model.base))
     assert back.request_hash == want.request_hash
-    assert back.request.request_hash() == want.request.request_hash()
+    assert back.request.request_hash() == want.request_hash
     assert back.assignments == want.assignments
+    assert back.objective == want.objective
 
 
 # ---------------------------------------------------------------------------

@@ -305,19 +305,16 @@ SELECT_LS = (3, 6, 64, 130)
 
 
 def select_forms(args, temp, backend="auto"):
-    """The out-of-place result, then the same call with ``out`` into
-    fresh tensors and in place into copies of the state."""
+    """The out-of-place result, then the same call in place into copies
+    of the state (``out`` the state itself)."""
     cur, prop, best, curo, propo, besto, u = args
     want = tsearch.anneal_select(*args, temp, backend=backend)
-    fresh = tuple(torch.empty_like(t) for t in (cur, curo, best, besto))
-    into = tsearch.anneal_select(*args, temp, out=fresh, backend=backend)
-    assert all(a is b for a, b in zip(into, fresh))
     state = tuple(t.clone() for t in (cur, curo, best, besto))
     inplace = tsearch.anneal_select(state[0], prop, state[2], state[1],
                                     propo, state[3], u, temp, out=state,
                                     backend=backend)
     assert all(a is b for a, b in zip(inplace, state))
-    return want, into, inplace
+    return want, inplace
 
 
 def assert_bits(got, want):
@@ -332,37 +329,37 @@ class TestSelectOut:
     @pytest.mark.parametrize("temp", [0.37, 1e-40])
     def test_out_forms_equal_the_out_of_place_form(self, dtype, l, temp):
         args = to_torch(*select_inputs(p=64, l=l, dtype=dtype)[:-1])
-        want, into, inplace = select_forms(args, temp)
-        assert_bits(into, want)
+        want, inplace = select_forms(args, temp)
         assert_bits(inplace, want)
         for backend in ("torch", "ref"):
             for got in select_forms(args, temp, backend):
                 assert_bits(got, want)
 
     def test_out_refusals(self):
+        """``out`` is the state itself or nothing: fresh tensors, a
+        mixture, a retyped or strided view of the state, and a state
+        that overlaps the proposal or itself all raise."""
         args = to_torch(*select_inputs()[:-1])
         cur, prop, best, curo, propo, besto, u = args
-        fresh = lambda: tuple(torch.empty_like(t)  # noqa: E731
-                              for t in (cur, curo, best, besto))
+        state = (cur, curo, best, besto)
+        fresh = tuple(torch.empty_like(t) for t in state)
         bad = {
-            "three tensors": fresh()[:3],
-            "mixed": (cur, curo, fresh()[2], fresh()[3]),
-            "overlaps prop": (prop, fresh()[1], fresh()[2], fresh()[3]),
-            "two outputs share memory": (lambda f: (f[0], f[1], f[0], f[3]))(
-                fresh()),
-            "wrong type": (fresh()[0], fresh()[1].float()
-                           if curo.dtype == torch.float64
-                           else fresh()[1].double(), fresh()[2], fresh()[3]),
-            "not contiguous": (torch.empty(6, 64, dtype=torch.int32).t(),
-                               *fresh()[1:]),
+            "three tensors": state[:3],
+            "fresh tensors": fresh,
+            "mixed": (cur, curo, fresh[2], fresh[3]),
+            "wrong type": (cur, curo.view(torch.uint8), best, besto),
+            "not contiguous": (cur.t(), curo, best, besto),
         }
         for name, out in bad.items():
             with pytest.raises(ValueError, match="out"):
                 tsearch.anneal_select(*args, 0.3, out=out)
-        # in place, the state may not be the proposal
+        # the state may not be the proposal, nor share its own memory
         with pytest.raises(ValueError, match="out"):
             tsearch.anneal_select(cur, cur, best, curo, propo, besto, u,
-                                  0.3, out=(cur, curo, best, besto))
+                                  0.3, out=state)
+        with pytest.raises(ValueError, match="out"):
+            tsearch.anneal_select(cur, prop, cur, curo, propo, besto, u,
+                                  0.3, out=(cur, curo, cur, besto))
 
 
 # ---------------------------------------------------------------------------
@@ -477,9 +474,9 @@ def test_select_kernel_reads_its_temperature_from_the_device(cuda_device,
 @pytest.mark.parametrize("p", [32, 4096, 65536])
 @pytest.mark.parametrize("l", SELECT_LS)
 def test_select_kernel_forms_vs_plain_bitwise(cuda_device, dtype, p, l):
-    """Out of place, into fresh tensors and in place, at the search's row
-    lengths (both the 16-byte and the 4-byte path), each one launch, all
-    equal to the plain version bit for bit; the 1e-30 clamp too."""
+    """Out of place and in place, at the search's row lengths (both the
+    16-byte and the 4-byte path), each one launch, both equal to the
+    plain version bit for bit; the 1e-30 clamp too."""
     args = [t.to(cuda_device) for t in to_torch(
         *select_inputs(p=p, l=l, dtype=dtype)[:-1])]
     for temp in (0.37, 1e-40):
@@ -487,7 +484,7 @@ def test_select_kernel_forms_vs_plain_bitwise(cuda_device, dtype, p, l):
         before = tsearch.launches
         forms = select_forms(args, temp)
         torch.cuda.synchronize()
-        assert tsearch.launches == before + 3
+        assert tsearch.launches == before + 2
         for got in forms:
             assert_bits(got, want)
 
@@ -515,9 +512,6 @@ def test_select_kernel_offset_rows_take_the_scalar_path(cuda_device, dtype,
     for temp in (0.37, 1e-40):
         want = tsearch.anneal_select_torch(*args, temp)
         assert_bits(tsearch.anneal_select(*shifted, temp), want)
-        out = (offset(torch.zeros_like(args[0])), torch.empty_like(args[3]),
-               offset(torch.zeros_like(args[2])), torch.empty_like(args[5]))
-        assert_bits(tsearch.anneal_select(*shifted, temp, out=out), want)
         state = (offset(args[0]), args[3].clone(), offset(args[2]),
                  args[5].clone())
         tsearch.anneal_select(state[0], rows[1], state[2], state[1],
@@ -527,8 +521,8 @@ def test_select_kernel_offset_rows_take_the_scalar_path(cuda_device, dtype,
 
 @pytest.mark.cuda
 def test_select_kernel_refuses_what_it_cannot_take(cuda_device):
-    """No fallback: P * L past 32-bit offsets, and out that overlaps
-    the inputs other than as the state itself, raise on the card."""
+    """No fallback: P * L past 32-bit offsets, and out other than the
+    state itself, raise on the card."""
     args = [t.to(cuda_device) for t in to_torch(
         *select_inputs(p=64, l=64)[:-1])]
     cur, prop, best, curo, propo, besto, u = args
