@@ -37,7 +37,8 @@ Phases, each fatal on failure:
    the same function (``F.scaled_dot_product_attention`` for attention,
    ``torch.add(y, x, alpha=c)`` for the stream; none for the other four),
    beside the timer's launch floor (a one-element ``add_`` timed the same
-   way): flash in bf16 and in float32 (the characterization's shape), the
+   way): flash in bf16 and in float32 (the characterization's shape),
+   both attention kernels also at llama3.2-3b's 24/8 heads of 128, the
    scans at a prefill's and at a decode step's shape (RG-LRU at every
    served prompt length, RWKV-6's prefill in float32 too), the select
    kernel out of place and in place, the stream at
@@ -107,13 +108,44 @@ Phases, each fatal on failure:
    top-2 logit gap are reported;
 10. float32 end to end on both recurrent models: kernel path against
    plain path, and prefill(n) plus one decode step against prefill(n +
-   1), each within E2E_F32_REL_TOL with the same argmax.
+   1), each within E2E_F32_REL_TOL with the same argmax;
+11. gateway: full-width stablelm-1.6b and llama3.2-3b served together
+   through ``MultiTenantGateway`` on the card (planned on the reference's
+   ``v5e-4x12-split``, each engine's decode step its own CUDA graph),
+   4 prompts each of 8/100/513/1000 tokens, 16 new tokens, 1040 slots:
+   each tenant's greedy tokens must equal a standalone engine's over the
+   same model; the kernels must launch exactly (flash: attention layers x
+   prefills; decode: attention layers x steps, replays counted);
+   llama3.2-3b's prefills through the kernels must match the plain path
+   (same argmax, <= E2E_REL_TOL in bf16, and <= E2E_F32_REL_TOL in float32
+   end to end); under a shared KV budget of GW_BUDGET_SLOTS slots the KV
+   in use never passes it, admissions are deferred and every request
+   completes; step times injected at GW_INJECTED x each tenant's floor
+   must re-schedule (§4.4) without worsening the objective; and the
+   serve CLI's ``--gateway --plan-only --save-plan`` then ``--plan`` must
+   boot with zero solves.  Reported: each tenant's decode step in the
+   gateway against its standalone engine's, steps that followed an
+   admission against the others, the monitors' highest ratio and the
+   re-schedules the card's own step times fired, the gateway's wall ms a
+   multiplexed step, the device ms and busy share of profiled steps, and
+   the plan on phase 8's measured bundle (``--profile-bundle``);
+12. fleet: the serve CLI's ``--fleet`` over the README's bursty trace
+   (10,000 requests, 100 tenants) with ``--solver anneal --evaluator
+   torch``, its three pool plans solved on the card: as the README runs
+   it (the pod split's proportional-share model: the select kernel must
+   launch), then priced under phase 8's measured PCCS surface
+   (``--profile-bundle``: both search kernels must launch), then that pool
+   booted again with ``--expect-cached`` (zero solves); every replay must
+   conserve requests (completed + shed = n) and print the same trace
+   hash.  Reported: the pool's solve seconds and p50, p99
+   and sustained req/s.
 
 Each phase prints its seconds.  The last line is the contract line
 ``{"ok": true, "device": {...}}``; before it come the ``{"phase_s": ...}``,
 ``{"timer": ...}``, ``{"serve": ...}``, ``{"serve_reduced": ...}``,
 ``{"search": ...}``,
-``{"characterize": ...}`` and ``{"serve_recurrent": ...}`` lines, one
+``{"characterize": ...}``, ``{"serve_recurrent": ...}``,
+``{"gateway": ...}`` and ``{"fleet": ...}`` lines, one
 ``{"kernels": [...]}`` line and the card's ``nvidia-smi`` name and power
 limit.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -196,7 +228,7 @@ FIT_GATE = 0.05
 #: one process with the antagonist on each share of the SMs
 SPREAD_SHARES = (0.25, 0.5)
 SPREAD_REPEATS = 3
-PHASES = 10
+PHASES = 12
 
 
 def require(cond: bool, msg: str) -> None:
@@ -444,9 +476,10 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
 def time_flash(fa, timer, gen, dev) -> dict:
     """Slice shapes: one 1024-token causal prefill, 32 heads of 64, bf16;
     recurrentgemma-9b's local layer at its 2300-token prompt (16 query
-    heads and one kv head of 256, window 2048); and the float32 kernel at
+    heads and one kv head of 256, window 2048); the float32 kernel at
     the characterization's group shape (batch 2, seq 256, 32 heads of
-    64)."""
+    64); and llama3.2-3b's layer (24 query heads over 8 kv heads of 128,
+    the gateway's second tenant) at 1024 tokens."""
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -454,7 +487,9 @@ def time_flash(fa, timer, gen, dev) -> dict:
         **flash_timing(fa, timer, gen, dev, 1, 1024, 32, 32, 64, None),
         at_d256=flash_timing(fa, timer, gen, dev, 1, 2300, 16, 1, 256, 2048),
         at_f32=flash_timing(fa, timer, gen, dev, 2, 256, 32, 32, 64, None,
-                            torch.float32))
+                            torch.float32),
+        at_llama=flash_timing(fa, timer, gen, dev, 1, 1024, 24, 8, 128,
+                              None))
 
 
 def decode_timing(da, timer, gen, dev, B, S, Hq, Hkv, D, lens) -> dict:
@@ -491,7 +526,9 @@ def time_decode(da, timer, gen, dev) -> dict:
     """Slice shapes: 4 sequences over a 2048-slot cache, 32 heads of 64,
     bf16, lengths {9, 200, 514, 2047}; and recurrentgemma-9b's local
     layer, 16 query heads over one kv head of 256 in its 2048-slot ring,
-    one sequence past the window."""
+    one sequence past the window; and llama3.2-3b's layer, 24 query heads
+    over 8 kv heads of 128 (groups of 3: the CUDA-core pass 1), at the
+    first shape's slots and lengths."""
     return dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -499,7 +536,9 @@ def time_decode(da, timer, gen, dev) -> dict:
         **decode_timing(da, timer, gen, dev, 4, 2048, 32, 32, 64,
                         (9, 200, 514, 2047)),
         at_d256=decode_timing(da, timer, gen, dev, 4, 2048, 16, 1, 256,
-                              (9, 200, 514, 2048)))
+                              (9, 200, 514, 2048)),
+        at_llama=decode_timing(da, timer, gen, dev, 4, 2048, 24, 8, 128,
+                               (9, 200, 514, 2047)))
 
 
 # ---------------------------------------------------------------------------
@@ -1268,20 +1307,20 @@ def serve(fa, da, dev) -> dict:
                 eager=eager_comparison(model, prompts, 2048, graph_tokens))
 
 
-def e2e_f32(dev) -> list[float]:
+def e2e_f32(dev, arch: str = "stablelm-1.6b") -> list[float]:
     """Kernel path against plain path, float32 end to end.
 
-    Full-width stablelm-1.6b with float32 weights, activations and KV
-    cache (TF32 off), one prefill per served prompt.  The two paths differ
-    only in summation order, so their last-token logits agree far inside
-    the bf16 check's limit; every reading is printed before the limit is
+    Full-width ``arch`` with float32 weights, activations and KV cache
+    (TF32 off), one prefill per served prompt.  The two paths differ only
+    in summation order, so their last-token logits agree far inside the
+    bf16 check's limit; every reading is printed before the limit is
     applied."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.models import build
 
-    cfg = dataclasses.replace(configs.get("stablelm-1.6b"), dtype="float32",
+    cfg = dataclasses.replace(configs.get(arch), dtype="float32",
                               kv_cache_dtype="float32")
     model = build(cfg, backend="cuda", device=dev)
     model.init(torch.Generator(device=dev).manual_seed(0))
@@ -1345,29 +1384,25 @@ def device_ms_by_kernel(prof) -> tuple[dict, int]:
     return kernels, count
 
 
-def profile_decode(eng, prompts, steps: int = 4) -> dict:
-    """Device busy share and top kernels over a few steady decode steps
-    (torch.profiler; "not measured" if it records no device time).  The
-    profiler slows the host's side of a step, so the same number of steps
-    just before it is timed unprofiled too: the device ms a step over
-    that step's ms is the busy share without the profiler."""
+def profile_steps(step, steps: int = 4) -> dict:
+    """Device busy share and top kernels over ``steps`` steady calls of
+    ``step`` (torch.profiler; "not measured" if it records no device
+    time).  The profiler slows the host's side of a step, so the same
+    number of steps just before it is timed unprofiled too: the device ms
+    a step over that step's ms is the busy share without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    for p in prompts:
-        eng.submit(p, max_new=MAX_NEW)
-    eng.step()                                   # admit all, first decode
-    eng.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        eng.step()
+        step()
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, _ = device_ms_by_kernel(prof)
@@ -1382,6 +1417,17 @@ def profile_decode(eng, prompts, steps: int = 4) -> dict:
         out["device_ms_per_step"] = busy / steps
         out["unprofiled_busy_share"] = busy / steps / plain_ms
         out["top_kernels_ms_per_step"] = {k[:60]: v / steps for k, v in top}
+    return out
+
+
+def profile_decode(eng, prompts, steps: int = 4) -> dict:
+    """``profile_steps`` over an engine's steady decode steps, all
+    ``prompts`` decoding."""
+    for p in prompts:
+        eng.submit(p, max_new=MAX_NEW)
+    eng.step()                                   # admit all, first decode
+    eng.step()
+    out = profile_steps(eng.step, steps)
     print(f"  profiled {steps} decode steps: {out}")
     return out
 
@@ -2064,9 +2110,10 @@ def calibration_spread(levels, timer) -> dict:
     return out
 
 
-def characterize(fa, da, sd, se, st) -> dict:
-    """The port's profiling CLI on full-width stablelm-1.6b, then a solve
-    from its bundle through ``Scheduler.from_bundle``."""
+def characterize(fa, da, sd, se, st, path: Path) -> dict:
+    """The port's profiling CLI on full-width stablelm-1.6b, writing its
+    bundle to ``path``, then a solve from the bundle through
+    ``Scheduler.from_bundle``."""
     from repro_torch.core import Scheduler
     from repro_torch.launch.profile import main as profile_main
     from repro_torch.profiling import ProfileBundle, TimerConfig, harness
@@ -2080,29 +2127,27 @@ def characterize(fa, da, sd, se, st) -> dict:
         marks.append(fa.launches)
         return make_runner(*args, **kwargs)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "stablelm-1.6b.json"
-        argv = ["--executor", "torch", "--arch", "stablelm-1.6b", "--fit",
-                "piecewise", "--solve", "--solver", "anneal", "--out",
-                str(path)]
-        print(f"  python -m repro_torch.launch.profile {' '.join(argv)}")
-        harness._group_runner = marked_runner
-        fa.launches = da.launches = sd.launches = se.launches = 0
-        st.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            rc = profile_main(argv)
-        finally:
-            harness._group_runner = make_runner
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"flash_attention": fa.launches,
-                    "decode_attention": da.launches,
-                    "piecewise_slowdown": sd.launches,
-                    "anneal_select": se.launches, "stream": st.launches}
-        require(rc == 0, f"profile CLI exited {rc}")
-        bundle = ProfileBundle.load(path)
+    argv = ["--executor", "torch", "--arch", "stablelm-1.6b", "--fit",
+            "piecewise", "--solve", "--solver", "anneal", "--out",
+            str(path)]
+    print(f"  python -m repro_torch.launch.profile {' '.join(argv)}")
+    harness._group_runner = marked_runner
+    fa.launches = da.launches = sd.launches = se.launches = 0
+    st.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        rc = profile_main(argv)
+    finally:
+        harness._group_runner = make_runner
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches,
+                "piecewise_slowdown": sd.launches,
+                "anneal_select": se.launches, "stream": st.launches}
+    require(rc == 0, f"profile CLI exited {rc}")
+    bundle = ProfileBundle.load(path)
     prov = bundle.provenance
     calls = prov["timer"]["warmup"] + prov["timer"]["repeats"]
     per_group = [b - a for a, b in zip(marks, marks[1:] + [fa.launches])]
@@ -2217,6 +2262,373 @@ def characterize(fa, da, sd, se, st) -> dict:
                                  greedy_objective=greedy.objective))
 
 
+# ---------------------------------------------------------------------------
+# the multi-tenant gateway and the fleet
+# ---------------------------------------------------------------------------
+GW_ARCHS = ("stablelm-1.6b", "llama3.2-3b")
+#: slots of each tenant's KV cache: the longest prompt plus MAX_NEW
+GW_CAPACITY = 1040
+#: the shared KV budget of the budget check, in slots of the larger tenant
+GW_BUDGET_SLOTS = 3
+#: the injected step time of the reschedule check, over the tenant's floor
+GW_INJECTED = 3.0
+FLEET_TRACE = "bursty:base=150,burst=1200,n=10000,tenants=100,seed=7"
+
+
+def run_cli(main_fn, argv) -> tuple[int, str, float]:
+    """``main_fn(argv)`` in this process, its standard output captured and
+    printed indented; returns the exit code, the output and the seconds."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main_fn(argv)
+        torch.cuda.synchronize()
+    finally:                     # what it printed, even when it raised
+        for line in buf.getvalue().splitlines():
+            print(f"    {line}")
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def drive_gateway(gw) -> dict:
+    """Step ``gw`` until drained, on the engines' own wall-clock step
+    times; the KV bytes in use after every step, each tenant's step times
+    split by whether the step admitted (ran prefills) first, the monitors'
+    highest ratio, and the gateway's wall ms per step."""
+    kv, walls = [], []
+    admit_ms = {n: [] for n in gw.engines}
+    plain_ms = {n: [] for n in gw.engines}
+    top_ratio = {n: 0.0 for n in gw.engines}
+    events = len(gw.reschedules)
+    while gw.has_work:
+        before = {n: e.counters.admitted for n, e in gw.engines.items()}
+        steps = {n: e.counters.steps for n, e in gw.engines.items()}
+        t0 = time.perf_counter()
+        rep = gw.step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        kv.append(rep.kv_bytes_in_use)
+        for n, e in gw.engines.items():
+            if e.counters.steps > steps[n]:
+                (admit_ms if e.counters.admitted > before[n]
+                 else plain_ms)[n].append(e.counters.last_step_ms)
+            top_ratio[n] = max(top_ratio[n], gw.monitors[n].ratio)
+    return dict(kv=kv, wall_ms=walls, admit_step_ms=admit_ms,
+                plain_step_ms=plain_ms, top_ratio=top_ratio,
+                reschedules=len(gw.reschedules) - events)
+
+
+def profile_gateway(gw, prompts, steps: int = 4) -> dict:
+    """``profile_steps`` over multiplexed gateway steps, every tenant
+    decoding its ``prompts``; then drained."""
+    for name, ps in prompts.items():
+        for p in ps:
+            gw.submit(name, p, max_new=MAX_NEW)
+    gw.step()                                    # admit all, first decode
+    gw.step()
+    out = profile_steps(gw.step, steps)
+    print(f"  profiled {steps} multiplexed steps: {out}")
+    gw.run_until_drained()
+    return out
+
+
+def gateway(fa, da, dev, bundle_path: Path) -> dict:
+    """Full-width stablelm-1.6b and llama3.2-3b served together through
+    ``MultiTenantGateway`` on the card, planned on the reference's
+    ``v5e-4x12-split``; each tenant's decode step its own CUDA graph."""
+    from repro_torch import configs
+    from repro_torch.core.accelerators import tpu_pod_split
+    from repro_torch.kernels.graph import Graph
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import kvcache
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.gateway import (GatewayConfig, MultiTenantGateway,
+                                           TenantSpec)
+
+    specs = [TenantSpec(a, configs.get(a), max_slots=4, capacity=GW_CAPACITY,
+                        max_new=MAX_NEW) for a in GW_ARCHS]
+    gcfg = GatewayConfig(platform=tpu_pod_split(4, 12,
+                                                name="v5e-4x12-split"))
+    t0 = time.perf_counter()
+    gw = MultiTenantGateway(specs, gcfg, device=dev)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    require(gw.scheduler.device.type == "cuda",
+            f"the gateway planned on {gw.scheduler.device}")
+    attn = {}
+    for name, eng in gw.engines.items():
+        cfg = eng.model.cfg
+        attn[name] = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+        require(eng.device.type == "cuda", f"{name} runs on {eng.device}")
+        require(isinstance(eng.graph.graph, Graph),
+                f"{name}: the engine did not capture its step")
+        require(eng.graph.graph.launches == {"decode_attention": attn[name]},
+                f"{name}: launches per replay {eng.graph.graph.launches}")
+        n_params = sum(p.numel() for p in eng.model.parameters())
+        print(f"  {name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, vocab "
+              f"{cfg.vocab}, {n_params:,} parameters; launches per replay "
+              f"{eng.graph.graph.launches}")
+    print(f"  booted in {boot_s:.1f} s ({gw.scheduler.solves} solve, "
+          f"{gw.plan.plan.solve_time_s:.3f} s):")
+    for line in gw.plan.summary().splitlines():
+        print(f"    {line}")
+    prompts = {n: make_prompts(s.cfg.vocab) for n, s in gw.specs.items()}
+
+    # 1. serve both tenants on the card's own step times
+    for name, ps in prompts.items():
+        for p in ps:
+            gw.submit(name, p, max_new=MAX_NEW)
+    fa.launches = da.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = drive_gateway(gw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches}
+    steps = {n: e.steps for n, e in gw.engines.items()}
+    want = {"flash_attention": sum(attn[n] * len(prompts[n]) for n in attn),
+            "decode_attention": sum(attn[n] * steps[n] for n in attn)}
+    tokens = {n: engine_tokens(e) for n, e in gw.engines.items()}
+    for name, got in tokens.items():
+        require(len(got) == len(prompts[name])
+                and all(len(t) == MAX_NEW for t in got.values()),
+                f"{name}: {len(got)} requests served")
+    print(f"  served {sum(map(len, tokens.values()))} requests in "
+          f"{gw.total_steps} multiplexed steps ({steps}) in {wall:.3f} s; "
+          f"launches {launches}, want {want}")
+    require(launches == want, f"gateway launches {launches} != {want}")
+    tenants = {}
+    for name, eng in gw.engines.items():
+        m = eng.metrics()
+        tenants[name] = dict(
+            mean_decode_step_ms=m["mean_step_ms"],
+            admission_step_ms=run["admit_step_ms"][name],
+            median_other_step_ms=statistics.median(
+                run["plain_step_ms"][name]),
+            top_monitor_ratio=run["top_ratio"][name])
+        print(f"  {name}: mean decode step {m['mean_step_ms']:.3f} ms, "
+              f"steps after an admission {run['admit_step_ms'][name]} ms, "
+              f"median of the others "
+              f"{tenants[name]['median_other_step_ms']:.3f} ms, monitor "
+              f"ratio up to {run['top_ratio'][name]:.3f}")
+    print(f"  multiplexed step wall: mean "
+          f"{statistics.mean(run['wall_ms']):.3f} ms, median "
+          f"{statistics.median(run['wall_ms']):.3f} ms; reschedules fired "
+          f"by the card's own step times: {run['reschedules']} (threshold "
+          f"{gcfg.slowdown_threshold})")
+
+    # 2. each tenant alone: a standalone engine over the same model
+    for name, eng in gw.engines.items():
+        alone = ServingEngine(eng.model, max_slots=4, capacity=GW_CAPACITY)
+        for p in prompts[name]:
+            alone.submit(p, max_new=MAX_NEW)
+        alone.run_until_drained()
+        same = engine_tokens(alone) == tokens[name]
+        tenants[name]["standalone_mean_decode_step_ms"] = (
+            alone.counters.mean_step_ms)
+        tenants[name]["tokens_equal_standalone"] = same
+        print(f"  {name} alone: mean decode step "
+              f"{alone.counters.mean_step_ms:.3f} ms, tokens "
+              f"{'identical to' if same else 'DIFFERENT from'} the "
+              f"gateway's")
+        require(same, f"{name}: the gateway changed the greedy tokens")
+        del alone
+    torch.cuda.empty_cache()
+
+    # 3. llama3.2-3b, kernel path against plain path (bf16)
+    llama = gw.engines["llama3.2-3b"]
+    views = [kvcache.select(c, 0) for c in llama.caches]
+    llama_rel, llama_floor = [], []
+    for p in prompts["llama3.2-3b"]:
+        batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
+        g, w, r = (last_logits(llama.model, b, batch, views)
+                   for b in ("cuda", "torch", "ref"))
+        require(bool(torch.isfinite(g).all()), "non-finite llama logits")
+        llama_rel.append(rel_err(g, w))
+        llama_floor.append(rel_err(r, w))
+        top_g, top_w = int(g.argmax()), int(w.argmax())
+        gap = torch.topk(w.float(), 2).values
+        print(f"  llama3.2-3b prefill S={len(p)}: kernel-vs-plain logits "
+              f"rel err {llama_rel[-1]:.3e} (oracle-vs-plain "
+              f"{llama_floor[-1]:.3e}), argmax {top_g} vs {top_w}, plain "
+              f"top-2 gap {float(gap[0] - gap[1]) / float(w.std()):.4f} sd")
+        require(top_g == top_w, f"llama S={len(p)}: argmax differs")
+        require(llama_rel[-1] <= E2E_REL_TOL,
+                f"llama S={len(p)}: rel err {llama_rel[-1]} > {E2E_REL_TOL}")
+
+    # 4. the shared KV budget: GW_BUDGET_SLOTS slots of the larger tenant
+    budget = GW_BUDGET_SLOTS * max(s.kv_bytes_per_slot
+                                   for s in gw.specs.values())
+    gw.gcfg = dataclasses.replace(gw.gcfg, memory_budget_bytes=budget)
+    done_before = {n: len(e.completed) for n, e in gw.engines.items()}
+    deferred_before = gw.deferred_admissions
+    for name, ps in prompts.items():
+        for p in ps:
+            gw.submit(name, p, max_new=MAX_NEW)
+    budgeted = drive_gateway(gw)
+    deferred = gw.deferred_admissions - deferred_before
+    completed = {n: len(e.completed) - done_before[n]
+                 for n, e in gw.engines.items()}
+    print(f"  budget {budget:,} B ({GW_BUDGET_SLOTS} slots): "
+          f"{len(budgeted['kv'])} steps, KV in use up to "
+          f"{max(budgeted['kv']):,} B, {deferred} deferred admissions, "
+          f"completed {completed}")
+    require(max(budgeted["kv"]) <= budget, "the KV budget was exceeded")
+    require(deferred > 0, "the budget deferred no admission")
+    require(all(completed[n] == len(prompts[n]) for n in completed),
+            f"requests lost under the budget: {completed}")
+    gw.gcfg = dataclasses.replace(gw.gcfg, memory_budget_bytes=None)
+
+    # 5. an injected slowdown re-schedules (§4.4): past the monitors'
+    # warm-up, every step reported at GW_INJECTED x the tenant's floor
+    # until one fires (a monitor that fired on the card's own steps holds
+    # off for its cooldown first); long requests keep both tenants busy
+    for name, ps in prompts.items():
+        for p in ps:
+            gw.submit(name, p[:8], max_new=2 * MAX_NEW)
+    for _ in range(gcfg.warmup + 1):
+        gw.step()
+    events = len(gw.reschedules)
+    injected = 0
+    while (len(gw.reschedules) == events
+           and injected < gcfg.cooldown + 2 * gcfg.patience):
+        gw.step(observed_ms={n: GW_INJECTED * gw._floor_ms[n]
+                             for n in gw.engines})
+        injected += 1
+    require(len(gw.reschedules) > events,
+            f"{injected} injected steps at {GW_INJECTED}x the floor "
+            f"re-scheduled nothing")
+    ev = gw.reschedules[-1]
+    print(f"  injected {GW_INJECTED}x the floor: re-scheduled after "
+          f"{injected} steps ({ev})")
+    require(ev.new_objective <= ev.old_objective + 1e-9,
+            f"the re-schedule worsened the objective: {ev}")
+    gw.run_until_drained()
+
+    # 6. one multiplexed step profiled
+    prof = profile_gateway(gw, prompts)
+    result = dict(
+        archs=list(GW_ARCHS), platform=gw.plan.platform.name,
+        capacity=GW_CAPACITY, max_new=MAX_NEW,
+        prompt_lens=list(PROMPT_LENS), boot_s=boot_s,
+        plan=dict(request_hash=gw.plan.plan.request_hash,
+                  solver=gw.plan.plan.solver,
+                  objective=gw.plan.solution.objective,
+                  round_robin_fps=gw.plan.round_robin.throughput_fps),
+        launches=launches, steps=steps, multiplexed_steps=len(run["wall_ms"]),
+        wall_s=wall, step_wall_ms_mean=statistics.mean(run["wall_ms"]),
+        step_wall_ms_median=statistics.median(run["wall_ms"]),
+        tenants=tenants, wall_clock_reschedules=run["reschedules"],
+        slowdown_threshold=gcfg.slowdown_threshold,
+        llama_logits_rel_err=llama_rel, llama_oracle_vs_plain=llama_floor,
+        budget=dict(bytes=budget, slots=GW_BUDGET_SLOTS,
+                    max_kv_in_use=max(budgeted["kv"]), deferred=deferred,
+                    steps=len(budgeted["kv"]),
+                    wall_clock_reschedules=budgeted["reschedules"]),
+        injected=dict(factor=GW_INJECTED, steps=injected,
+                      event=dataclasses.asdict(ev)),
+        profile=prof)
+    del gw, llama, views
+    torch.cuda.empty_cache()
+
+    # 7. float32 end to end on llama3.2-3b
+    result["llama_e2e_f32_logits_rel_err"] = e2e_f32(dev, "llama3.2-3b")
+
+    # 8. the launcher: a saved plan boots with zero solves; the plan on
+    # the characterization's measured bundle
+    with tempfile.TemporaryDirectory() as tmp:
+        plan = str(Path(tmp) / "gw.json")
+        co = ["--gateway", "--arch", GW_ARCHS[0], "--co-arch", GW_ARCHS[1]]
+        argv = [*co, "--plan-only", "--save-plan", plan]
+        print(f"  python -m repro_torch.launch.serve {' '.join(argv)}")
+        rc, _, _ = run_cli(serve_main, argv)
+        require(rc == 0, f"--plan-only exited {rc}")
+        argv = [*co, "--plan", plan, "--requests", "2"]
+        print(f"  python -m repro_torch.launch.serve {' '.join(argv)}")
+        rc, out, cli_s = run_cli(serve_main, argv)
+        require(rc == 0 and "with zero solver invocations" in out,
+                f"--plan exited {rc} or solved afresh")
+    torch.cuda.empty_cache()
+    argv = [*co, "--plan-only", "--profile-bundle", str(bundle_path)]
+    print(f"  python -m repro_torch.launch.serve {' '.join(argv)}")
+    rc, out, _ = run_cli(serve_main, argv)
+    result["launcher"] = dict(plan_boot_s=cli_s, bundle_rc=rc,
+                              bundle_plan=out.splitlines())
+    return result
+
+
+def fleet(sd, se, bundle_path: Path) -> dict:
+    """The README's fleet run with ``--solver anneal --evaluator torch``,
+    its pool solved on the card: as written (the pod split's default
+    proportional-share model, so only the select kernel is on its path),
+    then priced under phase 8's measured PCCS surface (``--profile-bundle``:
+    the slowdown kernel too), then that pool booted again from the sharded
+    plan cache with ``--expect-cached``."""
+    from repro_torch.core.plan import Plan
+    from repro_torch.launch.serve import main as serve_main
+
+    def read(out):
+        head = re.search(r"n=(\d+) .*hash=(\w+)", out)
+        solves = re.search(r"pool: \d+ plans, (\d+) solver", out)
+        rep = re.search(r"requests=(\d+) completed=(\d+) shed=(\d+)", out)
+        lat = re.search(r"p50=([\d.]+)ms p99=([\d.]+)ms "
+                        r"sustained=([\d.]+) req/s", out)
+        require(all((head, solves, rep, lat)), "unreadable fleet output")
+        n, done, shed = map(int, rep.groups())
+        require(done + shed == n == int(head.group(1)),
+                f"the replay lost requests: {rep.group(0)}")
+        return dict(trace_hash=head.group(2), solves=int(solves.group(1)),
+                    requests=n, completed=done, shed=shed,
+                    p50_ms=float(lat.group(1)), p99_ms=float(lat.group(2)),
+                    sustained_rps=float(lat.group(3)))
+
+    runs = {}
+    bundle = ["--profile-bundle", str(bundle_path)]
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--fleet", "--arch", GW_ARCHS[0], "--co-arch", GW_ARCHS[1],
+                "--trace", FLEET_TRACE, "--slo", "p99=400", "--solver",
+                "anneal", "--evaluator", "torch", "--cache-root", tmp]
+        for name, extra in (("readme", []), ("measured", bundle),
+                            ("cached", [*bundle, "--expect-cached"])):
+            print(f"  python -m repro_torch.launch.serve "
+                  f"{' '.join(argv + extra)}")
+            sd.launches = se.launches = 0
+            seen = set(Path(tmp).glob("*/plan-*.json"))
+            rc, out, wall = run_cli(serve_main, argv + extra)
+            require(rc == 0, f"the fleet run {name} exited {rc}")
+            plans = [Plan.load(f) for f in
+                     set(Path(tmp).glob("*/plan-*.json")) - seen]
+            runs[name] = dict(
+                read(out), wall_s=wall,
+                pool_solve_s=sum(p.solve_time_s for p in plans),
+                pool_solvers=sorted({p.solver for p in plans}),
+                launches={"piecewise_slowdown": sd.launches,
+                          "anneal_select": se.launches})
+            r = runs[name]
+            print(f"  {name}: {r['solves']} solves in {r['pool_solve_s']:.2f}"
+                  f" s by {r['pool_solvers']}, launches {r['launches']}; p50 "
+                  f"{r['p50_ms']} ms, p99 {r['p99_ms']} ms, "
+                  f"{r['sustained_rps']} req/s")
+    readme, measured, cached = runs.values()
+    for r in (readme, measured):
+        require(r["solves"] == 3 and r["pool_solvers"] == ["anneal"],
+                f"the pool was not solved by the anneal search: {r}")
+    require(readme["launches"]["anneal_select"] > 0,
+            f"the README pool's solves launched no select kernel: "
+            f"{readme['launches']}")
+    require(all(v > 0 for v in measured["launches"].values()),
+            f"the measured pool's solves did not launch both search "
+            f"kernels: {measured['launches']}")
+    require(cached["solves"] == 0, "the cached boot solved afresh")
+    require(len({r["trace_hash"] for r in runs.values()}) == 1,
+            "the runs replayed different traces")
+    return dict(argv=argv, trace=FLEET_TRACE, runs=runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2309,7 +2721,9 @@ def main() -> int:
     phase("schedule search under PCCS on the golden fixtures")
     found = search(sd, se, dev)
     phase("characterize full-width stablelm-1.6b, calibrate, solve")
-    measured = characterize(fa, da, sd, se, st)
+    work = tempfile.TemporaryDirectory()
+    bundle_path = Path(work.name) / "stablelm-1.6b.json"
+    measured = characterize(fa, da, sd, se, st, bundle_path)
     torch.cuda.empty_cache()
     phase("serve full-width rwkv6-7b and recurrentgemma-9b")
     recurrent = {}
@@ -2319,6 +2733,12 @@ def main() -> int:
     phase("float32 end to end on both recurrent models")
     for arch in ("rwkv6-7b", "recurrentgemma-9b"):
         recurrent[arch]["e2e_f32"] = e2e_f32_recurrent(arch, dev)
+    torch.cuda.empty_cache()
+    phase("gateway: full-width stablelm-1.6b + llama3.2-3b on one card")
+    served = gateway(fa, da, dev, bundle_path)
+    phase("fleet: pool solved on the card, trace replayed")
+    replayed = fleet(sd, se, bundle_path)
+    work.cleanup()
     phase(None)
     measured["phase_s"] = phase_s[
         "characterize full-width stablelm-1.6b, calibrate, solve"]
@@ -2339,7 +2759,9 @@ def main() -> int:
             "serve stablelm-1.6b": result["launches"][name],
             "serve recurrentgemma-9b":
                 recurrent["recurrentgemma-9b"]["launches"][name],
-            "characterize": measured["launches"][name]}
+            "characterize": measured["launches"][name],
+            "gateway stablelm-1.6b + llama3.2-3b":
+                served["launches"][name]}
     for name, arch in (("rglru_scan", "recurrentgemma-9b"),
                        ("rwkv6_scan", "rwkv6-7b")):
         row = next(kr for kr in kernels if kr["name"] == name)
@@ -2348,6 +2770,12 @@ def main() -> int:
         row = next(kr for kr in kernels if kr["name"] == name)
         row["launches_per_replay"] = found["orin_x64_cuda"][
             "launches_per_replay"]
+        row["launches_by_path"] = {
+            "search orin float64": found["orin_x64_cuda"]["launches"][name],
+            "fleet pool solve (README)":
+                replayed["runs"]["readme"]["launches"][name],
+            "fleet pool solve (measured PCCS)":
+                replayed["runs"]["measured"]["launches"][name]}
     found["build_s"] = build_s
     print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"timer": {"launch_floor_ms": floor_ms}}))
@@ -2356,6 +2784,8 @@ def main() -> int:
     print(json.dumps({"search": found}))
     print(json.dumps({"characterize": measured}))
     print(json.dumps({"serve_recurrent": recurrent}))
+    print(json.dumps({"gateway": served}))
+    print(json.dumps({"fleet": replayed}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,4 @@
-"""Serving on the port: the single-model continuous-batching engine."""
+"""Serving on the port: the single-model continuous-batching engine
+(:mod:`.engine`), the contention-aware multi-tenant gateway
+(:mod:`.gateway`), co-serving plans (:mod:`.concurrent`) and the
+virtual-time fleet (:mod:`.fleet`)."""

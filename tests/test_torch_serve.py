@@ -1,5 +1,6 @@
 """Port parity: repro_torch's ServingEngine vs repro's, and the port's
-serve launcher.
+serve launcher (its single-model, ``--gateway``, ``--co-arch`` and
+``--fleet`` modes on the CPU, and the reference's argument errors).
 
 Both engines serve reduced stablelm-1.6b with the same weights (repro's
 ``Model.init``, carried across by ``params_from_jax``) on the CPU in
@@ -110,13 +111,79 @@ def test_default_device_needs_cuda(monkeypatch):
         tbuild(tconfigs.get(ARCH).reduced())
 
 
-@pytest.mark.parametrize("flags", [["--gateway"], ["--fleet"],
-                                   ["--co-arch", "llama3.2-3b"]])
-def test_unported_modes_exit_nonzero(flags, capsys):
+CO = ["--arch", ARCH, "--co-arch", "llama3.2-3b", "--device", "cpu"]
+TRACE = "bursty:base=150,burst=1200,n=1000,tenants=50,seed=7"
+
+
+def test_gateway_mode_serves_on_cpu(capsys):
+    """--gateway --reduced serves both reduced models (planning the full
+    ones) under a two-slot KV budget."""
+    assert tserve.main([*CO, "--gateway", "--reduced", "--requests", "3",
+                        "--max-new", "3", "--budget-slots", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "objective=throughput" in out and "haxconn" in out
+    assert "stablelm-1.6b: served 3 requests, 9 tokens" in out
+    assert "llama3.2-3b: served 3 requests, 9 tokens" in out
+    deferred = int(out.split("deferred=")[1].split()[0])
+    assert deferred > 0 and out.rstrip().endswith("on cpu")
+
+
+def test_gateway_plan_round_trip(tmp_path, capsys):
+    """--plan-only --save-plan, then --plan: the second boot makes zero
+    solves, and the plan is the same with or without --reduced."""
+    path = tmp_path / "gw.json"
+    assert tserve.main([*CO, "--gateway", "--plan-only", "--save-plan",
+                        str(path)]) == 0
+    saved = capsys.readouterr().out
+    assert tserve.main([*CO, "--gateway", "--reduced", "--plan", str(path),
+                        "--requests", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "with zero solver invocations" in out
+    assert saved.split("saved to")[1].split("\n", 1)[1] in out
+
+
+def test_co_arch_mode_plans_on_cpu(capsys):
+    assert tserve.main([*CO, "--shape", "decode_32k"]) == 0
+    out = capsys.readouterr().out
+    assert "haxconn" in out and "stablelm-1.6b:decode_32k" in out
+
+
+def test_fleet_mode_replays_on_cpu(tmp_path, capsys):
+    """--fleet replays the trace over three solved pool plans; a second
+    run with --expect-cached boots from the sharded cache."""
+    argv = [*CO, "--fleet", "--trace", TRACE, "--slo", "p99=400",
+            "--cache-root", str(tmp_path / "plans")]
+    assert tserve.main(argv) == 0
+    first = capsys.readouterr().out
+    assert "pool: 3 plans, 3 solver invocation(s)" in first
+    assert "requests=1000 completed=1000 shed=0" in first
+    assert tserve.main([*argv, "--expect-cached"]) == 0
+    again = capsys.readouterr().out
+    assert "pool: 3 plans, 0 solver invocation(s)" in again
+    assert first.split("\n")[0] == again.split("\n")[0]   # trace hash
+
+
+@pytest.mark.parametrize("argv, message", [
+    (["--fleet", "--co-arch", "llama3.2-3b"], "--fleet requires --trace"),
+    (["--fleet", "--trace", TRACE], "--fleet requires --co-arch"),
+    (["--fleet", "--co-arch", "llama3.2-3b", "--trace", TRACE,
+      "--expect-cached"], "--expect-cached requires --cache-root"),
+    (["--gateway", "--co-arch", ARCH], "two distinct models"),
+    (["--co-arch", "llama3.2-3b", "--solver", "nope"], "unknown solver"),
+    (["--co-arch", "llama3.2-3b", "--evaluator", "nope"],
+     "unknown evaluator"),
+    (["--co-arch", "llama3.2-3b", "--solver", "anneal", "--devices", "2"],
+     "queue 1 item 6"),
+    (["--search-budget-ms", "5"], "require --solver anneal"),
+    (["--trace", TRACE], "--trace requires --fleet"),
+    (["--plan-only"], "require --gateway"),
+    (["--gateway"], "--gateway requires --co-arch"),
+])
+def test_argument_errors(argv, message, capsys):
     with pytest.raises(SystemExit) as exc:
-        tserve.main(["--arch", ARCH, "--device", "cpu", *flags])
+        tserve.main(["--arch", ARCH, "--device", "cpu", *argv])
     assert exc.value.code != 0
-    assert "ROADMAP.md" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
 
 
 def test_encoder_only_has_no_decode_service():
