@@ -31,14 +31,16 @@ Phases, each fatal on failure:
    recurrentgemma-9b's MQA at 256, hubert-xlarge's 16 heads of 80, flash
    at q-tile edges (Sq of 1, 63, 65) and Sq < Skv, decode with one
    sequence over 8192 slots (the most splits), lengths 0, 1, S and on
-   split boundaries, groups of 1, 3, 8 and 16), then timed (CUDA events,
+   split boundaries, groups of 1, 3, 6, 8 and 16; the MoE models' 48/8
+   and 64/4 heads of 128), then timed (CUDA events,
    L2 flushed before each call, median) beside its plain version, its
    roofline bound and a library yardstick where one PyTorch call computes
    the same function (``F.scaled_dot_product_attention`` for attention,
    ``torch.add(y, x, alpha=c)`` for the stream; none for the other four),
    beside the timer's launch floor (a one-element ``add_`` timed the same
    way): flash in bf16 and in float32 (the characterization's shape),
-   both attention kernels also at llama3.2-3b's 24/8 heads of 128, the
+   both attention kernels also at llama3.2-3b's 24/8 heads of 128,
+   dbrx-132b's 48/8 and qwen3-moe-235b-a22b's 64/4, the
    scans at a prefill's and at a decode step's shape (RG-LRU at every
    served prompt length, RWKV-6's prefill in float32 too), the select
    kernel out of place and in place, the stream at
@@ -59,10 +61,13 @@ Phases, each fatal on failure:
    bf16 rounding to amplify, this is the check that can tell a kernel
    fault from rounding;
 6. reduced configs (head size 16, float32): the serve CLI with
-   ``--reduced`` on the card, then reduced stablelm-1.6b and
-   recurrentgemma-9b through the graph engine (exact launches, the same
-   tokens as the eager engine), each prompt's prefill and a decode step
-   through the kernels against the plain path (<= E2E_F32_REL_TOL);
+   ``--reduced`` on the card (stablelm-1.6b, dbrx-132b, and the gateway
+   of both with ``--trace-out`` and ``--metrics-out``, whose files must
+   parse), then reduced stablelm-1.6b, recurrentgemma-9b, dbrx-132b and
+   qwen3-moe-235b-a22b (the MoE models at capacity factors 8.0 and 1.25)
+   through the graph engine (exact launches, the same tokens as the
+   eager engine), each prompt's prefill and a decode step through the
+   kernels against the plain path (<= E2E_F32_REL_TOL);
 7. search: the schedule search of ``repro_torch.core`` on the card under
    the paper's PCCS surface, ``Scheduler(..., evaluator="torch").solve(
    ..., solver="anneal")``, each step replayed as CUDA graphs, on the
@@ -93,7 +98,10 @@ Phases, each fatal on failure:
    half of the SMs too, reported); then
    ``Scheduler.from_bundle(bundle, evaluator="torch")`` must solve on the
    card through both search kernels, no worse than greedy; the samples
-   and the fit's error against its 5% gate are reported;
+   and the fit's error against its 5% gate are reported; then the same
+   with ``--kind decode``: the groups a decode step through the decode
+   kernel (exact launches, no flash launch), a bundle that round-trips
+   and a solve from it no worse than greedy;
 9. serve the recurrent families: full-width rwkv6-7b (4 prompts) and
    recurrentgemma-9b (5, one of 2300 tokens past its 2048 window), seeded
    random weights with the PERTURBED parameters filled, through
@@ -138,14 +146,32 @@ Phases, each fatal on failure:
    booted again with ``--expect-cached`` (zero solves); every replay must
    conserve requests (completed + shed = n) and print the same trace
    hash.  Reported: the pool's solve seconds and p50, p99
-   and sustained req/s.
+   and sustained req/s;
+13. serve the MoE models: full-width dbrx-132b (8 of 40 layers) and
+   qwen3-moe-235b-a22b (10 of 94), one after the other, seeded random
+   weights, 4 prompts of 8/100/513/1000 tokens through ``ServingEngine``
+   with graph steps: every request its 16 tokens, flash launches layers
+   x prefills, decode launches layers x steps, an eager engine's tokens
+   (fatal: this is what shows the dispatch deterministic); each prompt's
+   bf16 prefill through the kernels against the plain path with the
+   plain path's experts pinned in every layer, held to phase 9's rule
+   (same argmax, E2E_REL_TOL or FLOOR_MARGIN x the pinned oracle-vs-plain
+   floor), and unpinned with its router flips, drops on each path and
+   smallest top-k margin reported (``serve_moe`` says why); each
+   prefill's and step's device ms and the busy share;
+14. MoE in float32: one full-width block of each model over 513 tokens
+   at capacity factor 1.25 against a per-expert oracle (MOE_ORACLE_TOL,
+   drops equal, a planted fault caught), and each model at 2 layers end
+   to end, kernel path against plain path (<= E2E_F32_REL_TOL, same
+   argmax; router flips and the smallest margin reported).
 
 Each phase prints its seconds.  The last line is the contract line
 ``{"ok": true, "device": {...}}``; before it come the ``{"phase_s": ...}``,
 ``{"timer": ...}``, ``{"serve": ...}``, ``{"serve_reduced": ...}``,
 ``{"search": ...}``,
 ``{"characterize": ...}``, ``{"serve_recurrent": ...}``,
-``{"gateway": ...}`` and ``{"fleet": ...}`` lines, one
+``{"gateway": ...}``, ``{"fleet": ...}`` and ``{"serve_moe": ...}``
+lines, one
 ``{"kernels": [...]}`` line and the card's ``nvidia-smi`` name and power
 limit.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -154,6 +180,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -228,7 +255,7 @@ FIT_GATE = 0.05
 #: one process with the antagonist on each share of the SMs
 SPREAD_SHARES = (0.25, 0.5)
 SPREAD_REPEATS = 3
-PHASES = 12
+PHASES = 14
 
 
 def require(cond: bool, msg: str) -> None:
@@ -341,13 +368,20 @@ def ptxas_rows(build, name: str) -> dict:
 # ---------------------------------------------------------------------------
 # kernels vs plain versions
 # ---------------------------------------------------------------------------
+def within(got, want, tol) -> tuple[bool, float]:
+    """Whether every element has |got - want| <= atol + rtol |want|, and
+    the largest |got - want|."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    return bool((err <= tol["atol"] + tol["rtol"] * w.abs()).all()), \
+        float(err.max())
+
+
 def compare(name, got, want, dtype, tol=None) -> float:
     tol = tol or TOL[dtype]
-    g, w = got.float(), want.float()
-    require(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
-    err = (g - w).abs()
-    ok = bool((err <= tol["atol"] + tol["rtol"] * w.abs()).all())
-    mae = float(err.max())
+    require(bool(torch.isfinite(got.float()).all()),
+            f"{name}: non-finite output")
+    ok, mae = within(got, want, tol)
     print(f"  {name}: max_abs_err={mae:.3e} (atol={tol['atol']:g}, "
           f"rtol={tol['rtol']:g}) {'ok' if ok else 'FAIL'}")
     require(ok, f"{name}: kernel disagrees with its plain version")
@@ -373,6 +407,11 @@ def flash_checks(fa, gen, dev) -> int:
               # a reduced config's layers: 4/2 and 4/1 heads of 16
               (2, 100, 100, 4, 2, 16, True, None),
               (1, 100, 100, 4, 1, 16, True, 32)]
+    # dbrx-132b's 48/8 and qwen3-moe-235b-a22b's 64/4 of 128 at every
+    # served prompt length
+    for s in PROMPT_LENS:
+        cases += [(1, s, s, 48, 8, 128, True, None),
+                  (1, s, s, 64, 4, 128, True, None)]
     # q-tile edges (Sq of 1, 63, 65) and Sq < Skv at every head size:
     # one query row, a tile one row short, a tile spilling one row over
     for D in CHECK_HEAD_DIMS:
@@ -410,7 +449,11 @@ def decode_checks(da, gen, dev) -> int:
              (4, 2048, 16, 1, 256, (64, 65, 63, 128)),
              # a 16-head group at B = 1; groups of 3 at D = 128
              (1, 2048, 16, 1, 256, (2000,)), (1, 2048, 16, 1, 128, (777,)),
-             (2, 1024, 24, 8, 128, (700, 1024))]
+             (2, 1024, 24, 8, 128, (700, 1024)),
+             # dbrx-132b's groups of 6 (the CUDA-core pass 1) and
+             # qwen3-moe-235b-a22b's of 16 (the tensor-core pass) at D 128
+             (4, 2048, 48, 8, 128, (0, 1, 513, 2048)),
+             (4, 2048, 64, 4, 128, (0, 1, 513, 2048))]
     # the other head sizes, a group of 1 and one of 8 (the tensor-core
     # pass in bf16), lengths 0, 1 and S
     for D in (16, 40, 80):
@@ -478,8 +521,10 @@ def time_flash(fa, timer, gen, dev) -> dict:
     recurrentgemma-9b's local layer at its 2300-token prompt (16 query
     heads and one kv head of 256, window 2048); the float32 kernel at
     the characterization's group shape (batch 2, seq 256, 32 heads of
-    64); and llama3.2-3b's layer (24 query heads over 8 kv heads of 128,
-    the gateway's second tenant) at 1024 tokens."""
+    64); llama3.2-3b's layer (24 query heads over 8 kv heads of 128,
+    the gateway's second tenant) at 1024 tokens; and the MoE models'
+    layers at 1024 tokens: dbrx-132b's 48 over 8 and qwen3-moe-235b-
+    a22b's 64 over 4 heads of 128."""
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -489,7 +534,11 @@ def time_flash(fa, timer, gen, dev) -> dict:
         at_f32=flash_timing(fa, timer, gen, dev, 2, 256, 32, 32, 64, None,
                             torch.float32),
         at_llama=flash_timing(fa, timer, gen, dev, 1, 1024, 24, 8, 128,
-                              None))
+                              None),
+        at_dbrx=flash_timing(fa, timer, gen, dev, 1, 1024, 48, 8, 128,
+                             None),
+        at_qwen3_moe=flash_timing(fa, timer, gen, dev, 1, 1024, 64, 4, 128,
+                                  None))
 
 
 def decode_timing(da, timer, gen, dev, B, S, Hq, Hkv, D, lens) -> dict:
@@ -527,8 +576,10 @@ def time_decode(da, timer, gen, dev) -> dict:
     bf16, lengths {9, 200, 514, 2047}; and recurrentgemma-9b's local
     layer, 16 query heads over one kv head of 256 in its 2048-slot ring,
     one sequence past the window; and llama3.2-3b's layer, 24 query heads
-    over 8 kv heads of 128 (groups of 3: the CUDA-core pass 1), at the
-    first shape's slots and lengths."""
+    over 8 kv heads of 128 (groups of 3: the CUDA-core pass 1), and the
+    MoE models' layers, dbrx-132b's 48 over 8 (groups of 6, the same
+    pass) and qwen3-moe-235b-a22b's 64 over 4 (groups of 16, the
+    tensor-core pass), at the first shape's slots and lengths."""
     return dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -538,7 +589,11 @@ def time_decode(da, timer, gen, dev) -> dict:
         at_d256=decode_timing(da, timer, gen, dev, 4, 2048, 16, 1, 256,
                               (9, 200, 514, 2048)),
         at_llama=decode_timing(da, timer, gen, dev, 4, 2048, 24, 8, 128,
-                               (9, 200, 514, 2047)))
+                               (9, 200, 514, 2047)),
+        at_dbrx=decode_timing(da, timer, gen, dev, 4, 2048, 48, 8, 128,
+                              (9, 200, 514, 2047)),
+        at_qwen3_moe=decode_timing(da, timer, gen, dev, 4, 2048, 64, 4, 128,
+                                   (9, 200, 514, 2047)))
 
 
 # ---------------------------------------------------------------------------
@@ -1608,26 +1663,62 @@ def serve_recurrent(arch, mods, dev) -> dict:
     return out
 
 
+#: the reduced configs phase 6 serves, each with the capacity factors of
+#: its experts (None: no experts): the reduced configs' own 8.0, which
+#: drops nothing, and the full configs' 1.25
+REDUCED_SERVED = (("stablelm-1.6b", None), ("recurrentgemma-9b", None),
+                  ("dbrx-132b", 8.0), ("dbrx-132b", 1.25),
+                  ("qwen3-moe-235b-a22b", 8.0),
+                  ("qwen3-moe-235b-a22b", 1.25))
+
+
+def serve_cli_obs(serve_main, argv, work: Path) -> dict:
+    """The serve CLI with ``--trace-out`` and ``--metrics-out`` into
+    ``work``: it must exit 0, and both files must parse."""
+    trace, metrics = work / "serve.trace.json", work / "serve.metrics.json"
+    argv = [*argv, "--trace-out", str(trace), "--metrics-out", str(metrics)]
+    print(f"  python -m repro_torch.launch.serve {' '.join(argv)}")
+    require(serve_main(argv) == 0, "the serve CLI failed")
+    events = json.loads(trace.read_text())["traceEvents"]
+    snapshot = json.loads(metrics.read_text())
+    names = sorted({e["name"] for e in events})
+    print(f"  trace: {len(events)} events, names {names}; metrics: "
+          f"{sorted(snapshot)}")
+    return dict(argv=argv, trace_events=len(events), metrics=sorted(snapshot))
+
+
 def serve_reduced(mods, dev) -> dict:
     """The reduced (smoke) configs on the card: head size 16, float32.
 
-    The port's serve CLI with ``--reduced`` on its default device; then
-    reduced stablelm-1.6b and recurrentgemma-9b through the graph engine
-    (the eager engine's tokens must equal its tokens, every kernel of the
-    path launches exactly), and each prompt's prefill and one decode step
-    through the kernels against the plain path (relative logits error <=
-    E2E_F32_REL_TOL, same argmax)."""
+    The port's serve CLI with ``--reduced`` on its default device, for
+    stablelm-1.6b and dbrx-132b, and once with ``--trace-out`` and
+    ``--metrics-out``; then each of REDUCED_SERVED through the graph
+    engine (the eager engine's tokens must equal its tokens, every kernel
+    of the path launches exactly), and each prompt's prefill and one
+    decode step through the kernels against the plain path (relative
+    logits error <= E2E_F32_REL_TOL, same argmax)."""
     from repro_torch import configs
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.serve.engine import ServingEngine
 
-    argv = ["--arch", "stablelm-1.6b", "--reduced", "--requests", "3"]
-    print(f"  python -m repro_torch.launch.serve {' '.join(argv)}")
-    require(serve_main(argv) == 0, "the serve CLI failed")
-    out = {"cli_argv": argv}
+    out = {"cli_argv": []}
+    for arch in ("stablelm-1.6b", "dbrx-132b"):
+        argv = ["--arch", arch, "--reduced", "--requests", "3"]
+        print(f"  python -m repro_torch.launch.serve {' '.join(argv)}")
+        require(serve_main(argv) == 0, "the serve CLI failed")
+        out["cli_argv"].append(argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli_obs"] = serve_cli_obs(
+            serve_main, ["--gateway", "--arch", "stablelm-1.6b", "--co-arch",
+                         "dbrx-132b", "--reduced", "--requests", "2"],
+            Path(tmp))
     lens = (8, 40, 100)
-    for arch in ("stablelm-1.6b", "recurrentgemma-9b"):
+    for arch, cf in REDUCED_SERVED:
         cfg = configs.get(arch).reduced()
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cf))
+        name = cfg.name + ("" if cf is None else f" cf {cf:g}")
         require(cfg.d_head == 16 and cfg.dtype == "float32",
                 f"{cfg.name}: head {cfg.d_head}, {cfg.dtype}")
         model = build_recurrent(cfg, "auto", dev)
@@ -1638,7 +1729,7 @@ def serve_reduced(mods, dev) -> dict:
         for m in mods.values():
             m.launches = 0
         eng.run_until_drained()
-        launches = {name: m.launches for name, m in mods.items()}
+        launches = {name_: m.launches for name_, m in mods.items()}
         m = eng.metrics()
         kinds = collections.Counter(cfg.layer_kinds)
         attn = kinds["attn"] + kinds["local"]
@@ -1647,8 +1738,7 @@ def serve_reduced(mods, dev) -> dict:
                 "decode_attention": attn * m["steps"],
                 "rglru_scan": kinds["rglru"] * calls,
                 "rwkv6_scan": kinds["rwkv"] * calls}
-        require(launches == want, f"{cfg.name}: launches {launches} != "
-                f"{want}")
+        require(launches == want, f"{name}: launches {launches} != {want}")
         graph_tokens = engine_tokens(eng)
         del eng
         eager = ServingEngine(model, max_slots=4, capacity=128, eager=True)
@@ -1656,7 +1746,7 @@ def serve_reduced(mods, dev) -> dict:
             eager.submit(p, max_new=MAX_NEW)
         eager.run_until_drained()
         same = engine_tokens(eager) == graph_tokens
-        require(same, f"{cfg.name}: graph and eager tokens differ")
+        require(same, f"{name}: graph and eager tokens differ")
         rels, step_rels = [], []
         for p in prompts:
             batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
@@ -1664,7 +1754,7 @@ def serve_reduced(mods, dev) -> dict:
             w = last_logits(model, "torch", batch, None)
             require(bool(torch.isfinite(g).all()), "non-finite logits")
             require(int(g.argmax()) == int(w.argmax()),
-                    f"{cfg.name} S={len(p)}: argmax differs")
+                    f"{name} S={len(p)}: argmax differs")
             rels.append(rel_err(g, w))
             # one decode step after prefill(n - 1), kernel vs plain path
             n = len(p) - 1
@@ -1686,18 +1776,17 @@ def serve_reduced(mods, dev) -> dict:
             model.backend = "auto"
             step_rels.append(rel_err(logits["cuda"][0, -1],
                                      logits["torch"][0, -1]))
-        print(f"  {cfg.name} (head {cfg.d_head}, {cfg.dtype}): "
+        print(f"  {name} (head {cfg.d_head}, {cfg.dtype}): "
               f"{m['steps']} graph steps, tokens identical to eager "
               f"{same}, launches {launches}; kernel-vs-plain logits rel err "
               f"prefill {max(rels):.3e}, decode {max(step_rels):.3e}")
         require(max(rels) <= E2E_F32_REL_TOL
                 and max(step_rels) <= E2E_F32_REL_TOL,
-                f"{cfg.name}: rel err {max(rels)}/{max(step_rels)} > "
+                f"{name}: rel err {max(rels)}/{max(step_rels)} > "
                 f"{E2E_F32_REL_TOL}")
-        out[cfg.name] = dict(prompt_lens=list(lens), launches=launches,
-                             decode_steps=m["steps"],
-                             tokens_identical=same,
-                             prefill_rel_err=rels, decode_rel_err=step_rels)
+        out[name] = dict(prompt_lens=list(lens), launches=launches,
+                         decode_steps=m["steps"], tokens_identical=same,
+                         prefill_rel_err=rels, decode_rel_err=step_rels)
         del model, eager
         torch.cuda.empty_cache()
     return out
@@ -2110,25 +2199,30 @@ def calibration_spread(levels, timer) -> dict:
     return out
 
 
-def characterize(fa, da, sd, se, st, path: Path) -> dict:
-    """The port's profiling CLI on full-width stablelm-1.6b, writing its
-    bundle to ``path``, then a solve from the bundle through
-    ``Scheduler.from_bundle``."""
+def characterize(fa, da, sd, se, st, path: Path,
+                 kind: str = "prefill") -> dict:
+    """The port's profiling CLI on full-width stablelm-1.6b, its layer
+    groups a ``kind`` step (prefill through the flash kernel, decode
+    through the decode kernel), writing its bundle to ``path``, then a
+    solve from the bundle through ``Scheduler.from_bundle``.  The
+    calibration's repeatability sweep runs with the prefill only."""
     from repro_torch.core import Scheduler
     from repro_torch.launch.profile import main as profile_main
     from repro_torch.profiling import ProfileBundle, TimerConfig, harness
 
-    # the flash count where each group's runner is made: the CLI drives
-    # the groups one after another, so the differences are per group
+    # the attention kernel's count where each group's runner is made: the
+    # CLI drives the groups one after another, so the differences are per
+    # group
+    attn = fa if kind == "prefill" else da
     marks = []
     make_runner = harness._group_runner
 
     def marked_runner(*args, **kwargs):
-        marks.append(fa.launches)
+        marks.append(attn.launches)
         return make_runner(*args, **kwargs)
 
-    argv = ["--executor", "torch", "--arch", "stablelm-1.6b", "--fit",
-            "piecewise", "--solve", "--solver", "anneal", "--out",
+    argv = ["--executor", "torch", "--arch", "stablelm-1.6b", "--kind", kind,
+            "--fit", "piecewise", "--solve", "--solver", "anneal", "--out",
             str(path)]
     print(f"  python -m repro_torch.launch.profile {' '.join(argv)}")
     harness._group_runner = marked_runner
@@ -2150,10 +2244,11 @@ def characterize(fa, da, sd, se, st, path: Path) -> dict:
     bundle = ProfileBundle.load(path)
     prov = bundle.provenance
     calls = prov["timer"]["warmup"] + prov["timer"]["repeats"]
-    per_group = [b - a for a, b in zip(marks, marks[1:] + [fa.launches])]
+    per_group = [b - a for a, b in zip(marks, marks[1:] + [attn.launches])]
     for g, n in zip(prov["groups"], per_group):
         print(f"  {g['name']}: {g['median_ms']:.4f} ms (n={g['n_kept']}/"
-              f"{g['n_total']}, std {g['std_ms']:.4f}), {n} flash launches")
+              f"{g['n_total']}, std {g['std_ms']:.4f}), {n} "
+              f"{attn.__name__.rsplit('.', 1)[-1]} launches")
     probe = prov["probe"]
     print(f"  probe sizes {probe}")
     print(f"  probe peak {prov['peak_stream_bytes_per_s'] / 1e9:.2f} GB/s "
@@ -2178,7 +2273,11 @@ def characterize(fa, da, sd, se, st, path: Path) -> dict:
             and len(per_group) == 8,
             f"expected 8 measured groups, got {per_group}")
     require(all(n == layers * calls for n in per_group),
-            f"flash launches per group {per_group} != {layers} x {calls}")
+            f"{kind} attention launches per group {per_group} != {layers} "
+            f"x {calls}")
+    other = "decode_attention" if kind == "prefill" else "flash_attention"
+    require(launches[other] == 0, f"a {kind} characterization launched "
+            f"{launches[other]} {other}")
     require(probe["blocks"] == max(1, int(
         torch.cuda.get_device_properties(0).multi_processor_count
         * probe["sm_share"])), f"antagonist grid {probe['blocks']}")
@@ -2218,8 +2317,9 @@ def characterize(fa, da, sd, se, st, path: Path) -> dict:
     require(monotone, f"the samples fall by more than 5% as the demand "
             f"rises: {[smp[2] for smp in ordered]}")
 
-    spread = calibration_spread(
-        [c["ext"] for c in prov["corun"]], TimerConfig.from_dict(prov["timer"]))
+    spread = (calibration_spread([c["ext"] for c in prov["corun"]],
+                                 TimerConfig.from_dict(prov["timer"]))
+              if kind == "prefill" else None)
 
     sched = Scheduler.from_bundle(bundle, evaluator="torch")
     require(sched.device.type == "cuda", f"solved on {sched.device}")
@@ -2245,7 +2345,7 @@ def characterize(fa, da, sd, se, st, path: Path) -> dict:
     require(plan.objective <= greedy.objective
             + 1e-9 * abs(greedy.objective), "anneal worse than greedy")
     return dict(argv=argv, wall_s=wall, launches=launches,
-                flash_per_group=per_group, groups=prov["groups"],
+                attention_per_group=per_group, groups=prov["groups"],
                 peak_stream_bytes_per_s=prov["peak_stream_bytes_per_s"],
                 stream_base_ms=prov["stream_base_ms"], corun=prov["corun"],
                 samples=[list(x) for x in bundle.samples], fit=fit,
@@ -2629,6 +2729,389 @@ def fleet(sd, se, bundle_path: Path) -> dict:
     return dict(argv=argv, trace=FLEET_TRACE, runs=runs)
 
 
+# ---------------------------------------------------------------------------
+# the mixture-of-experts models
+# ---------------------------------------------------------------------------
+#: the MoE models at full width, their depth cut to what one card holds
+#: beside the untied float32 token table and head (2 x ~2.5 GB): a bf16
+#: dbrx-132b layer is 6.5 GB, a qwen3-moe-235b-a22b layer 5.0 GB
+MOE_LAYERS = {"dbrx-132b": 8, "qwen3-moe-235b-a22b": 10}
+#: the float32 end-to-end check's depth: a float32 layer is 13 / 10 GB
+MOE_F32_LAYERS = 2
+#: the block oracle: one float32 layer over a 513-token prefill at the
+#: full configs' capacity factor 1.25, so experts drop tokens; the
+#: reference's own block tolerance (tests/test_models.py::TestMoE)
+MOE_ORACLE_T = 513
+MOE_ORACLE_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def moe_routes(model, run):
+    """``run()`` with every MoE block's input recorded; returns what it
+    returned and, for each call in order, that block's routing: the
+    chosen experts (T, k) ascending, the top-k margin (the k-th minus the
+    (k+1)-th probability, (T,)) and the entries its capacity dropped."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rmsnorm
+
+    seen = []
+    hooks = [layer.c.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0])))
+        for layer in model.layers if isinstance(layer.c, moe.MoE)]
+    try:
+        out = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    routes = []
+    for mod, x in seen:
+        h = rmsnorm(x, mod.ln).to(mod.wi.dtype).reshape(-1, x.shape[-1])
+        _, probs, _, experts = mod.route(h)
+        k = experts.shape[1]
+        top = probs.topk(k + 1, dim=-1).values
+        keep = moe.dispatch(mod.cfg, experts)[3]
+        routes.append(dict(experts=experts.sort(-1).values,
+                           margin=top[:, k - 1] - top[:, k],
+                           drops=int((~keep).sum())))
+    return out, routes
+
+
+def route_flips(a, b) -> int:
+    """(layer, token) pairs whose top-k sets differ between two runs'
+    routes."""
+    return sum(int((ra["experts"] != rb["experts"]).any(-1).sum())
+               for ra, rb in zip(a, b))
+
+
+def pinned_logits(model, backend, batch, views, routes):
+    """``last_logits`` with each MoE block's top-k experts taken, call by
+    call, from ``routes`` (another run's ``moe_routes``).  Each block's
+    router still computes its own probabilities, and its gates are those
+    probabilities at the pinned experts, ordered and renormalised as
+    ``MoE.route`` orders and renormalises its own top k; so no (token,
+    layer) pair can flip, the drops are the pinned run's, and the logits
+    move with the attention kernels' rounding only."""
+    from repro_torch.models import moe
+
+    blocks = [layer.c for layer in model.layers
+              if isinstance(layer.c, moe.MoE)]
+    require(len(routes) == len(blocks),
+            f"{len(routes)} routes for {len(blocks)} MoE blocks")
+    pins = iter(rt["experts"] for rt in routes)
+
+    def pinned(mod):
+        def route(h):
+            logits, probs, _, _ = moe.MoE.route(mod, h)
+            experts = next(pins)
+            gates, order = probs.gather(-1, experts).sort(
+                dim=-1, descending=True, stable=True)
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            return logits, probs, gates, experts.gather(-1, order)
+        return route
+
+    for mod in blocks:
+        mod.route = pinned(mod)
+    try:
+        out = last_logits(model, backend, batch, views)
+    finally:
+        for mod in blocks:
+            del mod.route
+    require(next(pins, None) is None, "a pinned route was not used")
+    return out
+
+
+def free_card() -> None:
+    """Free what the last model left on the card: an eager engine's step
+    function and its step object refer to each other, so a dead engine's
+    caches and the model it holds wait for the cycle collector; a MoE
+    model takes most of the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def build_moe(arch, layers, dev, dtype="bfloat16"):
+    """Full-width ``arch`` cut to ``layers`` layers, seeded random weights
+    on the card; returns the model and the cut as ``reduced``."""
+    from repro_torch import configs
+    from repro_torch.models import build
+
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, n_layers=layers, dtype=dtype,
+                              kv_cache_dtype=dtype)
+    t0 = time.perf_counter()
+    model = build(cfg, backend="auto", device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"  built {cfg.name} ({dtype}): {layers} of {full.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.moe.n_experts} experts "
+          f"top-{cfg.moe.top_k}, {n:,} parameters in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return model, {"n_layers": f"{layers} of {full.n_layers}"}
+
+
+def serve_moe(arch, mods, dev) -> dict:
+    """Serve full-width ``arch``, depth cut to MOE_LAYERS, through
+    ``ServingEngine`` with graph steps: every request its MAX_NEW tokens,
+    exact flash and decode launches, an eager engine's tokens.
+
+    Then each prompt's prefill through the kernels against the plain path
+    in bf16.  Unpinned, router flips are common: bf16 rounding of the
+    attention output moves the hidden state ~1e-2, router logits are
+    ~N(0, 1), and 4-22% of (token, layer) pairs lie that close to the
+    k-th/(k+1)-th boundary; a flip changes the token's experts and,
+    through capacity, other tokens' drops, and moves every later token
+    through attention (an 8-token dbrx-132b prompt with 3 flips at other
+    tokens moved the last token's logits 3.75e-2 and its argmax).  So
+    each prompt is held with the plain path's experts pinned in every
+    layer (``pinned_logits``), on the kernel path and on the oracle path
+    alike: same argmax as the plain path, and E2E_REL_TOL or FLOOR_MARGIN
+    x the pinned oracle-vs-plain floor, phase 9's rule, for every prompt.
+    The plain path pinned to its own experts must give its own logits
+    bit for bit, which shows the pin changes nothing but the choice.  The
+    unpinned error, flips, drops on each path and smallest top-k margin
+    are reported only."""
+    from repro_torch.kernels.graph import Graph
+    from repro_torch.models import kvcache
+    from repro_torch.serve.engine import ServingEngine
+
+    fa, da = mods["flash_attention"], mods["decode_attention"]
+    model, reduced = build_moe(arch, MOE_LAYERS[arch], dev)
+    cfg = model.cfg
+    eng = ServingEngine(model, max_slots=4, capacity=2048)
+    require(isinstance(eng.graph.graph, Graph),
+            "the engine did not capture its step")
+    prompts = make_prompts(cfg.vocab)
+    for p in prompts:
+        eng.submit(p, max_new=MAX_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches}
+    peak = torch.cuda.max_memory_allocated()
+    require(len(done) == len(prompts), f"served {len(done)}/{len(prompts)}")
+    for r in done:
+        require(len(r.tokens) == MAX_NEW,
+                f"request {r.rid} got {len(r.tokens)} tokens, not {MAX_NEW}")
+    m = eng.metrics()
+    L = cfg.n_layers
+    want = {"flash_attention": L * m["admitted"],
+            "decode_attention": L * m["steps"]}
+    print(f"  served {len(done)} requests, {m['tokens_out']} tokens, "
+          f"{m['admitted']} prefills, {m['steps']} decode steps in "
+          f"{wall:.3f} s, mean step {m['mean_step_ms']:.3f} ms (CUDA graph, "
+          f"launches per replay {eng.graph.graph.launches}); launches "
+          f"{launches}")
+    require(launches == want, f"launches {launches} != {want} ({L} layers "
+            f"x prefills/steps)")
+    graph_tokens = engine_tokens(eng)
+
+    views = [kvcache.select(c, 0) for c in eng.caches]
+    prompts_out = []
+    for p in prompts:
+        batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
+        out, routes = {}, {}
+        for b in ("cuda", "torch", "ref"):
+            out[b], routes[b] = moe_routes(
+                model, lambda b=b: last_logits(model, b, batch, views))
+        pin = {b: pinned_logits(model, b, batch, views, routes["torch"])
+               for b in ("cuda", "torch", "ref")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(batch, cache_out=views)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        profiled = profile_prefill(model, batch, views, "flash")
+        g, w, r = pin["cuda"], out["torch"], pin["ref"]
+        require(bool(torch.isfinite(g).all()), "non-finite prefill logits")
+        require(torch.equal(pin["torch"], w), f"S={len(p)}: the plain "
+                f"path pinned to its own experts changed its logits")
+        flips = route_flips(routes["cuda"], routes["torch"])
+        oracle_flips = route_flips(routes["ref"], routes["torch"])
+        rel, floor = rel_err(g, w), rel_err(r, w)
+        limit = max(E2E_REL_TOL, FLOOR_MARGIN * floor)
+        top_g, top_w = int(g.argmax()), int(w.argmax())
+        two = torch.topk(w.float(), 2).values
+        row = dict(
+            prompt_len=len(p), rel_err=rel, oracle_vs_plain_rel_err=floor,
+            limit=limit, argmax=[top_g, top_w, int(r.argmax())],
+            plain_top2_gap_sd=float((two[0] - two[1]) / w.float().std()),
+            unpinned_rel_err=rel_err(out["cuda"], w),
+            unpinned_oracle_vs_plain_rel_err=rel_err(out["ref"], w),
+            unpinned_argmax=[int(out["cuda"].argmax()),
+                             int(out["ref"].argmax())],
+            router_flips=flips, oracle_router_flips=oracle_flips,
+            drops={b: [rt["drops"] for rt in routes[b]] for b in routes},
+            min_margin=min(float(rt["margin"].min())
+                           for rt in routes["torch"]),
+            prefill_ms=prefill_ms, prefill_device=profiled)
+        print(f"  prefill S={len(p)}, routing pinned to the plain path's: "
+              f"kernel-vs-plain logits rel err {rel:.3e} (oracle-vs-plain "
+              f"{floor:.3e}, limit {limit:.3e}), argmax {top_g} vs {top_w} "
+              f"(oracle {row['argmax'][2]}; plain top-2 gap "
+              f"{row['plain_top2_gap_sd']:.4f} sd); unpinned: rel err "
+              f"{row['unpinned_rel_err']:.3e} (oracle-vs-plain "
+              f"{row['unpinned_oracle_vs_plain_rel_err']:.3e}), argmax "
+              f"{row['unpinned_argmax']}, router flips {flips} of "
+              f"{len(p) * L} (oracle vs plain {oracle_flips}), drops "
+              f"{row['drops']}, smallest top-k margin "
+              f"{row['min_margin']:.3e}; {prefill_ms:.2f} ms; profiled: "
+              f"{profiled}")
+        require(top_g == top_w, f"S={len(p)}: argmax differs")
+        require(rel <= limit, f"S={len(p)}: rel err {rel} > {limit}")
+        prompts_out.append(row)
+
+    result = dict(arch=arch, reduced=reduced, requests=len(done),
+                  max_new=MAX_NEW, prompt_lens=list(PROMPT_LENS),
+                  capacity=2048, launches=launches, prefills=m["admitted"],
+                  decode_steps=m["steps"], tokens_out=m["tokens_out"],
+                  wall_s=wall, mean_decode_step_ms=m["mean_step_ms"],
+                  max_memory_allocated=peak,
+                  graph_launches_per_replay=eng.graph.graph.launches,
+                  prompts=prompts_out,
+                  profile=profile_decode(eng, prompts))
+    del eng
+    result["eager"] = eager_comparison(model, prompts, 2048, graph_tokens)
+    del model
+    free_card()
+    return result
+
+
+def moe_block_oracle(arch, dev) -> dict:
+    """One full-width float32 MoE block of ``arch`` over MOE_ORACLE_T
+    tokens at capacity factor 1.25 against a per-expert oracle.
+
+    The MoE code is the same on the kernel path and the plain path, so
+    the kernel-vs-plain checks do not test it; this does.  The oracle
+    takes the block's router logits, routes on the host in float64 (top-k
+    with the lower expert first on ties, renormalised gates, each expert
+    keeping its first ``cap`` tokens in token order), then runs each
+    expert's kept tokens through that expert's weights as plain matmuls
+    and adds the gated outputs.  The block's output must agree within
+    MOE_ORACLE_TOL and its dropped count must equal the oracle's; the
+    oracle with one expert's combine weight zeroed (the busiest) must
+    move its tokens' expert output by FAULT_MIN_REL or more, and the same
+    comparison must reject the block's output against it."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rmsnorm
+
+    cfg = dataclasses.replace(configs.get(arch), dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.25))
+    require(cfg.act == "swiglu", f"{arch}: the oracle computes swiglu")
+    E, k, T, d = cfg.moe.n_experts, cfg.moe.top_k, MOE_ORACLE_T, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(1)
+    block = moe.MoE(cfg, dev)
+    with torch.no_grad():
+        block.init(gen)
+        block.ln.copy_(0.1 * torch.randn(d, generator=gen, device=dev))
+        # tokens sharing a component, as a prompt's do: the router then
+        # favours some experts, which overflow their capacity
+        x = (torch.randn(d, generator=gen, device=dev)
+             + torch.randn(1, T, d, generator=gen, device=dev))
+        y, _ = block(x)
+        h = rmsnorm(x, block.ln).reshape(T, d)
+        logits, _, _, experts = block.route(h)
+        drops = int((~moe.dispatch(cfg, experts)[3]).sum())
+    cap = moe.capacity(cfg, T)
+
+    lg = logits.double().cpu().numpy()
+    probs = np.exp(lg - lg.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    choice = np.argsort(-probs, axis=-1, kind="stable")[:, :k]
+    gate = np.take_along_axis(probs, choice, -1)
+    gate /= np.maximum(gate.sum(-1, keepdims=True), 1e-9)
+    srt = -np.sort(-probs, axis=-1)
+    margin = float((srt[:, k - 1] - srt[:, k]).min())
+    kept = {e: [] for e in range(E)}
+    oracle_drops = 0
+    for t in range(T):
+        for j in range(k):
+            e = int(choice[t, j])
+            if len(kept[e]) < cap:
+                kept[e].append((t, float(gate[t, j])))
+            else:
+                oracle_drops += 1
+
+    def oracle(zero=None):
+        out = torch.zeros(T, d, device=dev)
+        with torch.no_grad():
+            for e in range(E):
+                if not kept[e]:
+                    continue
+                idx = torch.tensor([t for t, _ in kept[e]], device=dev)
+                g = torch.tensor([0.0 if e == zero else w
+                                  for _, w in kept[e]], device=dev)
+                he = h[idx]
+                a = torch.nn.functional.silu(he @ block.wi_gate[e]) * (
+                    he @ block.wi[e])
+                out.index_add_(0, idx, g[:, None] * (a @ block.wo[e]))
+        return out
+
+    want = oracle()
+    err = compare(f"moe block {arch} f32 T{T} cap {cap} vs per-expert "
+                  f"oracle", y[0], x[0] + want, torch.float32, MOE_ORACLE_TOL)
+    busiest = max(kept, key=lambda e: len(kept[e]))
+    rows = torch.tensor([t for t, _ in kept[busiest]], device=dev)
+    faulty = oracle(busiest)
+    moved = rel_err(faulty[rows], want[rows])
+    caught = not within(y[0], x[0] + faulty, MOE_ORACLE_TOL)[0]
+    print(f"  {arch}: {drops} of {T * k} entries dropped (oracle "
+          f"{oracle_drops}), smallest top-k margin {margin:.3e}; expert "
+          f"{busiest}'s combine weight zeroed moves its {len(rows)} tokens' "
+          f"expert output by rel {moved:.3e} (must be >= {FAULT_MIN_REL:g}), "
+          f"and the comparison above rejects the block against it: "
+          f"{caught}")
+    require(drops == oracle_drops > 0,
+            f"{arch}: dropped {drops}, the oracle {oracle_drops}")
+    require(moved >= FAULT_MIN_REL, f"{arch}: the planted fault moved the "
+            f"output by only {moved}")
+    require(caught, f"{arch}: the block's output passes against the "
+            f"faulty oracle")
+    del block
+    free_card()
+    return dict(tokens=T, capacity=cap, max_abs_err=err, drops=drops,
+                oracle_drops=oracle_drops, fault_expert=busiest,
+                fault_rel=moved, fault_caught=caught, min_margin=margin)
+
+
+def e2e_f32_moe(arch, dev) -> dict:
+    """Kernel path against plain path, float32 end to end, on full-width
+    ``arch`` cut to MOE_F32_LAYERS layers: each prompt's prefill logits
+    (<= E2E_F32_REL_TOL, same argmax), with the router flips between the
+    two paths and the smallest top-k margin reported."""
+    model, reduced = build_moe(arch, MOE_F32_LAYERS, dev, "float32")
+    rels, same, flips, margins = [], [], [], []
+    for p in make_prompts(model.cfg.vocab):
+        batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
+        g, rg = moe_routes(model, lambda: last_logits(model, "cuda", batch,
+                                                      None))
+        w, rw = moe_routes(model, lambda: last_logits(model, "torch", batch,
+                                                      None))
+        require(bool(torch.isfinite(g).all()), "non-finite f32 logits")
+        rels.append(rel_err(g, w))
+        same.append(int(g.argmax()) == int(w.argmax()))
+        flips.append(route_flips(rg, rw))
+        margins.append(min(float(rt["margin"].min()) for rt in rw))
+        print(f"  f32 {arch} prefill S={len(p)}: kernel-vs-plain logits rel "
+              f"err {rels[-1]:.3e}, same argmax {same[-1]}, router flips "
+              f"{flips[-1]}, smallest top-k margin {margins[-1]:.3e}")
+    del model
+    free_card()
+    require(all(same), f"f32 {arch}: argmax differs")
+    require(max(rels) <= E2E_F32_REL_TOL,
+            f"f32 {arch}: rel err {max(rels)} > {E2E_F32_REL_TOL}")
+    return dict(reduced=reduced, prompt_lens=list(PROMPT_LENS),
+                logits_rel_err=rels, router_flips=flips, min_margin=margins)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2720,10 +3203,14 @@ def main() -> int:
     reduced = serve_reduced(mods, dev)
     phase("schedule search under PCCS on the golden fixtures")
     found = search(sd, se, dev)
-    phase("characterize full-width stablelm-1.6b, calibrate, solve")
+    phase("characterize full-width stablelm-1.6b (prefill, decode), "
+          "calibrate, solve")
     work = tempfile.TemporaryDirectory()
     bundle_path = Path(work.name) / "stablelm-1.6b.json"
     measured = characterize(fa, da, sd, se, st, bundle_path)
+    measured["decode"] = characterize(
+        fa, da, sd, se, st, Path(work.name) / "stablelm-1.6b-decode.json",
+        kind="decode")
     torch.cuda.empty_cache()
     phase("serve full-width rwkv6-7b and recurrentgemma-9b")
     recurrent = {}
@@ -2739,9 +3226,15 @@ def main() -> int:
     phase("fleet: pool solved on the card, trace replayed")
     replayed = fleet(sd, se, bundle_path)
     work.cleanup()
+    free_card()
+    phase("serve full-width dbrx-132b and qwen3-moe-235b-a22b, depth cut")
+    moe_served = {arch: serve_moe(arch, mods, dev) for arch in MOE_LAYERS}
+    phase("MoE in float32: the block against a per-expert oracle, and "
+          "end to end")
+    for arch in MOE_LAYERS:
+        moe_served[arch]["block_oracle"] = moe_block_oracle(arch, dev)
+        moe_served[arch]["e2e_f32"] = e2e_f32_moe(arch, dev)
     phase(None)
-    measured["phase_s"] = phase_s[
-        "characterize full-width stablelm-1.6b, calibrate, solve"]
 
     launches = dict(result["launches"], **found["orin_x64_cuda"]["launches"],
                     stream=measured["launches"]["stream"],
@@ -2760,8 +3253,11 @@ def main() -> int:
             "serve recurrentgemma-9b":
                 recurrent["recurrentgemma-9b"]["launches"][name],
             "characterize": measured["launches"][name],
+            "characterize decode": measured["decode"]["launches"][name],
             "gateway stablelm-1.6b + llama3.2-3b":
-                served["launches"][name]}
+                served["launches"][name],
+            **{f"serve {arch} ({r['reduced']['n_layers']} layers)":
+               r["launches"][name] for arch, r in moe_served.items()}}
     for name, arch in (("rglru_scan", "recurrentgemma-9b"),
                        ("rwkv6_scan", "rwkv6-7b")):
         row = next(kr for kr in kernels if kr["name"] == name)
@@ -2786,6 +3282,7 @@ def main() -> int:
     print(json.dumps({"serve_recurrent": recurrent}))
     print(json.dumps({"gateway": served}))
     print(json.dumps({"fleet": replayed}))
+    print(json.dumps({"serve_moe": moe_served}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -16,10 +16,12 @@ Capture discipline (``torch.cuda.graphs``): run the function once on a
 side stream first (:func:`warm_up`), so every kernel's one-time set-up
 (library load, ``set_smem_once``, the SM-count cache, cuBLAS workspaces)
 has happened; every graph gets its own memory pool; nothing captured may
-read a device value on the host.
+read a device value on the host; and the cycle collector is off while a
+graph captures (:class:`Graph`).
 """
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable
 
 import torch
@@ -44,8 +46,19 @@ class Graph:
     def __init__(self, fn: Callable[[], Any]):
         self.graph = torch.cuda.CUDAGraph()
         before = _counts()
-        with torch.cuda.graph(self.graph):
-            self.out = fn()
+        # A dead graph may wait in a reference cycle for the cycle
+        # collector.  Collected while another graph captures, its
+        # destruction is refused by the capturing stream and invalidates
+        # the capture (cudaErrorStreamCaptureInvalidated), so no
+        # collection runs here.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         self._deltas = [(m, a - b) for m, a, b in zip(COUNTED, _counts(),
                                                       before) if a != b]
         for m, b in zip(COUNTED, before):   # capture launched nothing

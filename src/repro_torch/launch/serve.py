@@ -36,15 +36,24 @@ the gateway's fresh solves only)::
     python -m repro_torch.launch.serve --fleet ... --cache-root plancache \
         --expect-cached
 
-Everything runs on ``cuda`` unless ``--device cpu`` asks otherwise (the
-plan searches, the fits and the models).  ``--reduced`` serves the
+Every architecture is served in every mode: attention (``attn``,
+``local``) and recurrent (``rglru``, ``rwkv``) layer stacks, with an MLP
+or a mixture of experts (dbrx-132b, qwen3-moe-235b-a22b) as the channel
+mix.  Everything runs on ``cuda`` unless ``--device cpu`` asks otherwise
+(the plan searches, the fits and the models).  ``--reduced`` serves the
 architectures' reduced (smoke) configs; the gateway then still plans the
 full ones, as the reference's launcher does, so the plan is the same
-either way.  Attention (``attn``, ``local``) and recurrent (``rglru``,
-``rwkv``) layer stacks are served; MoE models are not ported yet, and
-neither are ``--trace-out``, ``--metrics-out``, ``--log-level`` and
-``--log-json`` (ROADMAP.md queue 1, items 3 and 4).  ``--devices`` takes
-only 1: the search's multi-card mesh is queue 1 item 6.
+either way.  ``--trace-out`` writes the run's Perfetto trace (solver
+spans, plan-cache hits, fleet spans, reschedule instants) and
+``--metrics-out`` a snapshot of the metrics registry, both also when the
+run fails; ``--log-level`` and ``--log-json`` shape the log lines::
+
+    python -m repro_torch.launch.serve --gateway --arch stablelm-1.6b \
+        --co-arch dbrx-132b --reduced --trace-out gw.trace.json \
+        --metrics-out gw.metrics.json --log-json
+
+``--devices`` takes only 1: the search's multi-card mesh is ROADMAP.md
+queue 1 item 6.
 """
 from __future__ import annotations
 
@@ -56,6 +65,36 @@ import torch
 from repro_torch import configs
 from repro_torch.models import build
 from repro_torch.serve.engine import ServingEngine
+
+
+def _with_obs(args, run) -> int:
+    """Run one serving mode under the requested observability outputs.
+
+    ``--trace-out`` installs a process-wide :class:`repro_torch.obs.Tracer`
+    before the run (solver spans, cache hits, gateway/fleet instants all
+    land on it) and writes the Perfetto JSON afterwards, even when the run
+    exits nonzero or raises, so a failed boot still leaves its trace
+    behind, and then puts back the tracer it replaced (the reference
+    leaves its own installed).  ``--metrics-out`` snapshots the metrics
+    registry the same way.
+    """
+    tracer = None
+    if args.trace_out:
+        from repro_torch.obs import Tracer, set_tracer
+        tracer = Tracer()
+        before = set_tracer(tracer)
+    try:
+        return run(args)
+    finally:
+        if tracer is not None:
+            set_tracer(before)
+            tracer.write(args.trace_out)
+            print(f"trace: {len(tracer.events())} events -> "
+                  f"{args.trace_out} (open at https://ui.perfetto.dev)")
+        if args.metrics_out:
+            from repro_torch.obs import get_registry
+            get_registry().write(args.metrics_out)
+            print(f"metrics: registry snapshot -> {args.metrics_out}")
 
 
 def _solver_knobs(args) -> tuple:
@@ -363,7 +402,24 @@ def main(argv=None) -> int:
                     help="wall-clock budget for each fresh anneal solve "
                          "(population/steps auto-tuned from it); requires "
                          "--solver anneal")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome-trace/Perfetto JSON of the run "
+                         "(solver spans, plan-cache hits, fleet "
+                         "queue/service spans, reschedule/throttle/"
+                         "recalibration instants) to PATH; open at "
+                         "https://ui.perfetto.dev")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write a JSON snapshot of the metrics registry "
+                         "(counters/gauges/histograms) to PATH")
+    ap.add_argument("--log-level", default="info",
+                    choices=("debug", "info", "warning", "error"))
+    ap.add_argument("--log-json", action="store_true",
+                    help="emit one JSON object per log line instead of "
+                         "plain text")
     args = ap.parse_args(argv)
+
+    from repro_torch.obs import configure_logging
+    configure_logging(args.log_level, json=args.log_json)
 
     if (args.devices or args.search_budget_ms) and args.solver != "anneal":
         ap.error("--devices/--search-budget-ms tune the device-resident "
@@ -384,7 +440,7 @@ def main(argv=None) -> int:
         if args.recalibrate and not args.profile_bundle:
             ap.error("--recalibrate requires --profile-bundle (the offline "
                      "seed of the lineage chain)")
-        return _run_fleet(args)
+        return _with_obs(args, _run_fleet)
     for flag in ("trace", "cache_root", "recalibrate", "throttle"):
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} requires --fleet")
@@ -402,12 +458,12 @@ def main(argv=None) -> int:
         for a in (args.arch, args.co_arch):
             if not configs.get(a).has_decode:
                 ap.error(f"{a} is encoder-only: no decode service")
-        return _run_gateway(args)
+        return _with_obs(args, _run_gateway)
 
     if args.co_arch:
-        return _run_concurrent(args)
+        return _with_obs(args, _run_concurrent)
 
-    return _run_single(args)
+    return _with_obs(args, _run_single)
 
 
 if __name__ == "__main__":

@@ -11,10 +11,12 @@ unstacked and projections flattened to 2-D.
 ``load_state_dict`` casts each tensor to the dtype the port stores that
 weight in, which is the dtype the reference uses it in, so the numbers
 are identical: f32 projections become ``cfg.dtype`` (the cast the
-reference makes at every use), as do RG-LRU's ``conv_w``/``conv_b`` and
-RWKV-6's ``mu_*`` and ``u``; RG-LRU's ``lam`` and RWKV-6's ``w0``,
-``w_lora_a`` and ``w_lora_b``, which the reference uses in float32, stay
-float32; norm scales and the token table keep ``cfg.param_dtype``.
+reference makes at every use), as do RG-LRU's ``conv_w``/``conv_b``,
+RWKV-6's ``mu_*`` and ``u``, and the MoE expert weights ``wi_gate``,
+``wi`` and ``wo``, which stay 3-D (E, d, ff) / (E, ff, d); RG-LRU's
+``lam``, RWKV-6's ``w0``, ``w_lora_a`` and ``w_lora_b``, and the MoE
+``router``, which the reference uses in float32, stay float32; norm
+scales and the token table keep ``cfg.param_dtype``.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ def _layer(cfg: ModelConfig, kind: str, p, prefix: str, out: dict) -> None:
         if cfg.qkv_bias:
             for name in ("bq", "bk", "bv"):
                 out[f"{prefix}.t.{name}"] = _t(t[name]).reshape(-1)
-    for name in ("ln", "wi_gate", "wi", "wo"):
+    for name in ("ln", "router", "wi_gate", "wi", "wo"):
         if name in p.get("c", {}):
             out[f"{prefix}.c.{name}"] = _t(p["c"][name])
 

@@ -22,7 +22,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, backend: str = "auto",
                  device: str | torch.device | None = None):
         super().__init__()
-        transformer.check_supported(cfg)
         self.cfg = cfg
         self.backend = backend
         self.device = resolve_device(device)
@@ -49,7 +48,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def forward(self, batch, last_only: bool = False):
         """Logits (B, S or 1, V) in f32, no caches."""
-        logits, _ = transformer.forward(self, batch, last_only=last_only)
+        logits, _, _ = transformer.forward(self, batch, last_only=last_only)
         return logits
 
     @torch.no_grad()
@@ -61,9 +60,10 @@ class Model(nn.Module):
         into instead of allocating (see ``transformer.forward``)."""
         seq = (batch["embeds"] if self.cfg.embeds_only
                else batch["token_ids"]).shape[1]
-        return transformer.forward(
+        logits, caches, _ = transformer.forward(
             self, batch, collect_kv=True, last_only=True,
             cache_capacity=capacity or seq + 64, cache_out=cache_out)
+        return logits, caches
 
     @torch.no_grad()
     def decode_step(self, caches, batch):

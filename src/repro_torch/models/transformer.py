@@ -4,8 +4,9 @@ prefill / decode passes over it (counterpart of
 
 The reference stacks the parameters of repeating block-pattern groups and
 runs them under ``jax.lax.scan``; PyTorch runs eagerly, so the port keeps
-one module per layer and loops.  ``attn``, ``local``, ``rglru`` and
-``rwkv`` layers are ported; the MoE channel mix is not yet.
+one module per layer and loops.  Every layer kind is ported (``attn``,
+``local``, ``rglru``, ``rwkv``), and so is the channel mix of each: the
+MLP, or the mixture of experts where ``cfg.moe`` is set.
 
 Each layer's cache is a dict: ``{"k", "v"}`` KV-cache views for
 attention, ``{"h", "conv"}`` for RG-LRU, ``{"S", "x_t", "x_c"}`` for
@@ -18,26 +19,16 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from . import kvcache, layers, recurrent
-
-#: features not ported yet -> the ROADMAP.md queue-1 item that ports them.
-NOT_PORTED = {"moe": "Mixture-of-experts channel mix"}
+from . import kvcache, layers, moe, recurrent
 
 ATTENTION = ("attn", "local")
 RECURRENT = ("rglru", "rwkv")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not have yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE channel mix is not ported to repro_torch "
-            f"yet (ROADMAP.md queue 1: {NOT_PORTED['moe']})")
-
-
 class Layer(nn.Module):
-    """One residual layer: a token mixer ``t`` and a channel mix ``c``
-    (none for ``rwkv``, which carries its own)."""
+    """One residual layer: a token mixer ``t`` and a channel mix ``c``, an
+    MLP or (``cfg.moe``) a mixture of experts (none for ``rwkv``, which
+    carries its own)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None):
         super().__init__()
@@ -50,7 +41,12 @@ class Layer(nn.Module):
             self.t = recurrent.RWKV(cfg, device)
         else:
             raise ValueError(f"unknown layer kind {kind!r}")
-        self.c = None if kind == "rwkv" else layers.MLP(cfg, device)
+        if kind == "rwkv":
+            self.c = None
+        elif cfg.moe is not None:
+            self.c = moe.MoE(cfg, device)
+        else:
+            self.c = layers.MLP(cfg, device)
 
     def init(self, gen: torch.Generator) -> None:
         self.t.init(gen)
@@ -59,25 +55,32 @@ class Layer(nn.Module):
 
     def forward(self, x, positions, *, cache=None, lengths=None,
                 backend="auto"):
-        """Returns ``(x, new)``: for attention ``new`` is the prompt's
+        """Returns ``(x, new, aux)``: for attention ``new`` is the prompt's
         ``(k, v)`` (prefill) or the updated cache views (decode); for the
         recurrent kinds it is the new state, never written into
-        ``cache``."""
+        ``cache``.  ``aux`` holds the MoE losses (empty otherwise)."""
         if self.kind in ATTENTION:
             kv = None if cache is None else (cache["k"], cache["v"])
             x, new = self.t(x, positions, cache=kv, lengths=lengths,
                             backend=backend)
         else:
             x, new = self.t(x, state=cache, backend=backend)
-        return (x if self.c is None else self.c(x)), new
+        aux = {}
+        if isinstance(self.c, moe.MoE):
+            x, aux = self.c(x)
+        elif self.c is not None:
+            x = self.c(x)
+        return x, new, aux
 
 
 def forward(model, batch, *, collect_kv=False, last_only=False,
             cache_capacity=None, cache_out=None):
     """Full-sequence forward (train / prefill).
 
-    Returns ``(logits, caches)``; ``caches`` is ``None`` unless
-    ``collect_kv``, else one cache dict per layer.  ``cache_out``:
+    Returns ``(logits, caches, aux)``; ``caches`` is ``None`` unless
+    ``collect_kv``, else one cache dict per layer; ``aux`` sums the MoE
+    losses (``moe_aux``, ``moe_z``) over the layers, as the reference's
+    ``forward`` does (0.0 without experts).  ``cache_out``:
     per-layer views to write the prompt's k/v and the final recurrent
     states into in place (the serving engine passes its slot of the
     batched cache); otherwise caches of ``cache_capacity`` slots are
@@ -88,8 +91,11 @@ def forward(model, batch, *, collect_kv=False, last_only=False,
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     caches = [] if collect_kv else None
+    aux_total = {"moe_aux": 0.0, "moe_z": 0.0}
     for i, layer in enumerate(model.layers):
-        x, new = layer(x, positions, backend=model.backend)
+        x, new, aux = layer(x, positions, backend=model.backend)
+        for name, v in aux.items():
+            aux_total[name] = aux_total[name] + v
         if not collect_kv:
             continue
         if layer.kind in RECURRENT:
@@ -114,19 +120,20 @@ def forward(model, batch, *, collect_kv=False, last_only=False,
         caches.append(c)
     if last_only:
         x = x[:, -1:]
-    return model.emb.logits(x), caches
+    return model.emb.logits(x), caches, aux_total
 
 
 def decode_step(model, caches, batch):
     """One-token decode. batch: {"token_ids": (B, 1) or "embeds",
     "lengths": (B,) int32}.  Returns (logits (B, 1, V), caches), the
-    caches updated in place."""
+    caches updated in place; the MoE losses are dropped, as the
+    reference's ``decode_step`` drops them."""
     lengths = batch["lengths"]
     x = model.emb.embed(batch)
     positions = lengths[:, None]                      # (B,1) absolute pos
     for layer, c in zip(model.layers, caches):
-        x, new = layer(x, positions, cache=c, lengths=lengths,
-                       backend=model.backend)
+        x, new, _ = layer(x, positions, cache=c, lengths=lengths,
+                          backend=model.backend)
         if layer.kind in RECURRENT:
             for name, t in new.items():
                 c[name].copy_(t)

@@ -22,8 +22,8 @@ back to the offline ancestor.
   is a cheap Adam polish, not a cold ``lstsq`` — and every publish is a
   :meth:`ProfileBundle.derive` child carrying lineage.
 
-The reference's fleet gateway (``repro/serve/fleet/loop.py``; the port's
-is ROADMAP.md queue 1 item 2, the gateway) drives this as its second
+The fleet gateway (``repro_torch/serve/fleet/loop.py``, a copy of
+``repro/serve/fleet/loop.py``) drives this as its second
 control axis: re-solve under the re-fitted model first, duty-cycle the
 violating tenant when re-solving alone cannot meet the SLO.
 """

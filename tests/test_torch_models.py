@@ -221,12 +221,6 @@ def test_full_width_weights_stored_in_use_dtype():
     assert tm.emb.head.dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["dbrx-132b"])
-def test_unported_kinds_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbuild(tconfigs.get(arch).reduced(), device="cpu")
-
-
 @pytest.mark.parametrize("arch", tconfigs.ARCHS)
 def test_configs_copied_verbatim(arch):
     jcfg, tcfg = jconfigs.get(arch), tconfigs.get(arch)
@@ -241,14 +235,14 @@ def test_configs_copied_verbatim(arch):
                 == tconfigs.cell_supported(tcfg, shape))
 
 
-@pytest.mark.parametrize("arch", [a for a in tconfigs.ARCHS
-                                  if tconfigs.get(a).moe is None])
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
 def test_reduced_configs_at_head_16(arch):
-    """Every reduced config the port builds runs at head size 16 (the size
-    the attention kernels gained for it): the whole model, prefill and two
-    decode steps (forward for the encoder-only one), against repro's on
-    the same numpy-seeded weights, with the recurrent parameters init
-    leaves at zero filled."""
+    """Every reduced config runs at head size 16 (the size the attention
+    kernels gained for it): the whole model, prefill and two decode steps
+    (forward for the encoder-only one), against repro's on the same
+    numpy-seeded weights, with the recurrent parameters init leaves at
+    zero filled.  The MoE configs run at their reduced capacity factor
+    (8.0, drop-free); tests/test_torch_moe.py covers 1.25."""
     jm, params, _, tm = perturbed_pair(arch)
     cfg = tm.cfg
     assert cfg.d_head == jm.cfg.d_head == 16
@@ -272,3 +266,35 @@ def test_reduced_configs_at_head_16(arch):
                                      "lengths": torch.from_numpy(lengths)})
         np.testing.assert_allclose(np32(tl), np32(jl), **TOL)
         lengths = lengths + 1
+
+
+def test_mm_embeds_prefix():
+    """internvl2-2b's projected image embeddings replace the first
+    ``mm_prefix`` positions: forward and prefill logits, and a decode step
+    after it, against repro's on the same weights and embeddings."""
+    jm, params, _, tm = perturbed_pair("internvl2-2b")
+    cfg = tm.cfg
+    assert cfg.mm_prefix
+    rng = np.random.default_rng(12)
+    S = cfg.mm_prefix + 5
+    ids = rng.integers(0, cfg.vocab, (2, S)).astype(np.int32)
+    mm = rng.standard_normal((2, cfg.mm_prefix, cfg.mm_embed_dim)).astype(
+        np.float32)
+    jbatch = {"token_ids": jnp.asarray(ids), "mm_embeds": jnp.asarray(mm)}
+    tbatch = {"token_ids": torch.from_numpy(ids),
+              "mm_embeds": torch.from_numpy(mm)}
+    want, _ = jm.forward(params, jbatch)
+    got = tm(tbatch)
+    np.testing.assert_allclose(np32(got), np32(want), **TOL)
+    plain = tm({"token_ids": torch.from_numpy(ids)})
+    assert not np.allclose(np32(plain), np32(got), **TOL)  # the prefix acts
+    jl, jc = jm.prefill(params, jbatch, capacity=S + 4)
+    tl, tc = tm.prefill(tbatch, capacity=S + 4)
+    np.testing.assert_allclose(np32(tl), np32(jl), **TOL)
+    tok = rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32)
+    lengths = np.full(2, S, np.int32)
+    jl, _ = jm.decode_step(params, jc, {"token_ids": jnp.asarray(tok),
+                                       "lengths": jnp.asarray(lengths)})
+    tl, _ = tm.decode_step(tc, {"token_ids": torch.from_numpy(tok),
+                                "lengths": torch.from_numpy(lengths)})
+    np.testing.assert_allclose(np32(tl), np32(jl), **TOL)

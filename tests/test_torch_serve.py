@@ -6,6 +6,9 @@ Both engines serve reduced stablelm-1.6b with the same weights (repro's
 ``Model.init``, carried across by ``params_from_jax``) on the CPU in
 float32; greedy decoding must give identical tokens.
 """
+import gc
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -13,6 +16,7 @@ import torch
 
 from repro import configs as jconfigs
 from repro.models import build as jbuild
+from repro.launch import serve as jserve
 from repro.serve import engine as jengine
 from repro_torch import configs as tconfigs
 from repro_torch.launch import serve as tserve
@@ -103,6 +107,13 @@ def test_launcher_serves_on_cpu(capsys):
     assert "served 2 requests, 6 tokens" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("arch", ["dbrx-132b", "qwen3-moe-235b-a22b"])
+def test_launcher_serves_moe_on_cpu(arch, capsys):
+    assert tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                        "--requests", "3", "--max-new", "4"]) == 0
+    assert "served 3 requests, 12 tokens" in capsys.readouterr().out
+
+
 def test_default_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -189,6 +200,89 @@ def test_argument_errors(argv, message, capsys):
 def test_encoder_only_has_no_decode_service():
     assert tserve.main(["--arch", "hubert-xlarge", "--reduced",
                         "--device", "cpu"]) == 1
+
+
+def obs_run(main, argv, tmp_path, name, capsys):
+    """``main(argv)`` with --trace-out, --metrics-out and --log-json into
+    ``tmp_path``; returns (exit code, trace, metrics snapshot, the JSON
+    log lines)."""
+    trace = tmp_path / f"{name}.trace.json"
+    metrics = tmp_path / f"{name}.metrics.json"
+    rc = main([*argv, "--trace-out", str(trace), "--metrics-out",
+               str(metrics), "--log-json", "--log-level", "debug"])
+    err = capsys.readouterr().err
+    logs = [json.loads(line) for line in err.splitlines()
+            if line.startswith("{")]
+    return rc, json.loads(trace.read_text()), json.loads(
+        metrics.read_text()), logs
+
+
+def event_names(trace) -> list:
+    return sorted({e["name"] for e in trace["traceEvents"]})
+
+
+@pytest.mark.parametrize("mode", ["single", "gateway"])
+def test_obs_outputs_match_reference(mode, tmp_path, capsys):
+    """The port's CLI on reduced stablelm-1.6b (beside reduced dbrx-132b
+    in the gateway) writes a Perfetto trace and a registry snapshot that
+    parse, its trace holding the events the reference's CLI writes on the
+    same run."""
+    argv = ["--arch", ARCH, "--requests", "2", "--max-new", "3"]
+    if mode == "gateway":
+        argv += ["--gateway", "--co-arch", "dbrx-132b"]
+    rc, trace, metrics, logs = obs_run(
+        tserve.main, [*argv, "--reduced", "--device", "cpu"], tmp_path,
+        "port", capsys)
+    assert rc == 0 and isinstance(metrics, dict)
+    assert all({"ts", "level", "logger", "msg"} <= set(doc) for doc in logs)
+    jrc, jtrace, _, _ = obs_run(jserve.main, argv, tmp_path, "ref", capsys)
+    assert jrc == 0
+    assert event_names(trace) == event_names(jtrace)
+    assert set(trace) == set(jtrace)
+    if mode == "gateway":
+        assert "scheduler.resolve" in event_names(trace)
+        assert metrics["repro_scheduler_solves"]["value"] >= 1
+
+
+def test_obs_outputs_written_when_the_run_fails(tmp_path, capsys):
+    rc, trace, metrics, _ = obs_run(
+        tserve.main, ["--arch", "hubert-xlarge", "--reduced", "--device",
+                      "cpu"], tmp_path, "fail", capsys)
+    assert rc == 1
+    assert trace["traceEvents"] == [] and isinstance(metrics, dict)
+
+
+class _Capture:
+    """Stands in for ``torch.cuda.graph`` where there is no card."""
+
+    def __init__(self, graph):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_graph_captures_without_the_cycle_collector(monkeypatch):
+    """The cycle collector is off while a graph captures (a dead graph
+    collected there invalidates the capture) and on again after, also
+    when the captured function raises."""
+    from repro_torch.kernels import graph as tgraph
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", object)
+    monkeypatch.setattr(torch.cuda, "graph", _Capture)
+    seen = []
+    assert tgraph.Graph(lambda: seen.append(gc.isenabled())).launches == {}
+    assert seen == [False] and gc.isenabled()
+
+    def fails():
+        raise RuntimeError("captured function failed")
+
+    with pytest.raises(RuntimeError, match="captured function failed"):
+        tgraph.Graph(fails)
+    assert gc.isenabled()
 
 
 # ---------------------------------------------------------------------------
@@ -281,3 +375,30 @@ def test_graph_replays_count_exact_launches(cuda_device):
     assert (tfa.launches, tdec.launches, trg.launches) == (
         before[0], before[1] + 5 * attn,
         before[2] + 5 * kinds.count("rglru"))
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_dead_graph(cuda_device):
+    """A graph whose last reference sits in a reference cycle that dies
+    while another graph captures must outlive the capture: with the cycle
+    collector set to run at every allocation, the capture completes and
+    replays."""
+    from repro_torch.kernels import graph as tgraph
+
+    x = torch.zeros(4, device=cuda_device)
+    dead = [tgraph.Graph(lambda: x + 1.0)]
+
+    def step():
+        cycle = {"graph": dead.pop()}     # the graph's last reference
+        cycle["self"] = cycle
+        del cycle                         # young garbage, mid-capture
+        return [x + float(i) for i in range(50)][-1]
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        g = tgraph.Graph(step)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert torch.equal(g.replay(), torch.full((4,), 49.0,
+                                              device=cuda_device))
