@@ -163,15 +163,43 @@ Phases, each fatal on failure:
    at capacity factor 1.25 against a per-expert oracle (MOE_ORACLE_TOL,
    drops equal, a planted fault caught), and each model at 2 layers end
    to end, kernel path against plain path (<= E2E_F32_REL_TOL, same
-   argmax; router flips and the smallest margin reported).
+   argmax; router flips and the smallest margin reported);
+15. dry run: ``repro_torch.launch.dryrun`` over every architecture and
+   shape (bytes, the fit verdict on 80 GB, the deepest depth and largest
+   batch that fit, FLOPs, roofline terms; no kernel runs).  Phase 13
+   serves each MoE model at the dry run's deepest depth for its load (4
+   slots of 2048; MOE_LAYERS_PR21 beside it), and every model run of
+   phases 4, 9, 11, 13 and 16 prints the dry run's predicted peak beside
+   ``torch.cuda.max_memory_allocated()`` reset before the run: a run the
+   dry run says does not fit is fatal (it completed), and so is phase
+   16's stablelm-1.6b training peak off its prediction by more than
+   TRAIN_PEAK_TOL;
+16. train, through ``repro_torch.train`` on the ``torch`` backend (the
+   kernels have no backward): a. full-width stablelm-1.6b (float32 master
+   leaves, bf16 compute, remat, AdamW at a constant 3e-4) on
+   ``SyntheticLM`` (seq 1024, batch 8) for 20 steps: every gradient leaf
+   finite and nonzero, the mean loss of the last 5 steps below the first
+   step's, no flash or decode launch, the kernel path refusing a
+   gradient; step ms, tokens/s and MFU on PEAK_BF16_FLOPS reported;
+   b. full-width stablelm-1.6b cut to 2 layers in float32, one step on the
+   card and on the CPU from the same weights and optimizer state (loss
+   1e-5, gradient norm and every gradient and updated leaf 1e-4,
+   relative); c. the same cut in bf16 saved at step 2 and restored into a
+   fresh ``Trainer``: the state bit for bit, and the next loss equal to
+   the uninterrupted run's under ``torch.use_deterministic_algorithms``;
+   d. full-width dbrx-132b at the dry run's training depth, Adafactor,
+   16 microbatches of one 256-token sequence, 3 steps: finite losses, the
+   MoE losses in them; e. ``python -m repro_torch.launch.train --arch
+   stablelm-1.6b --steps 20`` exits 0.
 
 Each phase prints its seconds.  The last line is the contract line
 ``{"ok": true, "device": {...}}``; before it come the ``{"phase_s": ...}``,
 ``{"timer": ...}``, ``{"serve": ...}``, ``{"serve_reduced": ...}``,
 ``{"search": ...}``,
 ``{"characterize": ...}``, ``{"serve_recurrent": ...}``,
-``{"gateway": ...}``, ``{"fleet": ...}`` and ``{"serve_moe": ...}``
-lines, one
+``{"gateway": ...}``, ``{"fleet": ...}``, ``{"serve_moe": ...}``,
+``{"dryrun": ...}``, ``{"train": ...}`` and ``{"memory": ...}`` lines,
+one
 ``{"kernels": [...]}`` line and the card's ``nvidia-smi`` name and power
 limit.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -182,6 +210,8 @@ import collections
 import dataclasses
 import gc
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -255,7 +285,21 @@ FIT_GATE = 0.05
 #: one process with the antagonist on each share of the SMs
 SPREAD_SHARES = (0.25, 0.5)
 SPREAD_REPEATS = 3
-PHASES = 14
+PHASES = 16
+#: phase 16a: full-width stablelm-1.6b training
+TRAIN_ARCH = "stablelm-1.6b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 8, 20, 3e-4
+#: the measured peak of that run against the dry run's prediction (fatal)
+TRAIN_PEAK_TOL = 0.15
+#: phase 16b-c: the same widths cut to 2 layers; its batch
+CUT_LAYERS, CUT_SEQ, CUT_BATCH = 2, 128, 2
+CPU_LOSS_RTOL, CPU_GRAD_RTOL, CPU_LEAF_RTOL = 1e-5, 1e-4, 1e-4
+RESTART_AT = 2
+#: phase 16d: dbrx-132b's 16 microbatches of one 256-token sequence
+MOE_TRAIN_ARCH = "dbrx-132b"
+MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 256, 16, 3
+#: every model run's predicted and measured peak (phases 4-16)
+MEMORY = []
 
 
 def require(cond: bool, msg: str) -> None:
@@ -268,6 +312,37 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip()
+
+
+def memory_row(run: str, predicted: dict, measured: int) -> dict:
+    """The dry run's predicted peak of a run once its model is built
+    (``run_bytes``) beside the measured one (``max_memory_allocated``
+    reset after the build, before the run).  The run completed, so a
+    prediction that it (or its build) does not fit one card is fatal."""
+    from repro_torch.analysis.roofline import HBM_BYTES
+
+    pred = predicted["run_bytes"]
+    row = dict(run=run, predicted_bytes=pred, measured_bytes=measured,
+               measured_over_predicted=measured / pred,
+               predicted_peak_bytes=predicted["peak_bytes"],
+               fits=predicted["peak_bytes"] <= HBM_BYTES)
+    print(f"  memory, {run}: dry run {pred / 1e9:.3f} GB, "
+          f"max_memory_allocated {measured / 1e9:.3f} GB (x"
+          f"{row['measured_over_predicted']:.3f}); with the build "
+          f"{predicted['peak_bytes'] / 1e9:.3f} GB, which the dry run says "
+          f"{'fits' if row['fits'] else 'does not fit'} "
+          f"{HBM_BYTES / 1e9:.0f} GB")
+    require(row["fits"], f"{run} completed, yet the dry run says it does "
+            f"not fit ({predicted['peak_bytes'] / 1e9:.1f} GB)")
+    MEMORY.append(row)
+    return row
+
+
+def serve_peak(cfg, slots: int, capacity: int, prompt_lens) -> dict:
+    """The dry run's bytes for an engine of ``slots`` x ``capacity``
+    whose longest prefill is ``max(prompt_lens)`` tokens."""
+    from repro_torch.launch import dryrun
+    return dryrun.serve_memory(cfg, slots, capacity, 1, max(prompt_lens))
 
 
 # ---------------------------------------------------------------------------
@@ -1298,6 +1373,8 @@ def serve(fa, da, dev) -> dict:
     launches = {"flash_attention": fa.launches,
                 "decode_attention": da.launches}
     peak = torch.cuda.max_memory_allocated()
+    memory_row("serve stablelm-1.6b", serve_peak(cfg, 4, 2048, PROMPT_LENS),
+               peak)
 
     require(len(done) == len(prompts), f"served {len(done)}/{len(prompts)}")
     for r in done:
@@ -1566,6 +1643,7 @@ def serve_recurrent(arch, mods, dev) -> dict:
     fa, da, rg, rk = (mods[n] for n in ("flash_attention",
                                          "decode_attention", "rglru_scan",
                                          "rwkv6_scan"))
+    free_card()             # what earlier phases left stays out of the peak
     cfg = configs.get(arch)
     lens, capacity = ((RG_PROMPT_LENS, RG_CAPACITY) if "rglru" in
                       cfg.layer_kinds else (PROMPT_LENS, 2048))
@@ -1586,6 +1664,7 @@ def serve_recurrent(arch, mods, dev) -> dict:
     wall = time.perf_counter() - t0
     launches = {name: m.launches for name, m in mods.items()}
     peak = torch.cuda.max_memory_allocated()
+    memory_row(f"serve {arch}", serve_peak(cfg, 4, capacity, lens), peak)
 
     require(len(done) == len(prompts), f"served {len(done)}/{len(prompts)}")
     for r in done:
@@ -2434,6 +2513,18 @@ def profile_gateway(gw, prompts, steps: int = 4) -> dict:
     return out
 
 
+def gateway_peak(gw) -> dict:
+    """Both tenants' weights and caches, and the larger prefill's
+    temporaries (the gateway prefills one request at a time)."""
+    rows = [serve_peak(e.model.cfg, 4, GW_CAPACITY, PROMPT_LENS)
+            for e in gw.engines.values()]
+    held = sum(r["weights_bytes"] + r["cache_bytes"] for r in rows)
+    run = held + max(r["activation_bytes"] for r in rows)
+    build = max(r["build_bytes"] - r["weights_bytes"] for r in rows) + sum(
+        r["weights_bytes"] for r in rows)
+    return dict(run_bytes=run, peak_bytes=max(run, build))
+
+
 def gateway(fa, da, dev, bundle_path: Path) -> dict:
     """Full-width stablelm-1.6b and llama3.2-3b served together through
     ``MultiTenantGateway`` on the card, planned on the reference's
@@ -2447,6 +2538,7 @@ def gateway(fa, da, dev, bundle_path: Path) -> dict:
     from repro_torch.serve.gateway import (GatewayConfig, MultiTenantGateway,
                                            TenantSpec)
 
+    free_card()             # what earlier phases left stays out of the peak
     specs = [TenantSpec(a, configs.get(a), max_slots=4, capacity=GW_CAPACITY,
                         max_new=MAX_NEW) for a in GW_ARCHS]
     gcfg = GatewayConfig(platform=tpu_pod_split(4, 12,
@@ -2483,10 +2575,13 @@ def gateway(fa, da, dev, bundle_path: Path) -> dict:
             gw.submit(name, p, max_new=MAX_NEW)
     fa.launches = da.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run = drive_gateway(gw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    memory_row("gateway stablelm-1.6b + llama3.2-3b", gateway_peak(gw),
+               torch.cuda.max_memory_allocated())
     launches = {"flash_attention": fa.launches,
                 "decode_attention": da.launches}
     steps = {n: e.steps for n, e in gw.engines.items()}
@@ -2732,10 +2827,29 @@ def fleet(sd, se, bundle_path: Path) -> dict:
 # ---------------------------------------------------------------------------
 # the mixture-of-experts models
 # ---------------------------------------------------------------------------
-#: the MoE models at full width, their depth cut to what one card holds
-#: beside the untied float32 token table and head (2 x ~2.5 GB): a bf16
-#: dbrx-132b layer is 6.5 GB, a qwen3-moe-235b-a22b layer 5.0 GB
-MOE_LAYERS = {"dbrx-132b": 8, "qwen3-moe-235b-a22b": 10}
+#: the MoE models at full width, their depth cut by hand in PR 21 to what
+#: one card holds beside the untied float32 token table and head (2 x
+#: ~2.5 GB): a bf16 dbrx-132b layer is 6.5 GB, a qwen3-moe-235b-a22b layer
+#: 5.0 GB.  Phase 13 now serves at the dry run's depth (``moe_layers``).
+MOE_LAYERS_PR21 = {"dbrx-132b": 8, "qwen3-moe-235b-a22b": 10}
+MOE_SLOTS, MOE_CAPACITY = 4, 2048
+
+
+def moe_layers(capacity: int = MOE_CAPACITY) -> dict:
+    """The deepest depth of each MoE model whose serving peak the dry run
+    puts within one card, for phase 13's load (MOE_SLOTS slots of
+    ``capacity``, prompts up to max(PROMPT_LENS) tokens)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    return {arch: dryrun.deepest_depth(
+        configs.get(arch), lambda c: serve_peak(c, MOE_SLOTS, capacity,
+                                                PROMPT_LENS)["peak_bytes"])
+        for arch in MOE_LAYERS_PR21}
+
+
+#: phase 13's depths, the dry run's (set by ``main``)
+MOE_LAYERS = {}
 #: the float32 end-to-end check's depth: a float32 layer is 13 / 10 GB
 MOE_F32_LAYERS = 2
 #: the block oracle: one float32 layer over a 513-token prefill at the
@@ -2875,9 +2989,10 @@ def serve_moe(arch, mods, dev) -> dict:
     from repro_torch.serve.engine import ServingEngine
 
     fa, da = mods["flash_attention"], mods["decode_attention"]
+    free_card()             # what earlier phases left stays out of the peak
     model, reduced = build_moe(arch, MOE_LAYERS[arch], dev)
     cfg = model.cfg
-    eng = ServingEngine(model, max_slots=4, capacity=2048)
+    eng = ServingEngine(model, max_slots=MOE_SLOTS, capacity=MOE_CAPACITY)
     require(isinstance(eng.graph.graph, Graph),
             "the engine did not capture its step")
     prompts = make_prompts(cfg.vocab)
@@ -2893,6 +3008,8 @@ def serve_moe(arch, mods, dev) -> dict:
     launches = {"flash_attention": fa.launches,
                 "decode_attention": da.launches}
     peak = torch.cuda.max_memory_allocated()
+    memory_row(f"serve {arch} ({cfg.n_layers} layers)",
+               serve_peak(cfg, MOE_SLOTS, MOE_CAPACITY, PROMPT_LENS), peak)
     require(len(done) == len(prompts), f"served {len(done)}/{len(prompts)}")
     for r in done:
         require(len(r.tokens) == MAX_NEW,
@@ -2967,7 +3084,8 @@ def serve_moe(arch, mods, dev) -> dict:
 
     result = dict(arch=arch, reduced=reduced, requests=len(done),
                   max_new=MAX_NEW, prompt_lens=list(PROMPT_LENS),
-                  capacity=2048, launches=launches, prefills=m["admitted"],
+                  capacity=MOE_CAPACITY, launches=launches,
+                  prefills=m["admitted"],
                   decode_steps=m["steps"], tokens_out=m["tokens_out"],
                   wall_s=wall, mean_decode_step_ms=m["mean_step_ms"],
                   max_memory_allocated=peak,
@@ -3112,6 +3230,369 @@ def e2e_f32_moe(arch, dev) -> dict:
                 logits_rel_err=rels, router_flips=flips, min_margin=margins)
 
 
+# ---------------------------------------------------------------------------
+# the dry run and training
+# ---------------------------------------------------------------------------
+def dryrun_phase() -> dict:
+    """``launch.dryrun`` over every architecture and shape, and the MoE
+    depths it gives phase 13's load beside PR 21's."""
+    from repro_torch import configs
+    from repro_torch.analysis import report
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    recs = dryrun.run(list(configs.ARCHS), list(SHAPES), log=lambda _: None)
+    took = time.perf_counter() - t0
+    by_cell = {(r["arch"], r["shape"]): r for r in recs}
+    print("  " + report.dryrun_table(by_cell).replace("\n", "\n  "))
+    at_1040 = moe_layers(1040)
+    print(f"  {len(recs)} cells in {took:.1f} s; MoE serving depth for 4 "
+          f"slots of {MOE_CAPACITY} (phase 13): {MOE_LAYERS}, of 1040: "
+          f"{at_1040}; PR 21's by hand: {MOE_LAYERS_PR21}")
+    require(all(MOE_LAYERS[a] >= 1 for a in MOE_LAYERS),
+            f"the dry run fits no MoE layer: {MOE_LAYERS}")
+    cells = {f"{r['arch']} {r['shape']}": (
+        {"status": "skip"} if r["status"] == "skip" else dict(
+            peak_gb=r["memory"]["peak_estimate_gb"],
+            fits=r["memory"]["fits"],
+            deepest_depth=r["memory"]["deepest_depth"],
+            largest_batch=r["memory"]["largest_batch"],
+            flops=r["cost"]["flops"],
+            bottleneck=r["roofline"]["bottleneck"],
+            roofline_fraction=r["roofline"]["roofline_fraction"]))
+        for r in recs}
+    return dict(seconds=took, moe_layers=dict(MOE_LAYERS),
+                moe_layers_at_1040=at_1040,
+                moe_layers_pr21=MOE_LAYERS_PR21, cells=cells)
+
+
+def train_data(cfg, seq, batch, seed=1234):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    return SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=seed))
+
+
+def step_ms(hist) -> list[float]:
+    walls = [0.0] + [h["wall_s"] for h in hist]
+    return [(b - a) * 1e3 for a, b in zip(walls, walls[1:])]
+
+
+def train_full(fa, da, dev) -> dict:
+    """16a: full-width stablelm-1.6b, float32 master leaves, bf16
+    compute, remat, AdamW at a constant TRAIN_LR."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainer import Trainer
+
+    cfg = configs.get(TRAIN_ARCH)
+    cell = ShapeCell("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    predicted = dryrun.train_memory(cfg, cell)
+    flops = dryrun.matmul_flops(cfg, cell) + dryrun.mixer_flops(cfg, cell)
+    executed = flops + dryrun.matmul_flops(cfg, cell, backward=False)
+    model = build(cfg, backend="torch", device=dev, layout="train")
+    trainer = Trainer(model, train_data(cfg, TRAIN_SEQ, TRAIN_BATCH),
+                      optimizer=opt_lib.make("adamw", TRAIN_LR))
+    trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{sum(t.numel() for t in model.leaves.values()):,} float32 "
+          f"parameters in {len(model.leaves)} leaves; batch {TRAIN_BATCH} "
+          f"x {TRAIN_SEQ} tokens, remat {cfg.remat}")
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = da.launches = 0
+    hist = trainer.run(TRAIN_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches}
+    losses = [h["loss"] for h in hist]
+    ms = step_ms(hist)
+    steady = statistics.median(ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"  losses {[round(x, 4) for x in losses]}")
+    print(f"  step ms: first {ms[0]:.1f}, median of the rest {steady:.1f} "
+          f"({min(ms[1:]):.1f}-{max(ms[1:]):.1f}); {tokens / steady * 1e3:,.0f} "
+          f"tokens/s; MFU {flops / (steady * 1e-3) / PEAK_BF16_FLOPS:.4f} "
+          f"(the dry run's {flops:.4e} FLOPs a step; {executed:.4e} with "
+          f"the remat recompute); launches {launches}")
+    row = memory_row(f"train {cfg.name}", predicted, peak)
+    bad = [k for k, g in model.grads.items()
+           if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0]
+    require(not bad, f"gradient leaves not finite or all zero: {bad}")
+    require(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    require(statistics.mean(losses[-5:]) < losses[0],
+            f"the loss did not fall: {losses}")
+    require(launches == {"flash_attention": 0, "decode_attention": 0},
+            f"training launched kernels: {launches}")
+    q = torch.randn(1, 64, 4, 64, device=dev, requires_grad=True)
+    k = torch.randn(1, 64, 4, 64, device=dev)
+    try:
+        ops.attention(q, k, k)
+        refused = None
+    except RuntimeError as exc:
+        refused = str(exc)
+    require(refused is not None and "backend='torch'" in refused,
+            "the kernel path took an input that needs a gradient")
+    print(f"  the kernel path under grad: RuntimeError ({refused[:60]}...)")
+    require(abs(row["measured_over_predicted"] - 1) <= TRAIN_PEAK_TOL,
+            f"training peak {peak / 1e9:.2f} GB is off the dry run's "
+            f"{predicted['run_bytes'] / 1e9:.2f} GB by more than "
+            f"{TRAIN_PEAK_TOL:.0%}")
+    batch = to_device(trainer.data.batch_at(TRAIN_STEPS), dev)
+    prof = profile_steps(lambda: trainer.step_fn(trainer.state, batch), 2)
+    print(f"  profiled 2 training steps: {prof}")
+    del trainer, model, batch
+    free_card()
+    return dict(arch=cfg.name, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                steps=TRAIN_STEPS, lr=TRAIN_LR, losses=losses, step_ms=ms,
+                median_step_ms=steady, tokens_per_s=tokens / steady * 1e3,
+                flops=flops, flops_executed=executed,
+                mfu=flops / (steady * 1e-3) / PEAK_BF16_FLOPS,
+                launches=launches, peak=row,
+                predicted={k: v for k, v in predicted.items()},
+                grad_norms=[h["grad_norm"] for h in hist], profile=prof)
+
+
+def cut_config(dtype):
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=CUT_LAYERS,
+                               dtype=dtype, kv_cache_dtype=dtype)
+
+
+def leaf_rel(a, b) -> float:
+    """max |a - b| / max |b| over one leaf (0 when both are 0)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    scale = float(b.abs().max())
+    diff = float((a - b).abs().max())
+    return diff if scale == 0 else diff / scale
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """16b: one float32 step of the 2-layer cut on the card and on the CPU
+    from the same weights and the same AdamW state (one CPU step taken
+    first, so that the compared update is not the first step's, whose
+    sign(g) turns any rounding of a near-zero gradient into a 2 lr
+    jump)."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainer import Trainer, TrainState
+
+    cfg = cut_config("float32")
+    data = train_data(cfg, CUT_SEQ, CUT_BATCH, seed=5)
+    opt = opt_lib.make("adamw", TRAIN_LR)
+    cpu = build(cfg, backend="torch", device="cpu", layout="train")
+    tc = Trainer(cpu, data, optimizer=opt)
+    tc.init_state(torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    tc.run(1)
+    card = build(cfg, backend="torch", device=dev, layout="train")
+    with torch.no_grad():
+        for k, v in cpu.leaves.items():
+            card.leaves[k].copy_(v)
+    tg = Trainer(card, data, optimizer=opt)
+    tg.state = TrainState(1, card.leaves, {
+        k: {p: t.to(dev, copy=True) for p, t in v.items()}
+        for k, v in tc.state.opt.items()})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hg = tg.run(2)[-1]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    hc = tc.run(2)[-1]
+    cpu_s = time.perf_counter() - t0
+    loss = abs(hg["loss"] - hc["loss"]) / abs(hc["loss"])
+    gnorm = abs(hg["grad_norm"] - hc["grad_norm"]) / hc["grad_norm"]
+    grads = max(leaf_rel(card.grads[k], g) for k, g in cpu.grads.items())
+    leaves = {k: leaf_rel(card.leaves[k], v) for k, v in cpu.leaves.items()}
+    worst = max(leaves, key=leaves.get)
+    print(f"  float32 {cfg.name} at {CUT_LAYERS} layers, batch {CUT_BATCH} "
+          f"x {CUT_SEQ}: card vs CPU loss {hg['loss']:.7f} vs "
+          f"{hc['loss']:.7f} (rel {loss:.2e}), grad norm rel {gnorm:.2e}, "
+          f"gradient leaves up to {grads:.2e}, updated leaves up to "
+          f"{leaves[worst]:.2e} ({worst}); the CPU's two steps "
+          f"{cpu_s:.1f} s")
+    row = memory_row(f"train {cfg.name} ({CUT_LAYERS} layers, float32)",
+                     dryrun.train_memory(cfg, ShapeCell(
+                         "t", CUT_SEQ, CUT_BATCH, "train")), peak)
+    require(loss <= CPU_LOSS_RTOL, f"card vs CPU loss rel {loss}")
+    require(gnorm <= CPU_GRAD_RTOL, f"card vs CPU grad norm rel {gnorm}")
+    require(grads <= CPU_GRAD_RTOL, f"card vs CPU gradients rel {grads}")
+    require(leaves[worst] <= CPU_LEAF_RTOL,
+            f"card vs CPU updated {worst} rel {leaves[worst]}")
+    del tg, card
+    free_card()
+    return dict(layers=CUT_LAYERS, seq=CUT_SEQ, batch=CUT_BATCH,
+                loss=[hg["loss"], hc["loss"]], loss_rel=loss,
+                grad_norm_rel=gnorm, grad_leaf_rel=grads,
+                updated_leaf_rel=leaves[worst], worst_leaf=worst,
+                cpu_s=cpu_s, peak=row)
+
+
+def train_restart(dev) -> dict:
+    """16c: the bf16 2-layer cut saved at step RESTART_AT and restored
+    into a fresh ``Trainer``; the restored state must equal the saved one
+    bit for bit and the next loss the uninterrupted run's.  Scoped to
+    ``torch.use_deterministic_algorithms(True)``, which needs cuBLAS's
+    fixed workspace (``CUBLAS_WORKSPACE_CONFIG``) and takes the sorted,
+    deterministic ``index_put_`` for the token table's backward."""
+    from repro_torch.models import build
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainer import Trainer
+
+    cfg = cut_config("bfloat16")
+    prior = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            def trainer():
+                model = build(cfg, backend="torch", device=dev,
+                              layout="train")
+                return Trainer(model, train_data(cfg, CUT_SEQ, CUT_BATCH, 9),
+                               ckpt_dir=tmp, ckpt_every=RESTART_AT,
+                               optimizer=opt_lib.make("adamw", TRAIN_LR))
+            a = trainer()
+            a.restore_or_init(torch.Generator(device=dev).manual_seed(0))
+            t0 = time.perf_counter()
+            a.run(RESTART_AT)
+            save_s = time.perf_counter() - t0
+            saved = {k: v.detach().cpu().clone()
+                     if isinstance(v, torch.Tensor) else v
+                     for k, v in ckpt_lib.flatten(a.state).items()}
+            nbytes = (Path(tmp) / f"ckpt_{RESTART_AT:08d}.npz").stat().st_size
+            a.ckpt_dir = None
+            b = trainer()
+            t0 = time.perf_counter()
+            b.restore_or_init()
+            restore_s = time.perf_counter() - t0
+            b.ckpt_dir = None
+            restored = ckpt_lib.flatten(b.state)
+            differ = [k for k, v in saved.items()
+                      if (not torch.equal(restored[k].cpu(), v)
+                          if isinstance(v, torch.Tensor)
+                          else restored[k] != v)]
+            la = a.run(RESTART_AT + 1)[-1]["loss"]
+            lb = b.run(RESTART_AT + 1)[-1]["loss"]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prior is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior
+    print(f"  bf16 {cfg.name} at {CUT_LAYERS} layers: checkpoint at step "
+          f"{RESTART_AT} ({nbytes / 1e9:.2f} GB, {len(saved)} arrays; the "
+          f"run with its save {save_s:.1f} s, the restore {restore_s:.1f} "
+          f"s); restored leaves differing {len(differ)}; step "
+          f"{RESTART_AT + 1} loss uninterrupted {la!r}, restarted {lb!r}")
+    require(not differ, f"restored state differs at {differ[:5]}")
+    require(la == lb, f"the restarted loss {lb!r} != {la!r}")
+    del a, b
+    free_card()
+    return dict(layers=CUT_LAYERS, at_step=RESTART_AT, bytes=nbytes,
+                arrays=len(saved), save_run_s=save_s, restore_s=restore_s,
+                loss_uninterrupted=la, loss_restarted=lb)
+
+
+def train_moe(dev) -> dict:
+    """16d: full-width dbrx-132b at the dry run's training depth (at
+    least 1), Adafactor, 16 microbatches of one 256-token sequence."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainer import Trainer
+
+    full = configs.get(MOE_TRAIN_ARCH)
+    cell = ShapeCell("train", MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, "train")
+    depth = dryrun.deepest_depth(
+        full, lambda c: dryrun.train_memory(c, cell)["peak_bytes"])
+    cfg = dataclasses.replace(full, n_layers=max(1, depth))
+    predicted = dryrun.train_memory(cfg, cell)
+    model = build(cfg, backend="torch", device=dev, layout="train")
+    data = train_data(cfg, MOE_TRAIN_SEQ, MOE_TRAIN_BATCH)
+    trainer = Trainer(model, data, optimizer=opt_lib.make(
+        cfg.optimizer, cfg.learning_rate))
+    trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+    factored = dryrun.optimizer_bytes(cfg, model.leaves)
+    adamw = 2 * dryrun.weight_bytes(cfg, "train")
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {cfg.n_layers} of {full.n_layers} layers (the dry "
+          f"run's training depth: {depth}), "
+          f"{sum(t.numel() for t in model.leaves.values()):,} float32 "
+          f"parameters; {cfg.optimizer} state {factored / 1e9:.4f} GB "
+          f"(AdamW's would be {adamw / 1e9:.2f} GB); {cfg.microbatches} "
+          f"microbatches of {MOE_TRAIN_BATCH // cfg.microbatches} x "
+          f"{MOE_TRAIN_SEQ}")
+    torch.cuda.reset_peak_memory_stats()
+    hist = trainer.run(MOE_TRAIN_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = step_ms(hist)
+    row = memory_row(f"train {cfg.name} ({cfg.n_layers} layers)",
+                     predicted, peak)
+    mb = to_device(data.batch_at(0), dev)
+    mb = {k: v[:MOE_TRAIN_BATCH // cfg.microbatches] for k, v in mb.items()}
+    loss, met = model.loss_fn(mb)
+    met = {k: float(v.detach()) if isinstance(v, torch.Tensor) else v
+           for k, v in met.items()}
+    parts = met["nll"] + met["z"] + met["moe_aux"] + met["moe_z"]
+    print(f"  losses {[h['loss'] for h in hist]}, step ms "
+          f"{[round(x, 1) for x in ms]}; one microbatch: loss "
+          f"{met['loss']:.5f} = nll {met['nll']:.5f} + z {met['z']:.5f} + "
+          f"moe_aux {met['moe_aux']:.5f} + moe_z {met['moe_z']:.5f}")
+    require(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                for h in hist), f"non-finite losses {hist}")
+    require(met["moe_aux"] > 0 and met["moe_z"] > 0
+            and math.isfinite(met["loss"])
+            and abs(met["loss"] - parts) <= 1e-5 * abs(parts),
+            f"the MoE losses are not in the loss: {met}")
+    del trainer, model, loss
+    free_card()
+    return dict(arch=cfg.name, layers=cfg.n_layers, dryrun_depth=depth,
+                steps=MOE_TRAIN_STEPS, losses=[h["loss"] for h in hist],
+                step_ms=ms, microbatch_metrics=met,
+                optimizer_bytes=factored, adamw_bytes=adamw, peak=row,
+                predicted={k: v for k, v in predicted.items()})
+
+
+def train_cli() -> dict:
+    """16e: the training launcher as a user runs it."""
+    argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            TRAIN_ARCH, "--steps", "20"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    took = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-3:]
+    print(f"  python -m repro_torch.launch.train --arch {TRAIN_ARCH} "
+          f"--steps 20: exit {proc.returncode} in {took:.1f} s; {tail}")
+    require(proc.returncode == 0, f"the launcher exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    return dict(rc=proc.returncode, seconds=took, tail=tail)
+
+
+def train(fa, da, dev) -> dict:
+    free_card()
+    out = {"full": train_full(fa, da, dev),
+           "card_vs_cpu": train_card_vs_cpu(dev),
+           "restart": train_restart(dev),
+           "moe": train_moe(dev),
+           "cli": train_cli()}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3227,13 +3708,21 @@ def main() -> int:
     replayed = fleet(sd, se, bundle_path)
     work.cleanup()
     free_card()
-    phase("serve full-width dbrx-132b and qwen3-moe-235b-a22b, depth cut")
+    phase("serve full-width dbrx-132b and qwen3-moe-235b-a22b, depth cut "
+          "to the dry run's")
+    MOE_LAYERS.update(moe_layers())
+    print(f"  depths, the dry run's for 4 slots of {MOE_CAPACITY}: "
+          f"{MOE_LAYERS} (PR 21's by hand: {MOE_LAYERS_PR21})")
     moe_served = {arch: serve_moe(arch, mods, dev) for arch in MOE_LAYERS}
     phase("MoE in float32: the block against a per-expert oracle, and "
           "end to end")
     for arch in MOE_LAYERS:
         moe_served[arch]["block_oracle"] = moe_block_oracle(arch, dev)
         moe_served[arch]["e2e_f32"] = e2e_f32_moe(arch, dev)
+    phase("dry run: every architecture and shape on one card")
+    planned = dryrun_phase()
+    phase("train: stablelm-1.6b (AdamW) and dbrx-132b (Adafactor)")
+    trained = train(fa, da, dev)
     phase(None)
 
     launches = dict(result["launches"], **found["orin_x64_cuda"]["launches"],
@@ -3283,6 +3772,9 @@ def main() -> int:
     print(json.dumps({"gateway": served}))
     print(json.dumps({"fleet": replayed}))
     print(json.dumps({"serve_moe": moe_served}))
+    print(json.dumps({"dryrun": planned}))
+    print(json.dumps({"train": trained}))
+    print(json.dumps({"memory": MEMORY}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,21 @@ Backends:
   * ``ref``   — the naive oracle in :mod:`repro_torch.kernels.ref`.
   * ``auto``  — by the tensor's device: a CUDA tensor always takes the
                 kernel, a CPU tensor takes ``torch``.
+  * ``stub``  — the reference's dry-run stand-in: reads every input once
+                and writes the true output shapes with no matrix product
+                (``launch/dryrun.py`` counts the mixers' FLOPs
+                analytically).
 
-There is no fallback: a kernel that fails to build or launch raises.
+There is no fallback: a kernel that fails to build or launch raises.  No
+kernel has a backward (nor has any of ``repro``'s), so the kernel path,
+by name or through ``auto``, refuses inputs that need a gradient while
+grad mode is on; a training step runs the ``torch`` backend, named.
 """
 from __future__ import annotations
 
 from typing import Literal
+
+import torch
 
 from . import decode_attention as _dec
 from . import flash_attention as _fa
@@ -23,18 +32,25 @@ from . import ref as _ref
 from . import rglru as _rglru
 from . import rwkv6 as _rwkv6
 
-Backend = Literal["auto", "cuda", "torch", "ref"]
-BACKENDS = ("auto", "cuda", "torch", "ref")
+Backend = Literal["auto", "cuda", "torch", "ref", "stub"]
+BACKENDS = ("auto", "cuda", "torch", "ref", "stub")
 
 
-def _resolve(backend: str, x) -> str:
+def _resolve(backend: str, x, *inputs) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
     if backend == "auto":
-        return "cuda" if x.is_cuda else "torch"
-    if backend == "cuda" and not x.is_cuda:
+        backend = "cuda" if x.is_cuda else "torch"
+    elif backend == "cuda" and not x.is_cuda:
         raise ValueError("backend='cuda' needs CUDA tensors; this one is on "
                          f"{x.device}")
+    if backend == "cuda" and torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (x,) + inputs):
+        raise RuntimeError(
+            "the CUDA kernels have no backward, so their output would carry "
+            "no gradient to these inputs; build the model with "
+            "backend='torch' to train, or run under torch.no_grad()")
     return backend
 
 
@@ -44,7 +60,11 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
     ``block_kv`` is the kv tile of the ``torch`` version; the kernel
     fixes its own tiles."""
-    b = _resolve(backend, q)
+    b = _resolve(backend, q, k, v)
+    if b == "stub":
+        kv = (k.sum(1) + v.sum(1))[:, None]            # reads k, v fully
+        return (q * kv.repeat_interleave(q.shape[2] // k.shape[2], 2)
+                ).to(q.dtype)
     if b == "ref":
         return _ref.attention(q, k, v, causal=causal, window=window)
     if b == "cuda":
@@ -57,7 +77,12 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
                      backend: Backend = "auto"):
     """One query token per sequence over a (B, S, Hkv, D) cache; sequence
     b attends over its first ``lengths[b]`` positions."""
-    b = _resolve(backend, q)
+    b = _resolve(backend, q, k_cache, v_cache)
+    if b == "stub":
+        kv = (k_cache.sum(1) + v_cache.sum(1))[:, None]
+        scale = (1 + lengths.to(q.dtype) * 0)[:, None, None, None]
+        return (q * kv.repeat_interleave(q.shape[2] // k_cache.shape[2], 2)
+                * scale).to(q.dtype)
     if b == "ref":
         return _ref.attention(q, k_cache, v_cache, causal=True,
                               lengths=lengths)
@@ -70,7 +95,11 @@ def linear_scan(a, b, h0=None, *, backend: Backend = "auto"):
     """h_t = a_t h_{t-1} + b_t over axis 1 (the RG-LRU core).  a, b:
     (B, S, D); h0: (B, D) or None.  Returns (h_all in a's dtype, h_last
     float32)."""
-    be = _resolve(backend, a)
+    be = _resolve(backend, a, b, h0)
+    if be == "stub":
+        h = (a * b).to(a.dtype)                        # reads a, b; writes h
+        last = h[:, -1].float() + (0.0 if h0 is None else h0.float())
+        return h, last
     if be == "ref":
         return _ref.linear_scan(a, b, h0)
     if be == "cuda":
@@ -82,7 +111,17 @@ def rwkv6(r, k, v, w, u, state0=None, *, backend: Backend = "auto"):
     """The RWKV-6 matrix-state recurrence.  r, k, w: (B, T, H, D); v:
     (B, T, H, Dv); u: (H, D); state0: (B, H, D, Dv) or None.  Returns
     (y in v's dtype, final state float32)."""
-    be = _resolve(backend, r)
+    be = _resolve(backend, r, k, v, w, u, state0)
+    if be == "stub":
+        g = (r + k + w).sum(-1, keepdim=True)          # reads r, k, w
+        y = (v * g).to(v.dtype)                        # reads v, writes y
+        B, T, H, D = r.shape
+        s0 = (torch.zeros((B, H, D, v.shape[-1]), dtype=torch.float32,
+                          device=r.device)
+              if state0 is None else state0.float())
+        sT = s0 + (k.float().mean(1)[..., None]
+                   * v.float().mean(1)[..., None, :])
+        return y, sT
     if be == "ref":
         return _ref.rwkv6(r, k, v, w, u, state0)
     if be == "cuda":

@@ -1,0 +1,493 @@
+"""Memory and FLOP dry run for one NVIDIA H100 (counterpart of
+``repro/launch/dryrun.py``).
+
+The reference lowers and compiles every (arch x shape x mesh) cell for a
+TPU pod and reads XLA's memory and cost analyses.  One card has no mesh,
+so for every (arch, shape) of ``SHAPES`` that ``cell_supported`` admits
+this says, in seconds and without running a kernel:
+
+* **bytes**, from the model's own parameter shapes, built on ``meta``:
+  weights in the layout the cell runs (serving: each weight in the dtype
+  it is used in; training: the reference's float32 leaves), gradients,
+  the optimizer state (AdamW's moments or Adafactor's factored ones),
+  the KV or recurrent caches, and an estimate of the activations
+  (``train_memory`` / ``serve_memory`` say what is counted);
+* **the verdict**: the peak estimate, whether it fits ``HBM_BYTES``, the
+  deepest depth that fits at the cell's batch and the largest batch
+  that fits at full depth;
+* **FLOPs**: matrix-product FLOPs from ``FlopCounterMode`` over a forward
+  (and, for ``train``, a backward) on ``meta`` tensors through the
+  ``stub`` mixers, which do no matrix product (the reference's probes
+  stub them too), plus ``mixer_flops`` for one card; ``flops_executed``
+  adds the forward the backward recomputes under ``cfg.remat``;
+* **roofline terms** on the card's constants (``analysis/roofline.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
+        --shape all --out artifacts/dryrun_h100
+
+writes one JSON record per cell, ``<arch>_<shape>_h100.json``, with the
+reference's keys where they mean the same thing.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import time
+
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch import configs
+from repro_torch.analysis import roofline
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeCell, \
+    cell_supported
+from repro_torch.models import Model, transformer
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.moe import capacity
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train.checkpoint import flatten
+
+ARTIFACTS = (pathlib.Path(__file__).resolve().parents[3] / "artifacts"
+             / "dryrun_h100")
+MESH = "h100"
+META = torch.device("meta")
+
+
+def _model(cfg: ModelConfig, layout: str) -> Model:
+    return Model(cfg, backend="stub", device=META, layout=layout)
+
+
+def _nbytes(tensors) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def _size(dtype: str) -> int:
+    return torch.empty((), dtype=dtype_of(dtype)).element_size()
+
+
+# ---------------------------------------------------------------------------
+# bytes
+# ---------------------------------------------------------------------------
+
+def weight_bytes(cfg: ModelConfig, layout: str) -> int:
+    """Bytes of the weights of ``Model(cfg, layout=layout)``."""
+    return _nbytes(_model(cfg, layout).weights().values())
+
+
+def cache_bytes(cfg: ModelConfig, batch: int, capacity_: int) -> int:
+    """Bytes of ``Model.init_cache(batch, capacity_)``."""
+    caches = _model(cfg, "serve").init_cache(batch, capacity_)
+    return _nbytes(flatten(caches).values())
+
+
+def optimizer_bytes(cfg: ModelConfig, leaves) -> int:
+    opt = opt_lib.make(cfg.optimizer, cfg.learning_rate)
+    return _nbytes(flatten(opt.init(leaves)).values())
+
+
+def _spans(cfg: ModelConfig) -> list[tuple[str, ...]]:
+    """The kinds of each checkpoint region of a training forward."""
+    kinds = cfg.layer_kinds
+    return [tuple(kinds[i] for i in span)
+            for span in transformer.remat_spans(cfg)]
+
+
+def layer_activation_bytes(cfg: ModelConfig, kind: str, batch: int,
+                           seq: int, train: bool) -> float:
+    """Activation bytes one layer holds at once: for ``train``, what its
+    recompute saves for the backward plus the backward's largest
+    temporaries (the ``torch`` backend's operations); for serving, a
+    prefill's temporaries through the kernels."""
+    T = batch * seq
+    a = _size(cfg.dtype)
+    d, ff = cfg.d_model, cfg.d_ff
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    total = T * d * (4 * a + 8)                     # norms, residual
+    if kind in ("attn", "local"):
+        qkv = (hq + 2 * hkv) * dh
+        total += T * (qkv * a + (hq + hkv) * dh * 4 * 2 + hq * dh * (a + 4))
+        if train:       # attention_torch: scores over every kv tile
+            kb = min(cfg.attn_block_kv, seq)
+            total += T * hkv * dh * 4 * 2                   # f32 k, v
+            total += 4 * batch * hq * seq * (2 * seq + 2 * kb)
+    elif kind == "rglru":
+        r = cfg.d_rnn
+        total += T * r * (6 * a + 6 * 4) * (2 if train else 1)
+    elif kind == "rwkv":
+        H = cfg.n_heads if cfg.n_heads else d // 64
+        dr = d // H
+        total += T * d * (8 * a + 4 * 4) + T * ff * a * 3
+        if train:       # rwkv6_torch keeps each step's state terms
+            total += 3 * T * H * dr * dr * 4
+    if kind != "rwkv":
+        mult = 6 if train else 3
+        if cfg.moe is None:
+            total += T * ff * a * mult
+        else:
+            mo = cfg.moe
+            slots = mo.n_experts * capacity(cfg, T)
+            total += T * mo.n_experts * 4 * 2               # router
+            total += slots * (2 * d + ff * mult) * a
+            total += T * mo.top_k * d * a * 3               # gather, combine
+    return float(total)
+
+
+def _layer_casts(cfg: ModelConfig, model: Model, kinds) -> tuple[int, int]:
+    """(bytes of a span's weights cast away from the leaves' dtype, the
+    largest cast weight's element count)."""
+    pdt = dtype_of(cfg.param_dtype)
+    total, largest = 0, 0
+    for kind in kinds:
+        layer = next(m for m in model.layers if m.kind == kind)
+        for p in layer.parameters():
+            if p.dtype != pdt:
+                total += p.numel() * p.element_size()
+                largest = max(largest, p.numel())
+    return total, largest
+
+
+def _largest_draw(model: Model) -> int:
+    """Bytes of the largest f32 draw ``Model.init`` makes (``_normal_``
+    draws each weight in f32, then casts it into place)."""
+    return max((p.numel() * 4 for p in model.parameters()), default=0)
+
+
+def train_memory(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """Peak bytes of one training step (``train.trainer``) at ``cell``:
+    ``run_bytes`` once the model is built, ``peak_bytes`` the larger of
+    that and ``build_bytes``.
+
+    Resident: the float32 leaves, their gradient buffers and the optimizer
+    state, and under remat one checkpoint input per region.  On top, the
+    largest of three phases (and no less than building: the leaves, the
+    buffers and ``init``'s largest f32 draw): the loss (the f32 logits and their gradient,
+    ``layers.CrossEntropy``, and the head's f32 weight gradient); one
+    region's backward (its recomputed activations and weight casts, and
+    the largest weight gradient in ``cfg.dtype`` and in f32); the
+    optimizer's temporaries of its largest leaf (two for AdamW, one for
+    Adafactor: ``train/optimizer.py``)."""
+    M = cfg.microbatches
+    if cell.global_batch % M:
+        raise ValueError(f"global batch {cell.global_batch} does not divide "
+                         f"into {M} microbatches")
+    b, S = cell.global_batch // M, cell.seq_len
+    T = b * S
+    serve, train = _model(cfg, "serve"), _model(cfg, "train")
+    W = _nbytes(train.leaves.values())
+    O = optimizer_bytes(cfg, train.leaves)
+    a = _size(cfg.dtype)
+    spans = _spans(cfg)
+    if cfg.remat:
+        saved = len(spans) * T * cfg.d_model * a
+    else:
+        saved = sum(layer_activation_bytes(cfg, k, b, S, True)
+                    for k in cfg.layer_kinds)
+    loss = 2 * T * cfg.vocab * 4 + cfg.d_model * cfg.vocab * 4
+    region = 0.0
+    for kinds in set(spans):
+        casts, largest = _layer_casts(cfg, serve, kinds)
+        region = max(region, casts + largest * (a + 4) + sum(
+            layer_activation_bytes(cfg, k, b, S, True) for k in kinds))
+    biggest = max((t.numel() * 4 for t in train.leaves.values()), default=0)
+    opt_phase = (2 if cfg.optimizer == "adamw" else 1) * biggest
+    build = 2 * W + _largest_draw(serve)
+    run = 2 * W + O + saved + max(loss, region, opt_phase)
+    return dict(weights_bytes=W, grads_bytes=W, optimizer_bytes=O,
+                cache_bytes=0, saved_bytes=float(saved),
+                loss_phase_bytes=float(loss), region_phase_bytes=region,
+                optimizer_phase_bytes=float(opt_phase),
+                build_bytes=float(build), run_bytes=float(run),
+                peak_bytes=max(build, run))
+
+
+def serve_memory(cfg: ModelConfig, slots: int, capacity_: int,
+                 prefill_batch: int = 1, prefill_len: int | None = None
+                 ) -> dict:
+    """Peak bytes of serving ``cfg``: its weights in the serving layout,
+    caches for ``slots`` sequences of ``capacity_``, and the largest
+    layer's temporaries while a prefill of ``prefill_batch`` x
+    ``prefill_len`` tokens (``capacity_`` when None) runs through the
+    kernels, plus its prompt's k/v and last-token logits; and no less than
+    building the model (its weights and ``init``'s largest f32 draw)."""
+    S = capacity_ if prefill_len is None else prefill_len
+    model = _model(cfg, "serve")
+    W = _nbytes(model.parameters())
+    C = cache_bytes(cfg, slots, capacity_)
+    kinds = set(cfg.layer_kinds)
+    act = max((layer_activation_bytes(cfg, k, prefill_batch, S, False)
+               for k in kinds), default=0.0)
+    kv = (prefill_batch * S * 2 * cfg.n_kv_heads * cfg.d_head
+          * _size(cfg.kv_cache_dtype if cfg.kv_cache_dtype != "int8"
+                  else cfg.dtype))
+    logits = max(prefill_batch, slots) * cfg.vocab * 4
+    build = W + _largest_draw(model)
+    run = W + C + act + kv + logits
+    return dict(weights_bytes=W, grads_bytes=0, optimizer_bytes=0,
+                cache_bytes=C, activation_bytes=act + kv + logits,
+                build_bytes=float(build), run_bytes=float(run),
+                peak_bytes=max(build, run))
+
+
+def memory(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    if cell.kind == "train":
+        return train_memory(cfg, cell)
+    if cell.kind == "prefill":
+        return serve_memory(cfg, cell.global_batch, cell.seq_len,
+                            cell.global_batch, cell.seq_len)
+    return serve_memory(cfg, cell.global_batch, cell.seq_len,
+                        prefill_batch=1, prefill_len=1)
+
+
+def fits(peak: float, limit: float = roofline.HBM_BYTES) -> bool:
+    return peak <= limit
+
+
+def deepest_depth(cfg: ModelConfig, peak_of, limit=roofline.HBM_BYTES
+                  ) -> int:
+    """The most layers (0 to ``cfg.n_layers``) whose ``peak_of(cfg at that
+    depth)`` fits ``limit``; -1 when not even the embeddings fit."""
+    def ok(n):
+        return fits(peak_of(dataclasses.replace(cfg, n_layers=n)), limit)
+    if not ok(0):
+        return -1
+    lo, hi = 0, cfg.n_layers
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if ok(mid) else (lo, mid - 1)
+    return lo
+
+
+def largest_batch(cfg: ModelConfig, cell: ShapeCell,
+                  limit=roofline.HBM_BYTES) -> int:
+    """The largest global batch (a multiple of the microbatches, for
+    ``train``) that fits at full depth; 0 when none does."""
+    step = cfg.microbatches if cell.kind == "train" else 1
+
+    def ok(n):
+        c = dataclasses.replace(cell, global_batch=n * step)
+        return fits(memory(cfg, c)["peak_bytes"], limit)
+    if not ok(1):
+        return 0
+    hi = 1
+    while ok(hi * 2) and hi < 1 << 20:
+        hi *= 2
+    lo, hi = hi, hi * 2 - 1
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if ok(mid) else (lo, mid - 1)
+    return lo * step
+
+
+# ---------------------------------------------------------------------------
+# FLOPs
+# ---------------------------------------------------------------------------
+
+def _count(fn) -> int:
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    return int(fc.get_total_flops())
+
+
+def _probe(cfg: ModelConfig, cell: ShapeCell, backward: bool) -> int:
+    """Matrix-product FLOPs of one pass of ``cfg`` at ``cell`` on meta."""
+    B, S = cell.global_batch, cell.seq_len
+    if cell.kind == "train":
+        m = _model(dataclasses.replace(cfg, remat=False), "train")
+        batch = _inputs(cfg, B, S)
+        batch["labels"] = torch.zeros((B, S), dtype=torch.int32,
+                                      device=META)
+
+        def run():
+            loss, _ = m.loss_fn(batch)
+            if backward:
+                loss.backward()
+        return _count(run)
+    m = _model(cfg, "serve")
+    if cell.kind == "prefill":
+        batch = _inputs(cfg, B, S)
+        return _count(lambda: m.prefill(batch, capacity=S))
+    caches = m.init_cache(B, S)
+    batch = _inputs(cfg, B, 1, decode=True)
+    batch["lengths"] = torch.zeros((B,), dtype=torch.int32, device=META)
+    return _count(lambda: m.decode_step(caches, batch))
+
+
+def _inputs(cfg: ModelConfig, B: int, S: int, decode: bool = False):
+    act = dtype_of(cfg.dtype)
+    if cfg.embeds_only:
+        return {"embeds": torch.empty((B, S, cfg.d_model), dtype=act,
+                                      device=META)}
+    batch = {"token_ids": torch.zeros((B, S), dtype=torch.int32,
+                                      device=META)}
+    if cfg.mm_prefix and not decode:
+        batch["mm_embeds"] = torch.empty(
+            (B, cfg.mm_prefix, cfg.mm_embed_dim), dtype=act, device=META)
+    return batch
+
+
+def matmul_flops(cfg: ModelConfig, cell: ShapeCell,
+                 backward: bool = True) -> float:
+    """Matrix-product FLOPs of a step at ``cell``, from probes of one
+    microbatch at one block-pattern group (``C1``), two groups (``C2``)
+    and one group plus the remainder layers (``Ct``), as the reference
+    reconstructs a step from its unrolled probes: ``M * (C1 + (G - 1) *
+    (C2 - C1) + (Ct - C1))`` for ``G`` full groups."""
+    P = len(cfg.block_pattern)
+    train = cell.kind == "train"
+    M = cfg.microbatches if train else 1
+    mb = dataclasses.replace(cell, global_batch=max(1, cell.global_batch
+                                                    // M))
+
+    def probe(n):
+        return _probe(dataclasses.replace(cfg, n_layers=n), mb, backward)
+
+    G, tail = divmod(cfg.n_layers, P)
+    if G == 0:
+        return M * probe(cfg.n_layers)
+    c1 = probe(P)
+    total = c1
+    if G > 1:
+        total += (G - 1) * (probe(2 * P) - c1)
+    if tail:
+        total += probe(P + tail) - c1
+    return float(M * total)
+
+
+def mixer_flops(cfg: ModelConfig, cell: ShapeCell) -> float:
+    """The reference's analytic FLOPs of the temporal-mix kernels, for
+    one card: attention 4 B Hq Sq kv_len d_head (QK^T + PV; causal halves
+    kv_len, local caps it at the window); rwkv ~6 H D Dv per token; rglru
+    ~10 r per token; train x4 (forward, backward twice, the remat
+    recompute)."""
+    B, S = cell.global_batch, cell.seq_len
+    train = cell.kind == "train"
+    mult = 4.0 if train else 1.0
+    sq = 1 if cell.kind == "decode" else S
+    total = 0.0
+    H, dh = cfg.n_heads, cfg.d_head
+    for kind in cfg.layer_kinds:
+        if kind == "attn":
+            kv_len = S if cfg.bidirectional else (
+                S if cell.kind == "decode" else S / 2)
+            total += 4.0 * B * H * sq * kv_len * dh
+        elif kind == "local":
+            kv_len = min(cfg.local_window, S)
+            total += 4.0 * B * H * sq * kv_len * dh
+        elif kind == "rwkv":
+            d_head_r = cfg.d_model // H
+            total += 6.0 * B * sq * H * d_head_r * d_head_r
+        elif kind == "rglru":
+            total += 10.0 * B * sq * cfg.d_rnn
+    return mult * total
+
+
+def decode_state_bytes(cfg: ModelConfig, cell: ShapeCell) -> float:
+    """The reference's live KV / recurrent state a decode step reads."""
+    per_tok = 0
+    kv_b = 1 if cfg.kv_cache_dtype == "int8" else 2
+    for kind in cfg.layer_kinds:
+        if kind == "attn":
+            per_tok += 2 * cfg.n_kv_heads * cfg.d_head * kv_b * cell.seq_len
+        elif kind == "local":
+            per_tok += (2 * cfg.n_kv_heads * cfg.d_head * kv_b
+                        * min(cfg.local_window, cell.seq_len))
+        elif kind == "rglru":
+            per_tok += 4 * cfg.d_rnn * 4
+        elif kind == "rwkv":
+            H = cfg.n_heads
+            per_tok += H * (cfg.d_model // H) ** 2 * 4
+    return per_tok * cell.global_batch
+
+
+# ---------------------------------------------------------------------------
+# cells
+# ---------------------------------------------------------------------------
+
+def run_cell(arch: str, shape: str,
+             out_dir: pathlib.Path | None = None) -> dict:
+    cfg = configs.get(arch)
+    rec = {"arch": arch, "shape": shape, "mesh": MESH, "tag": ""}
+    ok, why = cell_supported(cfg, shape)
+    if not ok:
+        rec.update(status="skip", reason=why)
+        return _write(rec, out_dir)
+    cell = SHAPES[shape]
+    t0 = time.perf_counter()
+    mem = memory(cfg, cell)
+    depth = deepest_depth(cfg, lambda c: memory(c, cell)["peak_bytes"])
+    batch = largest_batch(cfg, cell)
+    train = cell.kind == "train"
+    mm = matmul_flops(cfg, cell, backward=train)
+    flops = mm + mixer_flops(cfg, cell)
+    executed = flops
+    if train and cfg.remat:     # the backward recomputes each forward
+        executed += matmul_flops(cfg, cell, backward=False)
+    tokens = cell.global_batch * (cell.seq_len if cell.kind != "decode"
+                                  else 1)
+    n = cfg.n_active_params() if cfg.moe else cfg.n_params()
+    model_flops = (6 if train else 2) * n * tokens
+    useful = None
+    if cell.kind == "decode":
+        useful = decode_state_bytes(cfg, cell) + 2 * n
+    hbm = roofline.analytic_hbm_bytes(cfg, cell)
+    rl = roofline.analyze(
+        {"flops": executed, "bytes accessed": hbm},
+        roofline.CollectiveStats({}, 0.0, 0.0), 1, model_flops, useful,
+        cell.kind)
+    rec.update(
+        status="ok", n_chips=1, probe_s=round(time.perf_counter() - t0, 3),
+        memory=dict(mem, peak_estimate_gb=round(mem["peak_bytes"] / 1e9, 3),
+                    limit_bytes=roofline.HBM_BYTES,
+                    fits=fits(mem["peak_bytes"]), deepest_depth=depth,
+                    n_layers=cfg.n_layers, largest_batch=batch,
+                    global_batch=cell.global_batch),
+        cost={"flops": flops, "flops_executed": executed,
+              "flops_matmul": mm, "bytes accessed": hbm},
+        roofline=roofline.to_dict(rl))
+    return _write(rec, out_dir)
+
+
+def _write(rec: dict, out_dir: pathlib.Path | None) -> dict:
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        name = f"{rec['arch']}_{rec['shape']}_{MESH}.json"
+        (out_dir / name).write_text(json.dumps(rec, indent=1))
+    return rec
+
+
+def run(archs, shapes, out_dir=None, log=print) -> list[dict]:
+    recs = []
+    for arch in archs:
+        for shape in shapes:
+            rec = run_cell(arch, shape, out_dir)
+            recs.append(rec)
+            if rec["status"] == "skip":
+                log(f"[skip] {arch} x {shape}: {rec['reason']}")
+                continue
+            m, r = rec["memory"], rec["roofline"]
+            log(f"[ok] {arch} x {shape}: peak {m['peak_estimate_gb']} GB "
+                f"({'fits' if m['fits'] else 'does not fit'} "
+                f"{roofline.HBM_BYTES / 1e9:.0f} GB), deepest depth "
+                f"{m['deepest_depth']} of {m['n_layers']}, largest batch "
+                f"{m['largest_batch']}; bound={r['bottleneck']} "
+                f"frac={r['roofline_fraction']:.3f} ({rec['probe_s']} s)")
+    return recs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="all")
+    ap.add_argument("--shape", default="all")
+    ap.add_argument("--out", default=str(ARTIFACTS))
+    args = ap.parse_args(argv)
+    archs = list(configs.ARCHS) if args.arch == "all" else args.arch.split(",")
+    shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
+    run(archs, shapes, pathlib.Path(args.out))
+    print("dry-run complete.")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

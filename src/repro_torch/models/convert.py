@@ -17,6 +17,13 @@ RWKV-6's ``mu_*`` and ``u``, and the MoE expert weights ``wi_gate``,
 ``lam``, RWKV-6's ``w0``, ``w_lora_a`` and ``w_lora_b``, and the MoE
 ``router``, which the reference uses in float32, stay float32; norm
 scales and the token table keep ``cfg.param_dtype``.
+
+The training layout (``Model(..., layout="train")``) keeps the
+reference's own leaves: ``leaf_map`` lists their shapes by path in the
+reference's tree order and says which leaf, and which row of a stacked
+leaf, holds each of the serving layout's parameters, the inverse of
+``params_from_jax``; ``leaves_from_jax`` flattens the reference's params
+onto those paths.
 """
 from __future__ import annotations
 
@@ -24,6 +31,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+
+ATTENTION = ("attn", "local")
+#: attention projections whose heads the reference keeps on their own axis
+_HEADS = ("t.wq", "t.wk", "t.wv", "t.wo", "t.bq", "t.bk", "t.bv")
 
 
 def _t(x) -> torch.Tensor:
@@ -74,3 +85,81 @@ def _index(tree, i):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _layer_slots(cfg: ModelConfig) -> list[tuple[str, int | None]]:
+    """For each layer, its reference subtree and row: ``("groups/<pos>",
+    g)`` for a layer of a stacked group, ``("tail/<i>", None)`` for the
+    remainder (``transformer.init_stack``)."""
+    kinds = cfg.layer_kinds
+    P = len(cfg.block_pattern)
+    n_groups = len(kinds) // P if cfg.scan_layers else 0
+    n_scanned = n_groups * P
+    return [(f"groups/{li % P}", li // P) if li < n_scanned
+            else (f"tail/{li - n_scanned}", None)
+            for li in range(len(kinds))]
+
+
+def _reference_shape(cfg: ModelConfig, kind: str | None, name: str,
+                    shape: tuple[int, ...]) -> tuple[int, ...]:
+    """The reference's shape of the serving parameter ``name`` (relative
+    to its layer, e.g. ``"t.wq"``; ``kind`` None for the embeddings):
+    attention projections keep their heads on an axis of their own."""
+    if kind not in ATTENTION or name not in _HEADS:
+        return tuple(shape)
+    dh = cfg.d_head
+    if name == "t.wo":                                  # (H dh, d)
+        return (shape[0] // dh, dh, shape[1])
+    if name.startswith("t.b"):                          # (H dh,)
+        return (shape[0] // dh, dh)
+    return (shape[0], shape[1] // dh, dh)               # (d, H dh)
+
+
+def leaf_map(cfg: ModelConfig, named_shapes) -> tuple[dict, dict]:
+    """``named_shapes``: (serving name, shape) pairs of a ``Model``'s
+    parameters.  Returns ``(leaves, rows)``: the reference's leaf shapes
+    by path in its tree order (dict keys sorted at every level, groups and
+    tail by index), and for each serving name its ``(path, row)``, row
+    None where the leaf is not stacked."""
+    slots = _layer_slots(cfg)
+    kinds = cfg.layer_kinds
+    found, rows = {}, {}
+    for name, shape in named_shapes:
+        head, _, rest = name.partition(".")
+        if head == "emb":
+            path, row, kind = f"emb/{rest}", None, None
+        else:
+            li, _, rest = rest.partition(".")
+            (path, row), kind = slots[int(li)], kinds[int(li)]
+            path = f"{path}/{rest.replace('.', '/')}"
+        rshape = _reference_shape(cfg, kind, rest, tuple(shape))
+        if row is not None:
+            found.setdefault(path, [0, rshape])[0] += 1
+        else:
+            found[path] = [None, rshape]
+        rows[name] = (path, row)
+    leaves = {path: (tuple(shape) if n is None else (n,) + tuple(shape))
+              for path, (n, shape) in found.items()}
+    return {k: leaves[k] for k in sorted(leaves, key=_tree_key)}, rows
+
+
+def _tree_key(path: str):
+    """Sort key of a leaf path in ``jax.tree`` order: dict keys sorted as
+    strings, sequence indices as numbers."""
+    return [(0, int(p), "") if p.isdigit() else (1, 0, p)
+            for p in path.split("/")]
+
+
+def leaves_from_jax(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """``repro``'s params (or any nested dict/tuple of arrays) as a flat
+    ``{path: float32 array}`` in tree order, the training layout's keys."""
+    out = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(leaves_from_jax(tree[k], f"{prefix}{k}/"))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            out.update(leaves_from_jax(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = np.array(tree, dtype=np.float32)
+    return out

@@ -33,7 +33,7 @@ def _normal_(p: nn.Parameter, scale: float, gen: torch.Generator) -> None:
     """Fill with N(0, 1) * scale drawn in f32 (``layers.py:23-24``)."""
     x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
                     device=p.device)
-    p.copy_(x * scale)
+    p.copy_(x.mul_(scale))          # one f32 temporary, not two
 
 
 def _dense_(p: nn.Parameter, fan_in: int, gen: torch.Generator) -> None:
@@ -46,10 +46,43 @@ def _dense_(p: nn.Parameter, fan_in: int, gen: torch.Generator) -> None:
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
-    """RMSNorm with ``(1 + scale)``, f32 math inside, x's dtype out."""
+    """RMSNorm with ``(1 + scale)``, f32 math inside, x's dtype out.
+
+    Where a gradient is being taken it runs as :class:`RMSNorm`, the
+    reference's custom VJP (``layers.py:42-70``); otherwise (serving) the
+    same forward runs as plain operations."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNorm.apply(x, scale, eps)
+    return _rms(x, scale, eps)[0]
+
+
+def _rms(x, scale, eps):
     xf = x.float()
     inv = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (xf * inv * (1.0 + scale.float())).to(x.dtype)
+    return (xf * inv * (1.0 + scale.float())).to(x.dtype), inv
+
+
+class RMSNorm(torch.autograd.Function):
+    """RMSNorm whose backward computes in f32 and hands back ``dx`` in x's
+    dtype and ``dscale`` in the scale's (``repro``'s ``_rms_bwd``): a
+    plain autodiff backward would leave f32 cotangents on the residual
+    stream."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        y, inv = _rms(x, scale, eps)
+        ctx.save_for_backward(x, scale, inv)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, inv = ctx.saved_tensors
+        xf, gf = x.float(), g.float()
+        n = xf * inv
+        gn = gf * (1.0 + scale.float())
+        dx = inv * (gn - n * (gn * n).mean(-1, keepdim=True))
+        dscale = (gf * n).reshape(-1, x.shape[-1]).sum(0)
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
 
 
 def rope(x, positions, theta: float):
@@ -228,3 +261,53 @@ class Embeddings(nn.Module):
         h = rmsnorm(x, self.final_ln).float()
         w = self.tok.t() if self.cfg.tie_embeddings else self.head
         return h @ w.float()
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(cfg: ModelConfig, logits, labels, mask=None):
+    """Mean token NLL + z-loss; logits f32 (B, S, V).  Returns ``(loss,
+    {"nll", "z"})`` as ``repro``'s ``cross_entropy``; the loss's backward
+    is :class:`CrossEntropy`'s."""
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=logits.device)
+    loss, nll, z = CrossEntropy.apply(logits, labels, mask.float(),
+                                      cfg.z_loss)
+    return loss, {"nll": nll, "z": z}
+
+
+class CrossEntropy(torch.autograd.Function):
+    """``sum(mask (logz - gold + z_loss logz^2)) / max(sum(mask), 1)``.
+
+    The backward writes ``softmax (1 + 2 z_loss logz) - onehot``, scaled
+    by the mask, into one new (B, S, V) tensor: autodiff of the same
+    expression would hold several logits-sized temporaries at once, and
+    the logits are the largest activation of a training step."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mask, z_loss):
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        nll = logz - gold
+        zl = z_loss * logz ** 2
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ctx.save_for_backward(logits, labels, mask, logz, denom)
+        ctx.z_loss = z_loss
+        nll_mean = (nll * mask).sum() / denom
+        z_mean = (zl * mask).sum() / denom
+        ctx.mark_non_differentiable(nll_mean, z_mean)
+        return ((nll + zl) * mask).sum() / denom, nll_mean, z_mean
+
+    @staticmethod
+    def backward(ctx, g, g_nll, g_z):
+        logits, labels, mask, logz, denom = ctx.saved_tensors
+        idx = labels.long()[..., None]
+        d = torch.sub(logits, logz[..., None]).exp_()   # softmax
+        d.mul_((1.0 + 2.0 * ctx.z_loss * logz)[..., None])
+        d.scatter_(-1, idx, d.gather(-1, idx) - 1.0)
+        d.mul_((mask * (g / denom))[..., None])
+        return d, None, None, None

@@ -1,53 +1,148 @@
-"""Model facade: parameters, init, prefill / decode steps and caches
-(counterpart of ``repro/models/model.py``).
+"""Model facade: parameters, init, prefill / decode steps, caches and
+the training loss (counterpart of ``repro/models/model.py``).
 
 ``Model`` owns its parameters (an ``nn.Module``) where the reference
 passes a params pytree; ``init`` fills them from an explicit
 ``torch.Generator`` with the reference's distributions, and
 ``repro_torch.models.convert`` carries the reference's own params across.
+
+Two layouts.  ``layout="serve"`` (the default) stores each weight once
+in the dtype it is used in (``layers.py``), with no gradient.
+``layout="train"`` keeps the reference's float32 leaves instead:
+``leaves`` maps each reference path (``"groups/0/t/wq"``) to a tensor in
+the reference's shape, every block-pattern group stacked on a leading
+layer axis and attention heads on their own axis, and ``grads`` holds a
+gradient buffer of the same shape for each.  The layer modules then hold
+no storage (they live on ``meta``); each forward binds every layer's
+weights to views of the leaves, cast to ``cfg.dtype`` where the
+reference casts them (``convert.leaf_map``).  The views' autograd leaves
+alias the leaves and their ``.grad`` aliases ``grads``, so a backward
+accumulates every layer's gradient in place into its row of the stacked
+buffer.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.runtime import resolve_device
-from . import kvcache, transformer
-from .layers import Embeddings, dtype_of
+from . import convert, kvcache, transformer
+from .layers import Embeddings, cross_entropy, dtype_of
 from .recurrent import rwkv_heads
+
+LAYOUTS = ("serve", "train")
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, backend: str = "auto",
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 layout: str = "serve"):
         super().__init__()
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown layout {layout!r}; have {LAYOUTS}")
         self.cfg = cfg
         self.backend = backend
+        self.layout = layout
         self.device = resolve_device(device)
-        self.emb = Embeddings(cfg, self.device)
+        where = self.device if layout == "serve" else torch.device("meta")
+        self.emb = Embeddings(cfg, where)
         self.layers = nn.ModuleList(
-            transformer.Layer(cfg, kind, self.device)
+            transformer.Layer(cfg, kind, where)
             for kind in cfg.layer_kinds)
+        if layout == "train":
+            self._init_leaves()
+
+    def _init_leaves(self) -> None:
+        shapes, self._row_of = convert.leaf_map(
+            self.cfg, ((n, p.shape) for n, p in self.named_parameters()))
+        dt = dtype_of(self.cfg.param_dtype)
+        self.leaves = {path: torch.empty(shape, dtype=dt, device=self.device)
+                       for path, shape in shapes.items()}
+        self.grads = {path: torch.zeros_like(t)
+                      for path, t in self.leaves.items()}
+        self._rows = {}
+        for name, (path, row) in self._row_of.items():
+            leaf, grad = self.leaves[path], self.grads[path]
+            if row is not None:
+                leaf, grad = leaf[row], grad[row]
+            t = leaf.detach().requires_grad_()
+            t.grad = grad
+            self._rows[name] = t
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def init(self, generator: torch.Generator | None = None) -> "Model":
         """Random weights: N(0, fan_in^-1/2) projections, N(0, 0.02) token
         table, zero norms and biases (``layers.py:23-31,228-242``).  The
-        generator must live on the model's device."""
+        generator must live on the model's device.  Both layouts draw the
+        same numbers in the same order; the serving layout stores them
+        cast to the dtype each weight is used in."""
         gen = generator
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
-        self.emb.init(gen)
-        for layer in self.layers:
-            layer.init(gen)
+        for prefix, module in self._modules_in_order():
+            with self.bound(prefix, module, cast=False):
+                module.init(gen)
         return self
+
+    def _modules_in_order(self):
+        yield "emb", self.emb
+        for i, layer in enumerate(self.layers):
+            yield f"layers.{i}", layer
+
+    def bound(self, prefix: str, module: nn.Module, cast: bool = True):
+        """Context in which ``module`` (``prefix`` in this model) runs on
+        the training layout's leaves: each parameter a view of its leaf's
+        row, reshaped to the serving shape and (``cast``) cast to the
+        serving dtype, which is where the reference casts it.  A no-op in
+        the serving layout."""
+        if self.layout == "serve":
+            return contextlib.nullcontext()
+        weights = {}
+        for name, p in module.named_parameters():
+            row = self._rows[f"{prefix}.{name}"]
+            if not cast:
+                row = row.detach()
+            w = row.reshape(p.shape)
+            weights[name] = w.to(p.dtype) if cast else w
+        return _bind(module, weights)
+
+    def weights(self) -> dict[str, torch.Tensor]:
+        """The tensors that hold this model's weights: the parameters
+        (serving layout) or the reference-shaped leaves (training)."""
+        if self.layout == "train":
+            return dict(self.leaves)
+        return dict(self.named_parameters())
+
+    @torch.no_grad()
+    def zero_grads(self) -> None:
+        for g in self.grads.values():
+            g.zero_()
+
+    # ------------------------------------------------------------------
+    def loss_fn(self, batch):
+        """Mean token NLL + z-loss + the MoE losses, with gradients
+        enabled (``repro``'s ``transformer.loss_fn``).  Returns ``(loss,
+        metrics)``; in the training layout a ``backward`` of the loss
+        accumulates into ``grads``."""
+        with torch.enable_grad():
+            logits, aux = transformer.train_forward(self, batch)
+            loss, metrics = cross_entropy(self.cfg, logits, batch["labels"],
+                                          batch.get("mask"))
+            for k, v in aux.items():
+                loss = loss + v
+                metrics[k] = v
+        metrics["loss"] = loss
+        return loss, metrics
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def forward(self, batch, last_only: bool = False):
         """Logits (B, S or 1, V) in f32, no caches."""
+        self._serving()
         logits, _, _ = transformer.forward(self, batch, last_only=last_only)
         return logits
 
@@ -58,6 +153,7 @@ class Model(nn.Module):
         ``capacity``: cache slots to allocate (default prompt length + 64,
         as the reference).  ``cache_out``: per-layer cache views to write
         into instead of allocating (see ``transformer.forward``)."""
+        self._serving()
         seq = (batch["embeds"] if self.cfg.embeds_only
                else batch["token_ids"]).shape[1]
         logits, caches, _ = transformer.forward(
@@ -67,7 +163,13 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, caches, batch):
+        self._serving()
         return transformer.decode_step(self, caches, batch)
+
+    def _serving(self) -> None:
+        if self.layout != "serve":
+            raise ValueError("prefill, decode and forward run on the serving "
+                             "layout; this model has the training layout")
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, capacity: int):
@@ -102,3 +204,20 @@ class Model(nn.Module):
 
 def build(cfg: ModelConfig, **kw) -> Model:
     return Model(cfg, **kw)
+
+
+@contextlib.contextmanager
+def _bind(module: nn.Module, weights: dict[str, torch.Tensor]):
+    """Run ``module`` with ``weights`` (dotted names) in place of its
+    parameters; the parameters come back on exit."""
+    saved = []
+    try:
+        for name, w in weights.items():
+            owner, _, attr = name.rpartition(".")
+            owner = module.get_submodule(owner)
+            saved.append((owner, attr, owner._parameters[attr]))
+            owner._parameters[attr] = w
+        yield module
+    finally:
+        for owner, attr, p in reversed(saved):
+            owner._parameters[attr] = p

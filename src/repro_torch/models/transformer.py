@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from . import kvcache, layers, moe, recurrent
@@ -121,6 +122,51 @@ def forward(model, batch, *, collect_kv=False, last_only=False,
     if last_only:
         x = x[:, -1:]
     return model.emb.logits(x), caches, aux_total
+
+
+def train_forward(model, batch):
+    """Full-sequence forward with gradients, for the loss: ``(logits,
+    aux)``, ``aux`` the MoE losses summed layer by layer in order, as the
+    reference's scan carries them.  In the training layout each layer
+    runs on its leaves (``Model.bound``).  With ``cfg.remat`` each
+    block-pattern group (and each remainder layer) is a
+    ``torch.utils.checkpoint`` region, as the reference checkpoints its
+    scan body and tail layers: a group keeps only its input, and its
+    activations and weight casts are recomputed in the backward."""
+    cfg = model.cfg
+    with model.bound("emb", model.emb):
+        x = model.emb.embed(batch)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+
+    def run(x, aux, span):
+        for li in span:
+            layer = model.layers[li]
+            with model.bound(f"layers.{li}", layer):
+                x, _, a = layer(x, positions, backend=model.backend)
+            aux = {k: aux[k] + a[k] if k in a else aux[k] for k in aux}
+        return x, aux
+
+    aux = {"moe_aux": 0.0, "moe_z": 0.0}
+    for span in remat_spans(cfg):
+        if cfg.remat:
+            x, aux = checkpoint(run, x, aux, span, use_reentrant=False)
+        else:
+            x, aux = run(x, aux, span)
+    with model.bound("emb", model.emb):
+        logits = model.emb.logits(x)
+    return logits, aux
+
+
+def remat_spans(cfg: ModelConfig) -> list[range]:
+    """The layers of each checkpoint region of ``train_forward``: one
+    block-pattern group each (the reference's scan body), then each
+    remainder layer."""
+    L = cfg.n_layers
+    P = len(cfg.block_pattern)
+    n_scanned = (L // P) * P if cfg.scan_layers else 0
+    return ([range(g, g + P) for g in range(0, n_scanned, P)]
+            + [range(i, i + 1) for i in range(n_scanned, L)])
 
 
 def decode_step(model, caches, batch):

@@ -23,8 +23,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "repro_torch runs on CUDA by default and no CUDA device is "
             "visible; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu' "
+                         "('meta' builds shapes only, for the dry run)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev

@@ -1,0 +1,181 @@
+"""Training loop: microbatched grad accumulation, checkpoint/restart
+(counterpart of ``repro/train/trainer.py``).
+
+``make_train_step`` builds the step: loss and gradients over
+``cfg.microbatches`` microbatches (the global batch never goes through
+the model at once), global-norm clip, optimizer update.  ``Trainer``
+wraps it with data, checkpointing (periodic + emergency-on-signal) and
+restart (bitwise-resumable thanks to the counter-mode pipeline).
+
+The model must have the training layout (``Model(..., layout="train")``):
+its ``leaves`` are ``TrainState.params`` and its ``grads`` the gradient
+buffers, both keyed and shaped as the reference's leaves, and the step
+updates them in place (the reference donates its state).  On a card the
+model runs the ``torch`` backend: the kernels have no backward and
+refuse a gradient (``kernels/ops.py``).  Restoring onto a mesh
+(``mesh=``) waits for the port's multi-device work.
+"""
+from __future__ import annotations
+
+import signal
+import time
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.data.pipeline import to_device
+from repro_torch.models import Model
+from . import checkpoint as ckpt_lib
+from . import optimizer as opt_lib
+
+
+@dataclass
+class TrainState:
+    step: int
+    params: Any
+    opt: Any
+
+
+def make_train_step(model: Model, optimizer: opt_lib.Optimizer,
+                    microbatches: int = 1) -> Callable:
+    cfg = model.cfg
+    if model.layout != "train":
+        raise ValueError("training needs Model(..., layout='train')")
+
+    def train_step(state: TrainState, batch):
+        if state.params is not model.leaves:
+            raise ValueError("state.params must be the model's leaves")
+        model.zero_grads()
+        if microbatches > 1:
+            # grads sum over microbatches in the buffers (0 + g1 + g2 ...),
+            # then divide, as the reference's scan accumulates
+            lsum = 0.0
+            for i in range(microbatches):
+                mb = {k: v.chunk(microbatches)[i] for k, v in batch.items()}
+                loss, _ = model.loss_fn(mb)
+                loss.backward()
+                lsum = lsum + loss.detach()
+            for g in model.grads.values():
+                g.div_(microbatches)
+            loss = lsum / microbatches
+            metrics = {}
+        else:
+            loss, metrics = model.loss_fn(batch)
+            loss.backward()
+            loss = loss.detach()
+            metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                       for k, v in metrics.items()}
+        grads, gnorm = opt_lib.clip_by_global_norm(model.grads,
+                                                   cfg.grad_clip)
+        optimizer.apply_(grads, state.opt, state.params, state.step)
+        out_metrics = dict(metrics)
+        out_metrics.update(loss=loss, grad_norm=gnorm)
+        state.step += 1
+        return state, out_metrics
+
+    return train_step
+
+
+class Trainer:
+    """Fault-tolerant single-controller training driver.
+
+    ``optimizer``: the reference builds its optimizer from the config
+    (``cfg.optimizer`` under ``warmup_cosine(cfg.learning_rate)``); one
+    given here replaces it."""
+
+    def __init__(self, model: Model, data, ckpt_dir: str | None = None,
+                 ckpt_every: int = 50, mesh=None,
+                 optimizer: opt_lib.Optimizer | None = None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "training on a mesh waits for the port's multi-device work")
+        self.model = model
+        cfg = model.cfg
+        if optimizer is None:
+            lr = opt_lib.warmup_cosine(cfg.learning_rate)
+            optimizer = opt_lib.make(
+                cfg.optimizer, lr, **({"weight_decay": cfg.weight_decay}
+                                      if cfg.optimizer == "adamw" else {}))
+        self.optimizer = optimizer
+        self.data = data
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = ckpt_every
+        self.mesh = mesh
+        self.step_fn = make_train_step(model, self.optimizer,
+                                       cfg.microbatches)
+        self.state: TrainState | None = None
+        self._interrupted = False
+
+    # ------------------------------------------------------------------
+    def init_state(self, generator: torch.Generator | None = None
+                   ) -> TrainState:
+        """Random weights from ``generator`` (on the model's device; seed
+        0 when None) and a fresh optimizer state, on the model's
+        device."""
+        self.model.init(generator)
+        opt = self.optimizer.init(self.model.leaves)
+        self.state = TrainState(0, self.model.leaves, opt)
+        return self.state
+
+    def restore_or_init(self, generator: torch.Generator | None = None
+                        ) -> TrainState:
+        if self.ckpt_dir and ckpt_lib.latest_step(self.ckpt_dir) is not None:
+            # shapes only: the checkpoint lands on the host, then each
+            # leaf is copied into the model's own storage
+            leaves = self.model.leaves
+            meta = {k: torch.empty_like(v, device="meta")
+                    for k, v in leaves.items()}
+            like = TrainState(0, meta, self.optimizer.init(meta))
+            got, _ = ckpt_lib.restore(self.ckpt_dir, like)
+            with torch.no_grad():
+                for path, t in got.params.items():
+                    leaves[path].copy_(t)
+            dev = self.model.device
+            opt = _map(got.opt, lambda t: t.to(dev))
+            self.state = TrainState(got.step, leaves, opt)
+            return self.state
+        return self.init_state(generator)
+
+    # ------------------------------------------------------------------
+    def _install_signal_handler(self):
+        def handler(signum, frame):   # emergency checkpoint on preemption
+            self._interrupted = True
+        try:
+            signal.signal(signal.SIGTERM, handler)
+        except ValueError:            # non-main thread (tests)
+            pass
+
+    def run(self, steps: int, log_every: int = 10,
+            on_metrics=None) -> list[dict]:
+        assert self.state is not None, "call restore_or_init first"
+        self._install_signal_handler()
+        history = []
+        t0 = time.perf_counter()
+        start = int(self.state.step)
+        for step in range(start, steps):
+            batch = to_device(self.data.batch_at(step), self.model.device)
+            self.state, metrics = self.step_fn(self.state, batch)
+            if self._interrupted:
+                if self.ckpt_dir:
+                    ckpt_lib.save(self.ckpt_dir, int(self.state.step),
+                                  self.state)
+                raise KeyboardInterrupt("preempted; emergency ckpt saved")
+            if self.ckpt_dir and (step + 1) % self.ckpt_every == 0:
+                ckpt_lib.save(self.ckpt_dir, int(self.state.step), self.state)
+            if (step + 1) % log_every == 0 or step == steps - 1:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["step"] = step + 1
+                m["wall_s"] = time.perf_counter() - t0
+                history.append(m)
+                if on_metrics:
+                    on_metrics(m)
+        if self.ckpt_dir:
+            ckpt_lib.save(self.ckpt_dir, int(self.state.step), self.state)
+        return history
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)

@@ -51,8 +51,8 @@ MODULES = sorted(
     ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
         [str(PKG)], prefix="repro_torch.")])
 #: the subpackages each slice added; walk_packages must reach all of them
-SUBPACKAGES = ("configs", "core", "kernels", "launch", "models", "obs",
-               "profiling", "serve")
+SUBPACKAGES = ("analysis", "configs", "core", "data", "kernels", "launch",
+               "models", "obs", "profiling", "serve", "train")
 
 
 def test_module_list_covers_every_subpackage():
