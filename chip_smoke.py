@@ -190,7 +190,29 @@ Phases, each fatal on failure:
    d. full-width dbrx-132b at the dry run's training depth, Adafactor,
    16 microbatches of one 256-token sequence, 3 steps: finite losses, the
    MoE losses in them; e. ``python -m repro_torch.launch.train --arch
-   stablelm-1.6b --steps 20`` exits 0.
+   stablelm-1.6b --steps 20`` exits 0;
+17. several ranks sharing the card (``torch.distributed`` over ``gloo``,
+   helper ranks of ``repro_torch.ranks.RankPool``): a. phase 7's
+   orin fixture in float64 at MD_POPULATION chains and SEARCH_STEPS steps
+   with the ring on 1, 2 and 4 ranks, and on one rank on the CPU (a
+   subprocess run alongside): assignment, objective and chain equal bit
+   for bit, both search kernels launched in every rank (the select
+   kernel once a step plus its warm-up); each run's wall seconds and
+   the seam's host ms per exchange (the first apart: it also waits out
+   the ranks' set-up skew); b. the expert-parallel MoE block on 2
+   ranks (mesh (data=1, model=2)): full-width dbrx-132b in bf16 over
+   EP_TOKENS tokens, each rank holding 8 of the 16 experts (finite,
+   equal on both ranks, the path taken); in float32 at capacity factor
+   E / k against the plain one-device block (EP_F32_TOL); the reduced
+   block against the CPU's one-device block (EP_REDUCED_TOL), and the
+   same block refusing 16 tokens (it holds a slice of the experts, and
+   16 tokens do not take the expert-parallel path); a float32
+   2-layer cut's prefill of EP_TOKENS tokens through the flash kernel on
+   each rank against the plain path (same argmax, <= E2E_F32_REL_TOL); c. the
+   gateway CLI at full width with ``--solver anneal --devices 2`` exits
+   0 and plans what ``--devices 1`` plans; d. phase 16's 2-layer cut
+   (its float32 leaves) saved, then restored onto the 2-rank mesh, each
+   rank's blocks bit for bit against its rows of the file's arrays.
 
 Each phase prints its seconds.  The last line is the contract line
 ``{"ok": true, "device": {...}}``; before it come the ``{"phase_s": ...}``,
@@ -198,7 +220,8 @@ Each phase prints its seconds.  The last line is the contract line
 ``{"search": ...}``,
 ``{"characterize": ...}``, ``{"serve_recurrent": ...}``,
 ``{"gateway": ...}``, ``{"fleet": ...}``, ``{"serve_moe": ...}``,
-``{"dryrun": ...}``, ``{"train": ...}`` and ``{"memory": ...}`` lines,
+``{"dryrun": ...}``, ``{"train": ...}``, ``{"multidevice": ...}`` and
+``{"memory": ...}`` lines,
 one
 ``{"kernels": [...]}`` line and the card's ``nvidia-smi`` name and power
 limit.  Without a CUDA device the
@@ -285,7 +308,7 @@ FIT_GATE = 0.05
 #: one process with the antagonist on each share of the SMs
 SPREAD_SHARES = (0.25, 0.5)
 SPREAD_REPEATS = 3
-PHASES = 16
+PHASES = 17
 #: phase 16a: full-width stablelm-1.6b training
 TRAIN_ARCH = "stablelm-1.6b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 8, 20, 3e-4
@@ -3593,6 +3616,441 @@ def train(fa, da, dev) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 17: several ranks on the card
+# ---------------------------------------------------------------------------
+
+#: the ranks of the ring search (sharing the card), and its population
+MD_DEVICES = (2, 4)
+MD_POPULATION = 4096
+#: the expert-parallel block: full-width dbrx-132b over 2 ranks, one
+#: block of EP_TOKENS tokens (the fewest that take the path)
+EP_ARCH, EP_RANKS, EP_TOKENS = "dbrx-132b", 2, 2048
+#: float32 expert-parallel block against the plain one-device block, at
+#: capacity factor E / k, where no expert can drop a token of either
+EP_F32_TOL = dict(atol=1e-4, rtol=1e-4)
+#: the reduced block on the card's ranks against the CPU's one-device
+#: block (tests/test_torch_moe.py's tolerance)
+EP_REDUCED_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def orin_tables():
+    from repro_torch.core import search_torch
+    req, model = fixture_requests()[ORIN]
+    return req, search_torch.build_tables(
+        req.platform, list(req.graphs), model, req.max_transitions,
+        iterations=list(req.iterations), depends_on=list(req.depends_on))
+
+
+def ring_key(device: str, devices: int, population: int = MD_POPULATION,
+             steps: int = SEARCH_STEPS) -> dict:
+    """Phase 7's orin fixture searched in float64 with the ring on
+    ``devices`` ranks; the incumbent's assignment, objective and chain."""
+    from repro_torch.core import search_torch
+    req, tables = orin_tables()
+    out = search_torch.anneal_search(
+        tables, objective=req.objective, seed=0, population=population,
+        steps=steps, precision="x64", devices=devices, device=device)
+    return dict(assignment=[list(a) for a in out.assignment],
+                objective=out.objective, chain=out.chain,
+                migrate=out.migrate, fanout=out.fanout)
+
+
+def ring_search(sd, se, dev) -> dict:
+    """17a: the ring search at 1, 2 and 4 ranks sharing the card, and at
+    one rank on the CPU (a subprocess, run alongside): the same incumbent
+    bit for bit, both search kernels launched in every rank."""
+    from repro_torch import ranks as rank_lib
+
+    cpu = subprocess.Popen(
+        [sys.executable, "-c", f"import json, chip_smoke; print(json.dumps("
+         f"chip_smoke.ring_key('cpu', 1, {MD_POPULATION}, {SEARCH_STEPS})))"],
+        cwd=ROOT, text=True,
+        stdout=subprocess.PIPE, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    rank_lib.share_devices(max(MD_DEVICES))
+    rows = {}
+    for devices in (1,) + MD_DEVICES:
+        pool_s = 0.0
+        if devices > 1:
+            t0 = time.perf_counter()
+            rank_lib.rank_pool(devices, dev)
+            pool_s = time.perf_counter() - t0
+        sd.launches = se.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, chunks = traced(lambda: ring_key(dev, devices, MD_POPULATION,
+                                              SEARCH_STEPS))
+        wall = time.perf_counter() - t0
+        if devices == 1:
+            ranks = [dict(rank=0, seam_ms=[], waves=chunks[0]["waves"],
+                          launches={"slowdown": sd.launches,
+                                    "search": se.launches})]
+        else:
+            ranks = chunks[0]["ranks"]
+        for r in ranks:
+            require(r["launches"]["search"] == SEARCH_STEPS + 1
+                    and r["launches"]["slowdown"] > 0,
+                    f"ring x{devices}: rank {r['rank']}'s search kernels "
+                    f"launched {r['launches']}")
+        # each exchange's host ms, by rank; the first also waits out the
+        # ranks' skew in set-up (library loads, warm-up, captures)
+        first = [r["seam_ms"][0] for r in ranks if r["seam_ms"]]
+        later = [ms for r in ranks for ms in r["seam_ms"][1:]]
+        rows[devices] = dict(got, wall_s=wall, pool_start_s=pool_s,
+                             ranks=ranks, seam_first_ms=first,
+                             seam_later_ms=(statistics.median(later)
+                                            if later else None))
+        print(f"  ring on {devices} rank(s): chain {got['chain']}, objective "
+              f"{got['objective']!r}, {wall:.2f} s (helper ranks started in "
+              f"{pool_s:.1f} s), seam "
+              + (f"first exchange {', '.join(f'{v:.1f}' for v in first)} "
+                 f"ms by rank, later ones median "
+                 f"{rows[devices]['seam_later_ms']} ms"
+                 if first else "local")
+              + f", select launches by rank "
+              f"{[r['launches']['search'] for r in ranks]}")
+    rank_lib.close_pool()
+    out, _ = cpu.communicate(timeout=600)
+    require(cpu.returncode == 0, f"the CPU's ring search exited "
+            f"{cpu.returncode}")
+    rows["cpu"] = json.loads(out.strip().splitlines()[-1])
+
+    def ident(row):
+        return (row["assignment"], row["objective"], row["chain"])
+    same = {str(k): ident(v) == ident(rows[1]) for k, v in rows.items()}
+    print(f"  incumbent equal to one rank's on the card, bit for bit: {same}")
+    require(all(same.values()), f"ring incumbents differ: {same}")
+    return dict(population=MD_POPULATION, steps=SEARCH_STEPS,
+                rows={str(k): v for k, v in rows.items()}, identical=same)
+
+
+def ep_configs(arch: str = EP_ARCH) -> dict:
+    """17b's configs of ``arch``: bf16 and float32 (at capacity factor
+    E / k, where no token can drop) one-layer cuts at full width, the
+    reduced config, and a float32 2-layer cut for the prefill."""
+    from repro_torch import configs
+    full = configs.get(arch)
+
+    def cut(dtype, layers=1, cf=None):
+        cfg = dataclasses.replace(full, n_layers=layers, dtype=dtype,
+                                  kv_cache_dtype=dtype)
+        if cf is None:
+            return cfg
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+    return dict(bf16=cut("bfloat16"),
+                f32=cut("float32", cf=full.moe.n_experts / full.moe.top_k),
+                reduced=full.reduced(), model=cut("float32", layers=2))
+
+
+def ep_block(cfg, dev, mesh=None, seed=0):
+    from repro_torch.models import moe
+    block = moe.MoE(cfg, dev, mesh=mesh)
+    block.init(torch.Generator(device=dev).manual_seed(seed))
+    return block
+
+
+def ep_input(cfg, dev, tokens, dtype):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    return torch.randn(1, tokens, cfg.d_model, generator=gen, device=dev,
+                       dtype=torch.float32).to(dtype)
+
+
+def ep_rank(dev_name: str, cfgs: dict) -> list:
+    """17b, on every rank of a 2-rank pool sharing the card (the mesh
+    (data=1, model=2)), with the configs ``ep_configs`` gives; returns
+    every rank's results."""
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import build
+
+    dev = torch.device(dev_name)
+    m = tmesh.device_mesh((1, EP_RANKS), device=dev.type)
+    res = {"rank": dist.get_rank()}
+
+    # bf16 at full width: each rank holds 8 of the 16 experts
+    cfg = cfgs["bf16"]
+    block = ep_block(cfg, dev, m)
+    res["held_gb"] = sum(getattr(block, n).numel() * 2 for n in
+                         ("wi_gate", "wi", "wo")) / 1e9
+    x = ep_input(cfg, dev, EP_TOKENS, torch.bfloat16)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with torch.no_grad():
+        block(x)                                   # warm-up
+        sync()
+        t0 = time.perf_counter()
+        y, _ = block(x)
+        sync()
+    res["bf16_ms"] = (time.perf_counter() - t0) * 1e3
+    res["bf16_finite"] = bool(torch.isfinite(y).all())
+    res["bf16_sum"] = float(y.float().sum())
+    res["bf16_ep_calls"] = block.ep_calls
+    del block, y
+    free_card()
+
+    # float32 at full width, against the plain one-device block on rank 0
+    cfg = cfgs["f32"]
+    x = ep_input(cfg, dev, EP_TOKENS, torch.float32)
+    block = ep_block(cfg, dev, m)
+    with torch.no_grad():
+        y, _ = block(x)
+    res["f32_ep_calls"] = block.ep_calls
+    del block
+    free_card()
+    if dist.get_rank() == 0:
+        with torch.no_grad():
+            want, _ = ep_block(cfg, dev)(x)
+        res["f32_err"] = float((y - want).abs().max())
+        res["f32_ok"] = bool(torch.allclose(y, want, **EP_F32_TOL))
+        del want
+    del y, x
+    free_card()
+
+    # the reduced block on the ranks against the CPU's one-device block
+    cfg = cfgs["reduced"]
+    block = ep_block(cfg, torch.device("cpu"))
+    x = ep_input(cfg, torch.device("cpu"), EP_TOKENS, torch.float32)
+    from repro_torch.models import moe
+    from repro_torch.models.convert import shard_experts
+    card = moe.MoE(cfg, dev, mesh=m)
+    card.load_state_dict(shard_experts(cfg, block.state_dict(), card.rules,
+                                       m))
+    with torch.no_grad():
+        want, _ = block(x)
+        got, _ = card(x.to(dev))
+    res["reduced_err"] = float((got.cpu() - want).abs().max())
+    res["reduced_ok"] = bool(torch.allclose(got.cpu(), want,
+                                            **EP_REDUCED_TOL))
+    res["reduced_ep_calls"] = card.ep_calls
+    # below the path's conditions (a decode step's token count) a block
+    # that holds a slice of the experts refuses the call
+    try:
+        with torch.no_grad():
+            card(x[:, :16].to(dev))
+        res["short_refused"] = False
+    except ValueError:
+        res["short_refused"] = True
+    del card
+
+    # a float32 2-layer cut of full-width dbrx-132b on the mesh: its
+    # prefill of EP_TOKENS tokens through the flash kernel, against the
+    # plain path
+    cfg = cfgs["model"]
+    model = build(cfg, backend="auto", device=dev, mesh=m)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = {"token_ids": torch.randint(
+        0, cfg.vocab, (1, EP_TOKENS), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(2))}
+    fa.launches = 0
+    logits = model.forward(batch, last_only=True).float()
+    res["prefill_flash_launches"] = fa.launches
+    model.backend = "torch"
+    plain = model.forward(batch, last_only=True).float()
+    res["prefill_ep_calls"] = sum(layer.c.ep_calls for layer in model.layers)
+    res["prefill_rel"] = float((logits - plain).abs().max()
+                               / plain.abs().max())
+    res["prefill_argmax_same"] = bool(
+        (logits.argmax(-1) == plain.argmax(-1)).all())
+    del model, logits, plain
+    free_card()
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, res)
+    return out
+
+
+def expert_parallel(fa, dev) -> dict:
+    """17b: the expert-parallel block on 2 ranks sharing the card."""
+    from repro_torch import ranks as rank_lib
+
+    rank_lib.share_devices(EP_RANKS)
+    ranks = rank_lib.rank_pool(EP_RANKS, dev).run("chip_smoke:ep_rank",
+                                                  dev.type, ep_configs())
+    for r in ranks:
+        print(f"  rank {r['rank']}: bf16 block of {EP_TOKENS} tokens "
+              f"{r['bf16_ms']:.2f} ms holding {r['held_gb']:.2f} GB of "
+              f"experts (expert-parallel {r['bf16_ep_calls']}x, the "
+              f"warm-up and the timed call); reduced "
+              f"block vs the CPU max |diff| {r['reduced_err']:.3g}; 2-layer "
+              f"prefill: {r['prefill_flash_launches']} flash launches, "
+              f"{r['prefill_ep_calls']} expert-parallel blocks, logits vs "
+              f"plain rel {r['prefill_rel']:.3g}, argmax same "
+              f"{r['prefill_argmax_same']}")
+        require(r["bf16_finite"] and r["bf16_ep_calls"] == 2
+                and r["f32_ep_calls"] == 1 and r["reduced_ep_calls"] == 1
+                and r["short_refused"],
+                f"rank {r['rank']}: the expert-parallel path: {r}")
+        require(r["reduced_ok"], f"rank {r['rank']}: reduced block off the "
+                f"CPU's by {r['reduced_err']}")
+        require(r["prefill_flash_launches"] == 2
+                and r["prefill_ep_calls"] == 4
+                and r["prefill_argmax_same"]
+                and r["prefill_rel"] <= E2E_F32_REL_TOL,
+                f"rank {r['rank']}: the 2-layer prefill: {r}")
+    require(len({r["bf16_sum"] for r in ranks}) == 1,
+            "the ranks' bf16 outputs differ")
+    f32 = ranks[0]
+    print(f"  float32 full-width block vs the plain one-device block: max "
+          f"|diff| {f32['f32_err']:.3g} (limit {EP_F32_TOL})")
+    require(f32["f32_ok"], f"float32 block off by {f32['f32_err']}")
+    return dict(tokens=EP_TOKENS, ranks=ranks)
+
+
+def start_serve_cli(work: Path) -> tuple:
+    """17c, started: the gateway CLI at full width with ``--devices 2``
+    (serving 2 requests a tenant) and with ``--devices 1`` (the plan
+    alone), both saving their plans; :func:`serve_cli_devices` ends it."""
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--gateway",
+            "--arch", "stablelm-1.6b", "--co-arch", "llama3.2-3b",
+            "--solver", "anneal"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {n: subprocess.Popen(
+        base + ["--devices", str(n), "--requests", "2",
+                "--save-plan", str(work / f"plan{n}.json")]
+        + ([] if n > 1 else ["--plan-only"]), env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for n in (1, 2)}
+    return procs, time.perf_counter()
+
+
+def serve_cli_devices(work: Path, started) -> dict:
+    """17c: ``--devices 2`` exited 0 and planned what ``--devices 1``
+    planned."""
+    from repro_torch.core import Plan
+    procs, t0 = started
+    outs = {n: p.communicate(timeout=900)[0] for n, p in procs.items()}
+    wall = time.perf_counter() - t0
+    for n, p in procs.items():
+        for line in outs[n].splitlines()[-6:]:
+            print(f"    [--devices {n}] {line}")
+        require(p.returncode == 0, f"serve --devices {n} exited "
+                f"{p.returncode}")
+    plans = {n: Plan.load(work / f"plan{n}.json") for n in (1, 2)}
+    params = plans[2].solver_params
+    same = plans[1].assignments == plans[2].assignments
+    print(f"  serve --gateway --devices 2 (full width): plan equal to "
+          f"--devices 1's {same}, solver params devices "
+          f"{params.get('devices')} migrate {params.get('migrate')} fanout "
+          f"{params.get('fanout')}; both done {wall:.1f} s after their "
+          f"start (beside 17d)")
+    require(same and params.get("devices") == 2,
+            "--devices 2's plan is not --devices 1's")
+    return dict(same_plan=same, wall_s=wall, params=params)
+
+
+def ckpt_rank(dev_name: str, ckpt_dir: str, like: dict) -> list:
+    """17d, on every rank: the checkpoint restored onto the (1, 2) mesh,
+    each leaf's dim 0 split over "model" where it divides; this rank's
+    blocks compared bit for bit with its rows of the file's arrays, cut
+    here by the rank's index (not by the sharding that placed them)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import sharding
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    m = tmesh.device_mesh((1, EP_RANKS), device=dev_name)
+    rules = {"rows": "model"}
+    shardings = {k: sharding.named_sharding(
+        m, rules, ("rows",) + (None,) * (v.dim() - 1), tuple(v.shape))
+        for k, v in like.items() if isinstance(v, torch.Tensor)}
+    t0 = time.perf_counter()
+    state, step = ckpt_lib.restore(ckpt_dir, like, shardings=shardings)
+    secs = time.perf_counter() - t0
+    import numpy as np
+    differ, split = [], 0
+    with np.load(Path(ckpt_dir) / f"ckpt_{step:08d}.npz") as data:
+        for k, v in state.items():
+            if not isinstance(like[k], torch.Tensor):
+                if v != like[k]:
+                    differ.append(k)
+                continue
+            whole = torch.from_numpy(data[k])
+            rows = whole.shape[0] // EP_RANKS
+            want = (whole[dist.get_rank() * rows:][:rows]
+                    if whole.shape[0] % EP_RANKS == 0 else whole)
+            local = v.to_local()
+            split += local.shape != v.shape
+            if local.device.type != dev_name or not torch.equal(
+                    local.cpu(), want):
+                differ.append(k)
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, dict(rank=dist.get_rank(), step=step,
+                                     differ=differ, split=split,
+                                     leaves=len(shardings), restore_s=secs))
+    return out
+
+
+def ckpt_on_mesh(dev, work: Path, cfg=None) -> dict:
+    """17d: phase 16's 2-layer cut (its float32 leaves, the training
+    layout) saved on one rank and restored onto the 2-rank mesh, bit for
+    bit."""
+    from repro_torch import ranks as rank_lib
+    from repro_torch.models import build
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    cfg = cfg or cut_config("float32")
+    model = build(cfg, backend="torch", device=dev, layout="train")
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    state = {"step": 0, "params": model.leaves}
+    t0 = time.perf_counter()
+    path = ckpt_lib.save(work / "ckpt", 0, state)
+    save_s = time.perf_counter() - t0
+    like = {k: (torch.empty(v.shape, dtype=v.dtype, device="meta")
+                if isinstance(v, torch.Tensor) else v)
+            for k, v in ckpt_lib.flatten(state).items()}
+    del model, state
+    free_card()
+    ranks = rank_lib.rank_pool(EP_RANKS, dev).run(
+        "chip_smoke:ckpt_rank", dev.type, str(work / "ckpt"), like)
+    gb = path.stat().st_size / 1e9
+    print(f"  {cfg.name} at {cfg.n_layers} layers: {gb:.2f} GB saved in "
+          f"{save_s:.1f} s")
+    for r in ranks:
+        print(f"  rank {r['rank']}: restored step {r['step']}, "
+              f"{r['leaves']} arrays ({r['split']} split over the model "
+              f"axis) in {r['restore_s']:.1f} s; differing {r['differ'][:3]}")
+        require(not r["differ"] and r["split"] > 0,
+                f"rank {r['rank']}: restore onto the mesh: {r}")
+    return dict(gb=gb, save_s=save_s, ranks=ranks)
+
+
+def multidevice(fa, sd, se, dev) -> dict:
+    """Phase 17: several ranks sharing the card."""
+    from repro_torch import ranks as rank_lib
+
+    t0 = time.perf_counter()
+    # helper ranks import this script by name
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)
+    free, total = torch.cuda.mem_get_info()
+    held = torch.cuda.memory_allocated() / 1e9
+    print(f"  rank 0 (this process) holds {held:.2f} GB "
+          f"({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved); the "
+          f"card has {free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    out = {"ring": ring_search(sd, se, dev)}
+    free_card()
+    work = tempfile.TemporaryDirectory()
+    started = None
+    try:
+        out["expert_parallel"] = expert_parallel(fa, dev)
+        # the CLI runs in processes of its own beside 17d
+        started = start_serve_cli(Path(work.name))
+        out["checkpoint"] = ckpt_on_mesh(dev, Path(work.name))
+        rank_lib.close_pool()
+        out["serve_cli"] = serve_cli_devices(Path(work.name), started)
+    finally:
+        rank_lib.close_pool()
+        for p in (started[0].values() if started else ()):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        work.cleanup()
+        free_card()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3723,6 +4181,10 @@ def main() -> int:
     planned = dryrun_phase()
     phase("train: stablelm-1.6b (AdamW) and dbrx-132b (Adafactor)")
     trained = train(fa, da, dev)
+    free_card()
+    phase("several ranks on the card: the ring search, the expert-parallel "
+          "MoE block, --devices 2, a checkpoint on a mesh")
+    ranks = multidevice(fa, sd, se, dev)
     phase(None)
 
     launches = dict(result["launches"], **found["orin_x64_cuda"]["launches"],
@@ -3747,6 +4209,11 @@ def main() -> int:
                 served["launches"][name],
             **{f"serve {arch} ({r['reduced']['n_layers']} layers)":
                r["launches"][name] for arch, r in moe_served.items()}}
+        if name == "flash_attention":
+            row["launches_by_path"].update({
+                f"expert-parallel {EP_ARCH} prefill, rank {r['rank']}":
+                r["prefill_flash_launches"]
+                for r in ranks["expert_parallel"]["ranks"]})
     for name, arch in (("rglru_scan", "recurrentgemma-9b"),
                        ("rwkv6_scan", "rwkv6-7b")):
         row = next(kr for kr in kernels if kr["name"] == name)
@@ -3760,7 +4227,12 @@ def main() -> int:
             "fleet pool solve (README)":
                 replayed["runs"]["readme"]["launches"][name],
             "fleet pool solve (measured PCCS)":
-                replayed["runs"]["measured"]["launches"][name]}
+                replayed["runs"]["measured"]["launches"][name],
+            **{f"ring search on {n} ranks, rank {r['rank']}":
+               r["launches"]["slowdown" if name == "piecewise_slowdown"
+                             else "search"]
+               for n, row_n in ranks["ring"]["rows"].items()
+               if n not in ("1", "cpu") for r in row_n["ranks"]}}
     found["build_s"] = build_s
     print(json.dumps({"phase_s": phase_s}))
     print(json.dumps({"timer": {"launch_floor_ms": floor_ms}}))
@@ -3774,6 +4246,7 @@ def main() -> int:
     print(json.dumps({"serve_moe": moe_served}))
     print(json.dumps({"dryrun": planned}))
     print(json.dumps({"train": trained}))
+    print(json.dumps({"multidevice": ranks}))
     print(json.dumps({"memory": MEMORY}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

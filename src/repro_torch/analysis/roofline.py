@@ -13,7 +13,8 @@ constants are the card's:
 
 One card runs no collectives, so ``t_collective`` is 0 and the
 reference's HLO collective parser (``parse_collectives``) waits for the
-port's multi-device work.
+dry run on a mesh of cards, the port's last slice (ROADMAP queue 1 item
+6).
 """
 from __future__ import annotations
 

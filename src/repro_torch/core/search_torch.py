@@ -42,7 +42,10 @@ graph increments).  Off the card, and with ``eager=True``, the same step
 functions run eagerly (:func:`repro_torch.kernels.graph.capture`).
 ``devices=None`` runs the population in island-aligned chunks with
 island migration; ``devices=1`` runs it in one call with the reference's
-ring migration wrapped locally; more devices are not ported.
+ring migration wrapped locally; ``devices=N`` runs it on N
+``torch.distributed`` ranks, the ring's seam crossing ranks at each
+exchange step (:class:`_Seam`; :func:`anneal_search` says how the ranks
+come to be).
 
 The scalar simulator stays authoritative: this module reports the device
 incumbent and its device objective; :mod:`repro_torch.core.solver_anneal`
@@ -51,11 +54,14 @@ re-simulates the winner on the host scalar path before any
 """
 from __future__ import annotations
 
+import time
+import traceback
 from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import prng
 from .accelerators import Platform
@@ -65,13 +71,19 @@ from .lowering import _platform_tables, graph_tables
 from .simulate_torch import (CHECK_EVERY, _tensor, dtype_of,
                              make_event_machine, surface_params)
 from ..kernels import graph as _graph
+from ..kernels import search as _select_kernel
+from ..kernels import slowdown as _slowdown_kernel
 from ..kernels.search import anneal_select
+from .. import ranks as _ranks
+from ..ranks import RankFailure
 from ..obs import get_tracer
 from ..runtime import resolve_device
 
 OBJECTIVES = ("latency", "throughput", "sum_inverse")
 MIGRATIONS = ("auto", "island", "ring")
-FANOUTS = ("auto", "shard_map", "pmap")
+#: ``ranks`` is the port's fan-out; the reference's jax fan-outs
+#: (``shard_map``, ``pmap``) are named so that they are refused with it
+FANOUTS = ("auto", "ranks", "shard_map", "pmap")
 
 #: chains per island — the migration neighborhood.  Must divide both the
 #: population and the chunk so islands never straddle a device call.
@@ -417,10 +429,11 @@ class _Chains:
         prop[torch.arange(P, device=asg.device), m, i] = a.to(asg.dtype)
         return torch.where(self.legal_all(prop)[:, None, None], prop, asg)
 
-    def migrate_step(self, cur, cur_obj, best, best_obj):
+    def fold(self, cur, cur_obj, best, best_obj):
         """Elitist island migration: the island's best incumbent replaces
-        its worst current member (then, for ``ring``, the previous
-        island's elite replaces the worst again, wrapping locally)."""
+        its worst current member.  Returns the folded ``(cur, cur_obj)``
+        as (islands, island, ...) and the islands' elites and their
+        objectives."""
         island, (w, gmax) = self.island, (self.tables.w, self.tables.gmax)
         P = cur.shape[0]
         nisl = P // island
@@ -434,31 +447,61 @@ class _Chains:
         cur_i = cur.reshape(nisl, island, w, gmax).clone()
         cur_i[r, dst] = elite
         obj_i[r, dst] = elite_obj
-        if self.migrate == "ring":
-            donor = torch.cat([elite[-1:], elite[:-1]])
-            donor_obj = torch.cat([elite_obj[-1:], elite_obj[:-1]])
-            dst2 = obj_i.argmax(1)                 # worst after the fold
-            cur_i[r, dst2] = donor
-            obj_i[r, dst2] = donor_obj
-        return cur_i.reshape(P, w, gmax), obj_i.reshape(P)
+        return cur_i, obj_i, elite, elite_obj
+
+    def ring(self, cur_i, obj_i, elite, elite_obj, seam, seam_obj):
+        """The ring: island j's worst member after the fold is replaced by
+        island j-1's elite in the global island order; ``seam`` is the
+        elite of the island before this call's first (the reference's
+        ``search_jax.py:425-449``)."""
+        r = torch.arange(cur_i.shape[0], device=cur_i.device)
+        donor = torch.cat([seam, elite[:-1]])
+        donor_obj = torch.cat([seam_obj, elite_obj[:-1]])
+        dst2 = obj_i.argmax(1)                     # worst after the fold
+        cur_i[r, dst2] = donor
+        obj_i[r, dst2] = donor_obj
+        return cur_i, obj_i
 
     def run(self, chain_idx, asg0, seed: int, n_steps: int, ex_every: int,
-            t0: float, t1: float, eager: bool):
+            t0: float, t1: float, eager: bool, seam=None):
         """``n_steps`` steps of the chains ``chain_idx`` from ``asg0``;
         returns ``(best_obj, best)`` and sets :attr:`stats`.
 
-        The steps are replays of four graphs over static buffers:
-        ``head`` (fold the device step into the keys, mutate, start the
-        machine, W waves, raise the flag if a lane is still active),
-        ``more`` (CHECK_EVERY waves, the flag again) while the flag is
-        up, ``tail`` (score, draw, select with the device temperature
-        into the state in place, step + 1), and ``migrate`` on its
-        steps.  Off the card, or with ``eager``
-        (:func:`repro_torch.kernels.graph.capture`), the same functions
-        run eagerly."""
+        The steps are replays of graphs over static buffers: ``head``
+        (fold the device step into the keys, mutate, start the machine, W
+        waves, raise the flag if a lane is still active), ``more``
+        (CHECK_EVERY waves, the flag again) while the flag is up,
+        ``tail`` (score, draw, select with the device temperature into
+        the state in place, step + 1), and on the exchange steps the
+        migration: ``fold`` (each island's elite replaces its worst
+        member, and the elites are kept), then, for ``ring``, the
+        ``seam``'s exchange on the host (the last island's elite goes to
+        the next rank and the previous rank's arrives; a collective
+        cannot be captured) and ``ring`` (it goes to the first island,
+        each other island's elite to the next island).  Off the card, or
+        with ``eager`` (:func:`repro_torch.kernels.graph.capture`), the
+        same functions run eagerly.
+
+        ``seam``: a :class:`_Seam` on one rank of several; by default
+        :class:`_LocalSeam`, whose ring closes on this rank's own last
+        island.  If this rank fails, it still joins the next exchange,
+        flagged, so that every rank stops there; the error is raised
+        after it."""
+        seam = _LocalSeam() if seam is None else seam
+        try:
+            return self._run(chain_idx, asg0, seed, n_steps, ex_every, t0,
+                             t1, eager, seam)
+        except Exception:
+            seam.fail()
+            raise
+
+    def _run(self, chain_idx, asg0, seed, n_steps, ex_every, t0, t1, eager,
+             seam):
         dt = self.tb["dur_t"].dtype
         P = asg0.shape[0]
-        L = self.tables.w * self.tables.gmax
+        w, gmax = self.tables.w, self.tables.gmax
+        L = w * gmax
+        nisl = P // self.island
         dev = asg0.device
         chain_keys = prng.fold_in(prng.key(seed, P, dev), chain_idx)
         temps = temperature_schedule(t0, t1, n_steps, dt)
@@ -475,6 +518,10 @@ class _Chains:
         step = torch.zeros((), dtype=torch.int64, device=dev)
         temp_of = torch.tensor(temps, dtype=dt, device=dev)
         flag = torch.zeros((), dtype=torch.bool, device=dev)
+        elite = torch.zeros(nisl, w, gmax, dtype=asg0.dtype, device=dev)
+        elite_obj = torch.zeros(nisl, dtype=dt, device=dev)
+        inbound = torch.zeros(1, w, gmax, dtype=asg0.dtype, device=dev)
+        inbound_obj = torch.zeros(1, dtype=dt, device=dev)
         stage = {}
 
         def head():
@@ -504,31 +551,115 @@ class _Chains:
             if commit:
                 step.add_(1)
 
-        def migrate(commit=True):
-            c, co = self.migrate_step(cur, cur_obj, best, best_obj)
+        def fold(commit=True):
+            c, co, el, elo = self.fold(cur, cur_obj, best, best_obj)
             if commit:
-                cur.copy_(c)
-                cur_obj.copy_(co)
+                cur.copy_(c.view(cur.shape))
+                cur_obj.copy_(co.view(cur_obj.shape))
+                elite.copy_(el)
+                elite_obj.copy_(elo)
 
+        def ring(commit=True):
+            c = cur.view(nisl, self.island, w, gmax)
+            co = cur_obj.view(nisl, self.island)
+            if not commit:
+                c, co = c.clone(), co.clone()
+            self.ring(c, co, elite, elite_obj, inbound, inbound_obj)
+
+        bodies = {"head": head, "more": more, "tail": tail, "fold": fold}
+        if self.migrate == "ring":
+            bodies["ring"] = ring
         # one uncommitted pass of every body first (on a side stream), so
         # each kernel's one-time set-up happens before capture
-        _graph.warm_up(lambda: (head(), more(), tail(False),
-                                migrate(False)), dev, eager)
-        graphs = [_graph.capture(fn, dev, eager)
-                  for fn in (head, more, tail, migrate)]
-        g_head, g_more, g_tail, g_migrate = graphs
-        self.stats["launches_per_graph"] = {
-            name: g.launches for name, g in zip(
-                ("head", "more", "tail", "migrate"), graphs)}
+        _graph.warm_up(lambda: [fn() if name in ("head", "more") else
+                                fn(False) for name, fn in bodies.items()],
+                       dev, eager)
+        g = {name: _graph.capture(fn, dev, eager)
+             for name, fn in bodies.items()}
+        self.stats["launches_per_graph"] = {name: gr.launches
+                                            for name, gr in g.items()}
         for i in range(len(temps)):
-            g_head.replay()
+            g["head"].replay()
             while bool(flag):                       # the step's one sync
-                g_more.replay()
+                g["more"].replay()
                 self.stats["overflow_replays"] += 1
-            g_tail.replay()
-            if (i + 1) % ex_every == 0:
-                g_migrate.replay()
+            g["tail"].replay()
+            if (i + 1) % ex_every:
+                continue
+            g["fold"].replay()
+            if "ring" not in g:
+                continue
+            got = seam.exchange(elite[-1:], elite_obj[-1:])
+            if got is None:                         # another rank failed
+                raise RankFailure("stopped: another rank failed")
+            inbound.copy_(got[0])
+            inbound_obj.copy_(got[1])
+            g["ring"].replay()
         return best_obj, best
+
+
+class _LocalSeam:
+    """The ring's seam on one rank: the last island's elite is the first
+    island's (the ring wraps locally)."""
+
+    def exchange(self, seam, seam_obj):
+        return seam, seam_obj
+
+    def fail(self) -> None:
+        pass
+
+
+class _Seam:
+    """The ring's seam between ranks (the reference's ``ppermute`` at
+    ``search_jax.py:437-442``): at each exchange step rank ``r`` sends its
+    last island's elite and objective to rank ``r + 1`` mod N and takes
+    rank ``r - 1``'s.  It is one ``all_gather`` of a few hundred bytes,
+    staged through host memory when the backend is ``gloo`` (which
+    carries CPU tensors); the objective travels as its bits, with a flag
+    that says whether the sender is still running.  Every rank makes the
+    same ``exchanges`` calls, so a failed rank joins the next one flagged
+    (:meth:`fail`) and every rank stops there."""
+
+    def __init__(self, rank: int, world: int, exchanges: int, row: int):
+        self.rank, self.world, self.row = rank, world, row
+        self.left = exchanges
+        self.broken = False
+        self.ms: list[float] = []
+
+    def exchange(self, seam, seam_obj):
+        """The previous rank's ``(seam, seam_obj)``, on ``seam``'s device,
+        or None when any rank was flagged."""
+        t0 = time.perf_counter()
+        bits = seam_obj.view(_BITS[seam_obj.dtype]).long()
+        out = self._gather(torch.cat([bits.new_ones(1), bits,
+                                      seam.reshape(-1).long()]))
+        if out is None:
+            return None
+        prev = out[(self.rank - 1) % self.world].to(seam.device)
+        got = (prev[2:].to(seam.dtype).reshape(seam.shape),
+               prev[1:2].to(_BITS[seam_obj.dtype]).view(seam_obj.dtype))
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    def fail(self) -> None:
+        """Join the next exchange flagged, if one is left."""
+        if self.left > 0 and not self.broken:
+            self._gather(torch.zeros(2 + self.row, dtype=torch.int64))
+
+    def _gather(self, payload):
+        stage = ("cpu" if dist.get_backend() == "gloo"
+                 else torch.device("cuda", torch.cuda.current_device()))
+        payload = payload.to(stage)
+        out = [torch.empty_like(payload) for _ in range(self.world)]
+        dist.all_gather(out, payload)
+        self.left -= 1
+        if not all(int(o[0]) for o in out):
+            self.broken = True
+            return None
+        return out
+
+
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
 
 
 # ---------------------------------------------------------------------------
@@ -565,14 +696,19 @@ def _nearest_multiple(value: int, quantum: int) -> int:
 
 def _validate_knobs(population: int, island: int, exchange_every: int,
                     steps: int, chunk: int | None, devices: int | None,
-                    migrate: str, fanout: str) -> tuple[int | None, str]:
+                    migrate: str, fanout: str,
+                    device=None) -> tuple[int | None, str, str | None]:
     """Fail fast on inconsistent knob combinations.
 
-    The reference's checks and messages, minus the mesh: ``devices`` is
-    ``None`` (island-aligned chunks, island migration) or ``1`` (one
-    call, ring migration by default), and ``fanout`` stays ``"auto"``.
-    Every rejection names the offending knob and the nearest legal value.
-    Returns the resolved ``(chunk, migrate)``.
+    The reference's checks and messages.  ``devices`` counts ranks: no
+    more than the visible devices of ``device``'s type unless
+    :func:`repro_torch.ranks.share_devices` let ranks share them
+    (the reference's ``xla_env.apply``), and, inside a process group,
+    its world size.  ``fanout`` resolves to ``"ranks"`` (the port's one
+    fan-out: a rank per device, :func:`anneal_search`); the reference's
+    ``shard_map`` and ``pmap`` are refused.  Every rejection names the
+    offending knob and the nearest legal value.  Returns the resolved
+    ``(chunk, migrate, fanout)``.
     """
     if island < 1 or exchange_every < 1 or steps < 0 or population < 1:
         raise ValueError("population/steps/island/exchange_every must be "
@@ -592,23 +728,48 @@ def _validate_knobs(population: int, island: int, exchange_every: int,
     if fanout not in FANOUTS:
         raise ValueError(f"unknown fanout {fanout!r}; "
                          f"one of {', '.join(FANOUTS)}")
-    if fanout != "auto":
-        raise ValueError(
-            f"fanout ({fanout!r}) fans a search out over a device mesh, "
-            f"which repro_torch does not run yet; nearest legal value: "
-            f"fanout='auto'")
     if devices is not None:
-        if devices != 1:
-            # the multi-card mesh is ROADMAP queue 1 item 6 (multi-device)
+        if devices < 1:
+            raise ValueError(f"devices ({devices}) must be >= 1")
+        if _in_group():
+            avail = dist.get_world_size()
+            if devices not in (1, avail):
+                raise ValueError(
+                    f"devices ({devices}) is not the world size ({avail}) "
+                    f"of the process group the search runs in; nearest "
+                    f"legal value: devices={avail}")
+        else:
+            dev = torch.device("cuda" if device is None else device)
+            avail = _ranks.rank_capacity(dev)
+            if devices > avail:
+                raise ValueError(
+                    f"devices ({devices}) exceeds the {avail} visible "
+                    f"{dev.type} device(s); nearest legal value: "
+                    f"devices={avail} (let N ranks share them with "
+                    f"repro_torch.ranks.share_devices(N) before the "
+                    f"search starts)")
+        quantum = island * devices
+        if population % quantum:
             raise ValueError(
-                f"devices ({devices}): repro_torch searches on one device; "
-                f"nearest legal value: devices=1")
-    elif migrate == "ring":
-        raise ValueError(
-            "migrate='ring' requires devices=N: the ring spans the "
-            "global island order, which the legacy chunked path "
-            "processes in separate device calls; nearest legal "
-            "value: migrate='island'")
+                f"population ({population}) is not a multiple of "
+                f"island*devices ({quantum}); nearest legal value: "
+                f"population={_nearest_multiple(population, quantum)}")
+        if fanout in ("shard_map", "pmap"):
+            raise ValueError(
+                f"fanout ({fanout!r}) is a jax mesh fan-out; repro_torch "
+                f"fans out over torch.distributed ranks; nearest legal "
+                f"value: fanout='ranks'")
+    else:
+        if fanout != "auto":
+            raise ValueError(
+                f"fanout ({fanout!r}) requires devices=N (the mesh "
+                f"path); nearest legal value: fanout='auto'")
+        if migrate == "ring":
+            raise ValueError(
+                "migrate='ring' requires devices=N: the ring spans the "
+                "global island order, which the legacy chunked path "
+                "processes in separate device calls; nearest legal "
+                "value: migrate='island'")
     if chunk is not None:
         if chunk < 1:
             raise ValueError(f"chunk ({chunk}) must be >= 1")
@@ -624,7 +785,15 @@ def _validate_knobs(population: int, island: int, exchange_every: int,
                 f"nearest legal value: chunk={population}")
     mig = migrate if migrate != "auto" else (
         "ring" if devices is not None else "island")
-    return chunk, mig
+    return chunk, mig, ("ranks" if devices is not None else None)
+
+
+def _in_group() -> bool:
+    """Whether the caller runs inside a process group of its own (every
+    rank calls the search), not a :class:`~repro_torch.ranks.RankPool`
+    this process leads."""
+    return (dist.is_available() and dist.is_initialized()
+            and not _ranks.in_pool())
 
 
 def anneal_search(
@@ -661,6 +830,19 @@ def anneal_search(
     runs the same step functions eagerly there (as the CPU always does),
     to compare the two.  It never changes the result.
 
+    ``devices=N`` runs the population on N ranks (``fanout="ranks"``)
+    with ``migrate="ring"``: rank ``r`` runs the global chains ``[r P/N,
+    (r+1) P/N)``, each keyed on its global index, and the ring's seam
+    crosses ranks at every exchange step (:class:`_Seam`).  Called inside
+    a process group of N ranks, every rank calls it with the same
+    arguments; called from a plain process, the process becomes rank 0
+    of a :class:`~repro_torch.ranks.RankPool` whose N - 1 helper
+    ranks start on first use and stay up.  Every rank returns the same
+    outcome, and the incumbent is bit-identical for a fixed ``(seed,
+    population, island, exchange_every)`` at any N that divides the
+    island count.  ``devices=None`` keeps the chunked path with island
+    migration.
+
     The same ``(seed, population, steps, island, exchange_every)`` always
     explores the same chains as ``repro``'s ``anneal_search`` and returns
     the same incumbent regardless of ``chunk`` and backend.  Inconsistent
@@ -670,10 +852,10 @@ def anneal_search(
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}; "
                          f"one of {', '.join(OBJECTIVES)}")
-    dt = dtype_of(precision)
-    chunk, migrate = _validate_knobs(
+    dtype_of(precision)
+    chunk, migrate, fanout_r = _validate_knobs(
         population, island, exchange_every, steps, chunk, devices,
-        migrate, fanout)
+        migrate, fanout, device)
     dev = resolve_device(device)
     pop = population
     if devices is not None:
@@ -705,29 +887,69 @@ def anneal_search(
             float(tables.iters[m]) * tables.dur_t[m, :, :].max(axis=-1).sum()
             for m in range(tables.w)))
     scale = max(scale, 1e-6)
-    t0, t1 = 0.1 * scale, 1e-4 * scale
+    knobs = dict(objective=objective, seed=seed, population=pop,
+                 steps=steps, island=island, exchange_every=exchange_every,
+                 chunk=chunk, precision=precision, backend=backend,
+                 devices=devices, migrate=migrate, fanout=fanout_r,
+                 asg_row=asg_row, t0=0.1 * scale, t1=1e-4 * scale,
+                 init_objective=init_objective, device=dev, eager=eager)
+    if devices is None or devices == 1:
+        return _search(tables, knobs, 0, 1)
+    if _in_group():
+        return _search(tables, knobs, dist.get_rank(), devices)
+    return _ranks.rank_pool(devices, dev).run(
+        "repro_torch.core.search_torch:_rank_search", tables, knobs)
 
+
+def _rank_search(tables: SearchTables, knobs: dict) -> SearchOutcome:
+    """One rank's share of a :class:`~repro_torch.ranks.RankPool`
+    search (every rank of the pool runs it)."""
+    return _search(tables, knobs, dist.get_rank(), dist.get_world_size())
+
+
+def _search(tables: SearchTables, kn: dict, rank: int,
+            world: int) -> SearchOutcome:
+    """The search of validated knobs ``kn`` as rank ``rank`` of
+    ``world``: every chunk of the population on one rank, or this rank's
+    slice and the gather of every rank's incumbents."""
+    dt = dtype_of(kn["precision"])
+    dev = kn["device"]
+    if world > 1 and dev.type == "cuda" and dist.get_backend() == "nccl":
+        dev = torch.device("cuda", rank)      # a card of its own
+    pop, steps, seed = kn["population"], kn["steps"], kn["seed"]
+    init_objective = kn["init_objective"]
     best_objs = np.empty(pop)
     best_rows = np.empty((pop, tables.w, tables.gmax), dtype=np.int64)
-    chains = _Chains(tables, _device_tables(tables, dt, dev), objective,
-                     island, migrate, backend,
-                     bits=64 if precision == "x64" else 32)
+    chains = _Chains(tables, _device_tables(tables, dt, dev), kn["objective"],
+                     kn["island"], kn["migrate"], kn["backend"],
+                     bits=64 if kn["precision"] == "x64" else 32)
     asg0_full = torch.as_tensor(
-        _scatter_population(tables, asg_row, pop, seed), device=dev)
+        _scatter_population(tables, kn["asg_row"], pop, seed), device=dev)
+    run = dict(seed=seed, n_steps=steps, ex_every=kn["exchange_every"],
+               t0=kn["t0"], t1=kn["t1"], eager=kn["eager"])
 
     tracer = get_tracer()
     with tracer.span("anneal_search", "search", population=pop,
-                     steps=steps, island=island, seed=seed,
-                     backend=backend, devices=devices,
-                     objective=objective) as search_sp:
+                     steps=steps, island=kn["island"], seed=seed,
+                     backend=kn["backend"], devices=kn["devices"],
+                     objective=kn["objective"]) as search_sp:
+        if world > 1:
+            per = pop // world
+            lo = rank * per
+            with tracer.span("anneal.chunk", "search", chunk=0, lo=0,
+                             hi=pop, includes_compile=False) as sp:
+                ranks = _rank_share(chains, tables, asg0_full, lo, lo + per,
+                                    run, rank, world, best_objs, best_rows)
+                sp.set(**chains.stats, ranks=ranks)
         incumbent = np.inf
-        for ci, lo in enumerate(range(0, pop, chunk)):
-            hi = min(lo + chunk, pop)
+        for ci, lo in enumerate(range(0, pop, kn["chunk"]) if world == 1
+                                else ()):
+            hi = min(lo + kn["chunk"], pop)
             with tracer.span("anneal.chunk", "search", chunk=ci, lo=lo,
                              hi=hi, includes_compile=False) as sp:
                 bo, br = chains.run(
                     torch.arange(lo, hi, device=dev), asg0_full[lo:hi],
-                    seed, steps, exchange_every, t0, t1, eager)
+                    **run)
                 best_objs[lo:hi] = bo.double().cpu().numpy()
                 best_rows[lo:hi] = br.cpu().numpy()
             if tracer.enabled:
@@ -765,9 +987,98 @@ def anneal_search(
         population=pop,
         steps=steps,
         seed=seed,
-        precision=precision,
-        backend=backend,
-        devices=devices,
-        migrate=migrate,
-        fanout=None,
+        precision=kn["precision"],
+        backend=kn["backend"],
+        devices=kn["devices"],
+        migrate=kn["migrate"],
+        fanout=kn["fanout"],
     )
+
+
+def _rank_share(chains, tables, asg0_full, lo, hi, run, rank, world,
+                best_objs, best_rows) -> list[dict]:
+    """Run this rank's chains ``[lo, hi)`` with the seam crossing ranks,
+    then gather every rank's incumbents into ``best_objs``/``best_rows``
+    and every rank's stats (returned, by rank).  A rank that failed
+    reports its traceback in the gather, and then every rank raises
+    :class:`~repro_torch.ranks.RankFailure` naming it."""
+    exchanges = (run["n_steps"] // run["ex_every"]
+                 if chains.migrate == "ring" else 0)
+    seam = _Seam(rank, world, exchanges, tables.w * tables.gmax)
+    counted = (_slowdown_kernel, _select_kernel)
+    before = [m.launches for m in counted]
+    error = result = None
+    try:
+        bo, br = chains.run(torch.arange(lo, hi, device=asg0_full.device),
+                            asg0_full[lo:hi], seam=seam, **run)
+        result = (bo.double().cpu().numpy(), br.cpu().numpy())
+    except RankFailure:
+        error = "stopped when another rank failed"
+    except Exception:
+        error = traceback.format_exc()
+    stats = dict(getattr(chains, "stats", {}), rank=rank, error=error,
+                 launches={m.__name__.rsplit(".", 1)[-1]: m.launches - b
+                           for m, b in zip(counted, before)},
+                 seam_ms=seam.ms)
+    gathered = [None] * world
+    dist.all_gather_object(gathered, (stats, result))
+    failed = [s for s, _ in gathered if s["error"] is not None]
+    if failed:
+        raise RankFailure("anneal_search failed on rank(s) " + "; ".join(
+            f"{s['rank']}: {s['error']}" for s in failed))
+    per = hi - lo
+    for r, (_, (bo, br)) in enumerate(gathered):
+        best_objs[r * per:(r + 1) * per] = bo
+        best_rows[r * per:(r + 1) * per] = br
+    return [s for s, _ in gathered]
+
+
+def compile_seconds(
+    tables: SearchTables,
+    *,
+    objective: str = "latency",
+    population: int = 1024,
+    island: int = DEFAULT_ISLAND,
+    backend: str = "auto",
+    precision: str = "float32",
+    devices: int | None = None,
+    migrate: str = "auto",
+    fanout: str = "auto",
+    device=None,
+) -> float:
+    """Seconds to make one rank's search ready to step: the counterpart
+    of the reference's AOT ``lower(...).compile()`` timer, which the port
+    has no executable for.  Times a one-step run of one rank's share of
+    the chains (``population / devices``) in this process: the kernels'
+    libraries loaded (built if missing), the first eager evaluation that
+    sizes the wave budget, the warm-up pass, the graph captures and the
+    one step (no seam is exchanged).  Records the ``search.compile`` span and
+    the ``search_compile_s`` gauge, as the reference does."""
+    from ..obs import get_registry
+    _, mig, _ = _validate_knobs(population, island, 16, 1, None, devices,
+                                migrate, fanout, device)
+    dev = resolve_device(device)
+    ndev = devices or 1
+    per = population // ndev
+    dt = dtype_of(precision)
+    tb = _device_tables(tables, dt, dev)
+    asg0 = torch.as_tensor(_scatter_population(
+        tables, default_init(tables), population, 0)[:per], device=dev)
+    with get_tracer().span("search.compile", "search",
+                           population=population, devices=ndev,
+                           backend=backend) as sp:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        chains = _Chains(tables, tb, objective, island, mig, backend,
+                         bits=64 if precision == "x64" else 32)
+        chains.run(torch.arange(per, device=dev), asg0, 0, 1, 2, 1.0, 1e-3,
+                   False)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        sp.set(compile_s=round(secs, 6))
+    get_registry().gauge(
+        "search_compile_s",
+        "seconds to make one rank's search ready to step").set(secs)
+    return secs

@@ -13,9 +13,9 @@ PRNG stream — so:
 Batches are Zipf-distributed token ids (vocab-shaped like natural text)
 with next-token labels; a file-backed reader with the same interface covers
 real corpora.  ``DataConfig``, ``SyntheticLM`` and ``FileBackedLM`` are
-the reference's, NumPy only, and give its batches bit for bit.  The
-reference's ``device_put_batch`` shards a batch over a mesh and waits for
-the port's multi-device work; ``to_device`` moves a batch to one device.
+the reference's, NumPy only, and give its batches bit for bit.
+``device_put_batch`` shards a batch over a mesh of ranks, as the
+reference's does; ``to_device`` moves a batch to one device.
 """
 from __future__ import annotations
 
@@ -92,3 +92,18 @@ def to_device(batch: dict[str, np.ndarray],
     counterpart of the reference's ``device_put_batch``)."""
     return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def device_put_batch(batch, mesh, rules) -> dict:
+    """Host numpy batch -> DTensors over ``mesh`` (a
+    ``repro_torch.launch.mesh.Mesh`` over ranks), each dim split as
+    ``sharding.spec`` resolves ("batch", "seq"[, None]) under ``rules``.
+    Every rank holds the whole batch (a pure function of the seed and
+    step) and keeps its own block: nothing crosses ranks."""
+    from repro_torch.models import sharding
+    out = {}
+    for k, v in batch.items():
+        logical = ("batch", "seq") if v.ndim == 2 else ("batch", "seq", None)
+        out[k] = sharding.named_sharding(mesh, rules, logical).place(
+            torch.as_tensor(np.ascontiguousarray(v)))
+    return out

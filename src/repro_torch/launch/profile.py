@@ -312,8 +312,9 @@ def main(argv=None) -> int:
     ap.add_argument("--solve-tolerance", type=float, default=0.05,
                     help="max generating-vs-measured objective deviation")
     ap.add_argument("--devices", type=int, default=None, metavar="N",
-                    help="device count of --solver anneal solves; the "
-                         "port searches on one device (1)")
+                    help="run --solver anneal solves on N ranks with the "
+                         "ring across them (the ranks may share the "
+                         "devices there are)")
     ap.add_argument("--search-budget-ms", type=float, default=None,
                     metavar="MS",
                     help="wall-clock budget per anneal solve: population/"
@@ -344,10 +345,13 @@ def main(argv=None) -> int:
     if (args.devices or args.search_budget_ms) and args.solver != "anneal":
         ap.error("--devices/--search-budget-ms tune the device-resident "
                  "search; they require --solver anneal")
-    if args.devices is not None and args.devices != 1:
-        # the multi-card mesh is ROADMAP.md queue 1 item 6 (multi-device)
-        ap.error(f"devices ({args.devices}): repro_torch searches on one "
-                 f"device; nearest legal value: devices=1")
+    if args.devices is not None:
+        if args.devices < 1:
+            ap.error(f"--devices {args.devices}: must be >= 1; nearest "
+                     f"legal value: devices=1")
+        # the reference's xla_env.apply(devices=N): N ranks may share
+        from repro_torch.ranks import share_devices
+        share_devices(args.devices)
 
     if args.fit is None:
         args.fit = "piecewise" if args.executor == "virtual" \

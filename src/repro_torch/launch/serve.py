@@ -52,8 +52,15 @@ run fails; ``--log-level`` and ``--log-json`` shape the log lines::
         --co-arch dbrx-132b --reduced --trace-out gw.trace.json \
         --metrics-out gw.metrics.json --log-json
 
-``--devices`` takes only 1: the search's multi-card mesh is ROADMAP.md
-queue 1 item 6.
+``--devices N`` (with ``--solver anneal``) runs every fresh anneal solve
+on N ranks with the ring across them; as the reference's
+``xla_env.apply(devices=N)`` lets N emulated devices share a host,
+``repro_torch.ranks.share_devices(N)`` lets the N ranks share the
+devices there are (N ranks on ``cuda:0``, or N CPU processes).  The
+N - 1 helper ranks start at the first solve and serve every later one::
+
+    python -m repro_torch.launch.serve --gateway --arch stablelm-1.6b \
+        --co-arch llama3.2-3b --solver anneal --devices 2
 """
 from __future__ import annotations
 
@@ -394,9 +401,11 @@ def main(argv=None) -> int:
                          "--device) | scalar | auto. Unknown names fail "
                          "listing the registered evaluators.")
     ap.add_argument("--devices", type=int, default=None, metavar="N",
-                    help="devices of the anneal search; only 1 (the "
-                         "multi-card mesh is ROADMAP.md queue 1 item 6); "
-                         "requires --solver anneal")
+                    help="run the anneal search on N ranks with the "
+                         "ring across them (torch.distributed; the ranks "
+                         "may share the devices there are, as the "
+                         "reference's emulated host devices do); requires "
+                         "--solver anneal")
     ap.add_argument("--search-budget-ms", type=float, default=None,
                     metavar="MS",
                     help="wall-clock budget for each fresh anneal solve "
@@ -424,10 +433,13 @@ def main(argv=None) -> int:
     if (args.devices or args.search_budget_ms) and args.solver != "anneal":
         ap.error("--devices/--search-budget-ms tune the device-resident "
                  "search; they require --solver anneal")
-    if args.devices is not None and args.devices != 1:
-        ap.error(f"--devices {args.devices}: repro_torch searches on one "
-                 f"device (the multi-card mesh is ROADMAP.md queue 1 item "
-                 f"6, Multi-device); nearest legal value: --devices 1")
+    if args.devices is not None:
+        if args.devices < 1:
+            ap.error(f"--devices {args.devices}: must be >= 1; nearest "
+                     f"legal value: devices=1")
+        # the reference's xla_env.apply(devices=N): N ranks may share
+        from repro_torch.ranks import share_devices
+        share_devices(args.devices)
     _check_registry(ap, args)
 
     if args.fleet:

@@ -80,6 +80,21 @@ def params_from_jax(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
     return out
 
 
+def shard_experts(cfg: ModelConfig, state: dict, rules, mesh) -> dict:
+    """``state`` (a whole model's, such as ``params_from_jax``'s, or one
+    MoE block's with names relative to it) with each expert weight cut to
+    the experts this rank of ``mesh`` holds (``moe.expert_slice``); the
+    rest is every rank's."""
+    from .moe import expert_slice
+    if cfg.moe is None:
+        return dict(state)
+    first, n = expert_slice(cfg, rules, mesh)
+    names = ("wi_gate", "wi", "wo")
+    return {k: (v[first:first + n] if k.rsplit(".", 1)[-1] in names
+                and (k.count(".") == 0 or ".c." in f".{k}") else v)
+            for k, v in state.items()}
+
+
 def _index(tree, i):
     """Row ``i`` of every leaf of a nested dict of stacked arrays."""
     if isinstance(tree, dict):

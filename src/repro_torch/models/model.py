@@ -19,6 +19,14 @@ reference casts them (``convert.leaf_map``).  The views' autograd leaves
 alias the leaves and their ``.grad`` aliases ``grads``, so a backward
 accumulates every layer's gradient in place into its row of the stacked
 buffer.
+
+``rules`` (default ``cfg.rules``, as the reference's) and ``mesh`` (a
+``repro_torch.launch.mesh.Mesh``) reach the mixture of experts, whose
+expert-parallel path reads them (``moe.MoE``); the dense layers stay
+replicated.  In the serving layout a mesh over ranks gives each rank
+only its slice of the experts (``convert.shard_experts`` cuts the
+reference's weights, ``convert.params_from_jax``'s, to that slice), and
+such a model runs only blocks that take the expert-parallel path.
 """
 from __future__ import annotations
 
@@ -39,18 +47,21 @@ LAYOUTS = ("serve", "train")
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, backend: str = "auto",
                  device: str | torch.device | None = None,
-                 layout: str = "serve"):
+                 layout: str = "serve", rules=None, mesh=None):
         super().__init__()
         if layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}; have {LAYOUTS}")
         self.cfg = cfg
+        self.rules = dict(cfg.rules if rules is None else rules)
+        self.mesh = mesh
         self.backend = backend
         self.layout = layout
         self.device = resolve_device(device)
         where = self.device if layout == "serve" else torch.device("meta")
         self.emb = Embeddings(cfg, where)
         self.layers = nn.ModuleList(
-            transformer.Layer(cfg, kind, where)
+            transformer.Layer(cfg, kind, where, self.rules,
+                              mesh if layout == "serve" else None)
             for kind in cfg.layer_kinds)
         if layout == "train":
             self._init_leaves()

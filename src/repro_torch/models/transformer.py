@@ -29,9 +29,11 @@ RECURRENT = ("rglru", "rwkv")
 class Layer(nn.Module):
     """One residual layer: a token mixer ``t`` and a channel mix ``c``, an
     MLP or (``cfg.moe``) a mixture of experts (none for ``rwkv``, which
-    carries its own)."""
+    carries its own).  ``rules`` and ``mesh`` reach the mixture of
+    experts, the one layer that reads them (``moe.MoE``)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, device=None,
+                 rules=None, mesh=None):
         super().__init__()
         self.kind = kind
         if kind in ATTENTION:
@@ -45,7 +47,7 @@ class Layer(nn.Module):
         if kind == "rwkv":
             self.c = None
         elif cfg.moe is not None:
-            self.c = moe.MoE(cfg, device)
+            self.c = moe.MoE(cfg, device, rules=rules, mesh=mesh)
         else:
             self.c = layers.MLP(cfg, device)
 

@@ -6,8 +6,9 @@ Checkpoints store host-side numpy arrays keyed by tree path (``step``,
 single .npz written atomically (tmp + rename) with a rolling ``latest``
 pointer and configurable keep count.  The paths and shapes are the
 reference's (the training layout keeps its leaves), so a checkpoint that
-either package writes restores in the other.  Restoring onto a mesh
-(``shardings=``) waits for the port's multi-device work.
+either package writes restores in the other.  Arrays stay whole on disk;
+``restore(..., shardings=)`` places each one under its sharding on a
+mesh of ranks, so either package's checkpoint restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -25,7 +26,10 @@ import torch
 def _children(tree):
     """(key, child) pairs of a tree node, in the reference's tree order:
     a dataclass's fields, a dict's keys sorted, a sequence's indices;
-    None for a leaf."""
+    None for a leaf (a sharding is one)."""
+    from ..models.sharding import NamedSharding
+    if isinstance(tree, NamedSharding):
+        return None
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return [(f.name, getattr(tree, f.name))
                 for f in dataclasses.fields(tree)]
@@ -102,19 +106,28 @@ def restore(ckpt_dir: str | pathlib.Path, like: Any,
     Each tensor leaf of ``like`` gives the dtype and device of its
     restored tensor (a ``meta`` leaf restores on the CPU); a number leaf
     restores as a Python number.  A shape that differs from ``like``'s
-    raises.  ``shardings`` (restoring onto a mesh) is not supported on
-    one device and raises."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh (shardings=) waits for the port's "
-            "multi-device work")
+    raises.  ``shardings``: a tree matching ``like`` whose tensor leaves
+    are ``sharding.NamedSharding`` (``sharding.tree_shardings``): each
+    tensor is restored whole and placed under its sharding (a DTensor of
+    this rank's block, on the mesh's device type), as the reference
+    re-places arrays on a new mesh (elastic rescale)."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     with np.load(ckpt_dir / f"ckpt_{step:08d}.npz") as data:
-        return _rebuild(like, data, ""), step
+        state = _rebuild(like, data, "")
+    if shardings is None:
+        return state, step
+    where = flatten(shardings)
+    missing = [k for k, v in flatten(state).items()
+               if isinstance(v, torch.Tensor) and k not in where]
+    if missing:
+        raise ValueError(f"shardings have no entry for {missing[0]}")
+    placed = {k: where[k].place(v) if isinstance(v, torch.Tensor) else v
+              for k, v in flatten(state).items()}
+    return _rebuild(state, placed, ""), step
 
 
 def _rebuild(like, data, prefix: str):
@@ -122,6 +135,8 @@ def _rebuild(like, data, prefix: str):
     if kids is None:
         key = prefix[:-1]
         arr = data[key]
+        if not isinstance(arr, np.ndarray):     # already restored
+            return arr
         shape = tuple(like.shape) if isinstance(like, torch.Tensor) else ()
         if tuple(arr.shape) != shape:
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != model "

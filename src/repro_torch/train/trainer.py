@@ -12,8 +12,8 @@ its ``leaves`` are ``TrainState.params`` and its ``grads`` the gradient
 buffers, both keyed and shaped as the reference's leaves, and the step
 updates them in place (the reference donates its state).  On a card the
 model runs the ``torch`` backend: the kernels have no backward and
-refuse a gradient (``kernels/ops.py``).  Restoring onto a mesh
-(``mesh=``) waits for the port's multi-device work.
+refuse a gradient (``kernels/ops.py``).  ``Trainer(mesh=)`` stores its
+mesh, as the reference's does; nothing reads it there either.
 """
 from __future__ import annotations
 
@@ -82,14 +82,12 @@ class Trainer:
 
     ``optimizer``: the reference builds its optimizer from the config
     (``cfg.optimizer`` under ``warmup_cosine(cfg.learning_rate)``); one
-    given here replaces it."""
+    given here replaces it.  ``mesh`` is stored and, as in the
+    reference, read by nothing here."""
 
     def __init__(self, model: Model, data, ckpt_dir: str | None = None,
                  ckpt_every: int = 50, mesh=None,
                  optimizer: opt_lib.Optimizer | None = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "training on a mesh waits for the port's multi-device work")
         self.model = model
         cfg = model.cfg
         if optimizer is None:
@@ -139,17 +137,30 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _install_signal_handler(self):
+        """Returns the handler it replaced, or None where it installed
+        none (a non-main thread, as in tests)."""
         def handler(signum, frame):   # emergency checkpoint on preemption
             self._interrupted = True
         try:
-            signal.signal(signal.SIGTERM, handler)
+            return signal.signal(signal.SIGTERM, handler)
         except ValueError:            # non-main thread (tests)
-            pass
+            return None
 
     def run(self, steps: int, log_every: int = 10,
             on_metrics=None) -> list[dict]:
+        """``steps`` steps under a SIGTERM handler that saves an emergency
+        checkpoint; the handler it replaced comes back when it returns or
+        raises, so that no handler keeps this trainer (and its model and
+        state) alive after the run."""
         assert self.state is not None, "call restore_or_init first"
-        self._install_signal_handler()
+        before = self._install_signal_handler()
+        try:
+            return self._run(steps, log_every, on_metrics)
+        finally:
+            if before is not None:
+                signal.signal(signal.SIGTERM, before)
+
+    def _run(self, steps, log_every, on_metrics) -> list[dict]:
         history = []
         t0 = time.perf_counter()
         start = int(self.state.step)

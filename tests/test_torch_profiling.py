@@ -573,7 +573,7 @@ def test_cli_torch_executor_reduced_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--ext-levels", "0.5,-1.0"], None),
-    (["--solver", "anneal", "--devices", "2"], "devices=1"),
+    (["--solver", "anneal", "--devices", "0"], "devices=1"),
     (["--devices", "1"], "require --solver anneal"),
     (["--trace-out", "x.json"], "requires --solve"),
 ])

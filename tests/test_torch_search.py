@@ -313,7 +313,12 @@ def host_loop(chains, chain_idx, asg0, seed, n_steps, ex_every, t0, t1):
             backend=chains.backend)
         cur, best = c.reshape(asg0.shape), b.reshape(asg0.shape)
         if (step + 1) % ex_every == 0:
-            cur, cur_obj = chains.migrate_step(cur, cur_obj, best, best_obj)
+            cur_i, obj_i, elite, elite_obj = chains.fold(cur, cur_obj, best,
+                                                         best_obj)
+            if chains.migrate == "ring":        # wrapped on this rank
+                chains.ring(cur_i, obj_i, elite, elite_obj, elite[-1:],
+                            elite_obj[-1:])
+            cur, cur_obj = cur_i.reshape(cur.shape), obj_i.reshape(-1)
     return best_obj, best
 
 
@@ -383,7 +388,7 @@ class TestGraphSteps:
         assert chunk["waves"] % simulate_torch.CHECK_EVERY == 0
         assert chunk["overflow_replays"] >= 0
         assert chunk["launches_per_graph"] == {
-            "head": {}, "more": {}, "tail": {}, "migrate": {}}
+            "head": {}, "more": {}, "tail": {}, "fold": {}}
 
 
 @pytest.fixture

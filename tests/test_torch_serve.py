@@ -183,8 +183,8 @@ def test_fleet_mode_replays_on_cpu(tmp_path, capsys):
     (["--co-arch", "llama3.2-3b", "--solver", "nope"], "unknown solver"),
     (["--co-arch", "llama3.2-3b", "--evaluator", "nope"],
      "unknown evaluator"),
-    (["--co-arch", "llama3.2-3b", "--solver", "anneal", "--devices", "2"],
-     "queue 1 item 6"),
+    (["--co-arch", "llama3.2-3b", "--devices", "2"],
+     "require --solver anneal"),
     (["--search-budget-ms", "5"], "require --solver anneal"),
     (["--trace", TRACE], "--trace requires --fleet"),
     (["--plan-only"], "require --gateway"),
