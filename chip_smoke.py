@@ -205,14 +205,34 @@ Phases, each fatal on failure:
    equal on both ranks, the path taken); in float32 at capacity factor
    E / k against the plain one-device block (EP_F32_TOL); the reduced
    block against the CPU's one-device block (EP_REDUCED_TOL), and the
-   same block refusing 16 tokens (it holds a slice of the experts, and
-   16 tokens do not take the expert-parallel path); a float32
+   same block on 16 tokens (below the expert-parallel path: its own
+   experts, the ranks' combines summed) against the CPU's; a float32
    2-layer cut's prefill of EP_TOKENS tokens through the flash kernel on
    each rank against the plain path (same argmax, <= E2E_F32_REL_TOL); c. the
    gateway CLI at full width with ``--solver anneal --devices 2`` exits
    0 and plans what ``--devices 1`` plans; d. phase 16's 2-layer cut
    (its float32 leaves) saved, then restored onto the 2-rank mesh, each
    rank's blocks bit for bit against its rows of the file's arrays.
+18. tensor-parallel serving on 2 ranks sharing the card (a (data 1,
+   model 2) mesh over ``gloo``): llama3.2-3b, recurrentgemma-9b and
+   rwkv6-7b at full width and depth and dbrx-132b at the mesh dry run's
+   depth for half the card, each built on the mesh under
+   ``cfg.serve_rules`` (``Model(mesh=, rules=)``), serve 4 prompts in 4
+   slots and MAX_NEW tokens a request through eager decode steps: the
+   tokens equal on both ranks, every kernel's launches exact per rank
+   (flash on each rank's heads, the decode kernel's split pass and
+   combine, RG-LRU on d_rnn / 2 channels, RWKV-6 on 32 heads a rank),
+   the collectives' op counts and operand bytes equal to the mesh dry
+   run's plan, a rank's KV bytes half the one-device cache's, each
+   rank's peak within the mesh dry run's; float32 cuts on the mesh
+   against the one-device plain path and prefill(n) + decode against
+   prefill(n + 1) (E2E_F32_REL_TOL, same argmax; llama's step lands in
+   rank 1's chunk); dbrx-132b's float32 block at 4 tokens against the
+   one-device block (MOE_ORACLE_TOL); reported: bf16 against the
+   one-device kernel path, the eager step's ms, busy share and the
+   collectives' host ms, and the mesh dry run's (1, 2) records.  Phase
+   3 also holds the decode kernel's split pass and combine, as entries
+   of their own, to their plain twins and times them.
 
 Each phase prints its seconds.  The last line is the contract line
 ``{"ok": true, "device": {...}}``; before it come the ``{"phase_s": ...}``,
@@ -220,8 +240,8 @@ Each phase prints its seconds.  The last line is the contract line
 ``{"search": ...}``,
 ``{"characterize": ...}``, ``{"serve_recurrent": ...}``,
 ``{"gateway": ...}``, ``{"fleet": ...}``, ``{"serve_moe": ...}``,
-``{"dryrun": ...}``, ``{"train": ...}``, ``{"multidevice": ...}`` and
-``{"memory": ...}`` lines,
+``{"dryrun": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``,
+``{"tensor_parallel": ...}`` and ``{"memory": ...}`` lines,
 one
 ``{"kernels": [...]}`` line and the card's ``nvidia-smi`` name and power
 limit.  Without a CUDA device the
@@ -308,7 +328,7 @@ FIT_GATE = 0.05
 #: one process with the antagonist on each share of the SMs
 SPREAD_SHARES = (0.25, 0.5)
 SPREAD_REPEATS = 3
-PHASES = 17
+PHASES = 18
 #: phase 16a: full-width stablelm-1.6b training
 TRAIN_ARCH = "stablelm-1.6b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 8, 20, 3e-4
@@ -571,6 +591,129 @@ def decode_checks(da, gen, dev) -> int:
                     f"lengths={list(lens)}", got, want, dtype)
             n += 1
     return n
+
+
+def split_pass_checks(da, gen, dev) -> int:
+    """The decode kernel's split pass and combine pass as entries of their
+    own (a cache split by sequence over the ranks of a mesh): each
+    chunk's partials through the kernel's combine against the plain
+    one-pass version over the whole cache, and the kernel's combine of
+    the plain twin's partials against the plain combine.  Chunks at
+    offsets, chunks past the length (empty), length 0, ring chunks
+    (lengths clamped to the capacity), groups of 1/3/6/8/16; then a
+    head-narrowed view of a wider cache through the one-pass kernel (the
+    replicated cache of a rank that attends for its own heads only)."""
+    # (B, S, Hq, Hkv, D, chunks, lengths)
+    cases = [(4, 1040, 24, 8, 128, 2, (8, 100, 513, 1000)),      # llama
+             (4, 1040, 24, 8, 128, 2, (0, 1, 520, 521)),
+             (4, 2048, 16, 1, 256, 2, (9, 1024, 2048, 2048)),    # the ring
+             (3, 768, 8, 8, 64, 3, (0, 256, 257)),               # G 1
+             (2, 1024, 48, 8, 128, 4, (1, 700)),                 # G 6
+             (2, 512, 64, 8, 64, 2, (300, 512)),                 # G 8
+             (4, 1040, 64, 4, 128, 2, (0, 1, 519, 1040))]        # G 16
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, Hq, Hkv, D, tp, lens in cases:
+            q = torch.randn(B, 1, Hq, D, generator=gen, device=dev).to(dtype)
+            k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype)
+            v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            c = S // tp
+            got = [da.decode_attention_partials(
+                q, k[:, r * c:(r + 1) * c].contiguous(),
+                v[:, r * c:(r + 1) * c].contiguous(), lengths, r * c)
+                for r in range(tp)]
+            out = da.decode_attention_combine(
+                torch.cat([g[0] for g in got], 2),
+                torch.cat([g[1] for g in got], 2), dtype)
+            want = da.decode_attention_torch(q, k, v, lengths)
+            torch.cuda.synchronize()
+            label = (f"split pass {str(dtype)[6:]} B{B} S{S} H{Hq}/{Hkv} "
+                     f"D{D} over {tp} chunks lengths={list(lens)}")
+            compare(label + ", combined", out, want, dtype)
+            plain = [da.decode_attention_partials_torch(
+                q, k[:, r * c:(r + 1) * c], v[:, r * c:(r + 1) * c],
+                lengths, r * c) for r in range(tp)]
+            ml, acc = (torch.cat([p[i] for p in plain], 2) for i in (0, 1))
+            compare(label + ", combine of the plain partials",
+                    da.decode_attention_combine(ml, acc, dtype),
+                    da.decode_attention_combine_torch(ml, acc, dtype), dtype)
+            n += 2
+            if Hkv > 1:             # this rank's heads of a whole cache
+                h = Hq // 2
+                kv_hi = (h - 1) // (Hq // Hkv) + 1
+                qh = q[:, :, :h].contiguous()
+                compare(label + f", heads 0-{h - 1} of a wider cache",
+                        da.decode_attention(qh, k[:, :, :kv_hi],
+                                            v[:, :, :kv_hi], lengths),
+                        da.decode_attention_torch(qh, k[:, :, :kv_hi],
+                                                  v[:, :, :kv_hi], lengths),
+                        dtype)
+                n += 1
+    return n
+
+
+def time_split_pass(da, timer, gen, dev) -> list:
+    """The two new entries at llama3.2-3b's per-rank shape on 2 ranks: the
+    split pass over one rank's chunk (520 of 1040 slots, all 24 query
+    heads over 8 kv heads of 128, bf16) at phase 18's prompt lengths,
+    beside the one-pass kernel on the same chunk; the combine of 2 ranks'
+    partials for the rank's 12 heads."""
+    B, S, Hq, Hkv, D, tp = 4, 1040, 24, 8, 128, 2
+    lens = tuple(n + MAX_NEW for n in PROMPT_LENS)
+    c = S // tp
+    q = torch.randn(B, 1, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, c, Hkv, D, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    ml, acc = da.decode_attention_partials(q, k, v, lengths, 0)
+    pml, pacc = da.decode_attention_partials_torch(q, k, v, lengths, 0)
+    err = compare("split pass timed shape, combined",
+                  da.decode_attention_combine(ml, acc, torch.bfloat16),
+                  da.decode_attention_combine_torch(pml, pacc,
+                                                    torch.bfloat16),
+                  torch.bfloat16)
+    live = sum(min(n, c) for n in lens)
+    J = acc.shape[2]
+    part_bytes = B * Hq * J * (D + 2) * 4
+    flops = 4 * Hq * D * live
+    b_ms, b_by = bound(flops, 2 * live * Hkv * D * 2 + B * Hq * D * 2
+                       + B * 4 + part_bytes)
+    shape = (f"B{B} chunk {c} of {S} H{Hq}/{Hkv} D{D} bf16 lengths="
+             f"{list(lens)} (rank 0), {J} splits")
+    partials = dict(
+        name="decode_attention_partials", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:72",
+        shape=shape, max_abs_err=err,
+        ms=timer(lambda: da.decode_attention_partials(q, k, v, lengths, 0)),
+        plain_ms=timer(lambda: da.decode_attention_partials_torch(
+            q, k, v, lengths, 0)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        one_pass_ms=timer(lambda: da.decode_attention(q, k, v, lengths)))
+    # the combine of a rank's 12 heads over both ranks' partials
+    h = Hq // tp
+    ml2 = torch.cat([ml[:, :h]] * tp, 2).contiguous()
+    acc2 = torch.cat([acc[:, :h]] * tp, 2).contiguous()
+    err = compare("combine timed shape",
+                  da.decode_attention_combine(ml2, acc2, torch.bfloat16),
+                  da.decode_attention_combine_torch(ml2, acc2,
+                                                    torch.bfloat16),
+                  torch.bfloat16)
+    nbytes = B * h * tp * J * (D + 2) * 4 + B * h * D * 2
+    b_ms, b_by = bound(3 * B * h * tp * J * D, nbytes, PEAK_F32_FLOPS)
+    combine = dict(
+        name="decode_attention_combine", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:72",
+        shape=f"B{B} H{h} D{D}, {tp} ranks x {J} splits, bf16 out",
+        max_abs_err=err,
+        ms=timer(lambda: da.decode_attention_combine(ml2, acc2,
+                                                     torch.bfloat16)),
+        plain_ms=timer(lambda: da.decode_attention_combine_torch(
+            ml2, acc2, torch.bfloat16)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return [partials, combine]
 
 
 def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
@@ -3825,13 +3968,14 @@ def ep_rank(dev_name: str, cfgs: dict) -> list:
                                             **EP_REDUCED_TOL))
     res["reduced_ep_calls"] = card.ep_calls
     # below the path's conditions (a decode step's token count) a block
-    # that holds a slice of the experts refuses the call
-    try:
-        with torch.no_grad():
-            card(x[:, :16].to(dev))
-        res["short_refused"] = False
-    except ValueError:
-        res["short_refused"] = True
+    # that holds a slice of the experts takes the other path over them,
+    # the ranks' combines summed (phase 18 serves through it)
+    with torch.no_grad():
+        short, _ = card(x[:, :16].to(dev))
+        want_short, _ = block(x[:, :16])
+    res["short_ok"] = bool(torch.allclose(short.cpu(), want_short,
+                                          **EP_REDUCED_TOL))
+    res["short_ep_calls"] = card.ep_calls - res["reduced_ep_calls"]
     del card
 
     # a float32 2-layer cut of full-width dbrx-132b on the mesh: its
@@ -3880,7 +4024,7 @@ def expert_parallel(fa, dev) -> dict:
               f"{r['prefill_argmax_same']}")
         require(r["bf16_finite"] and r["bf16_ep_calls"] == 2
                 and r["f32_ep_calls"] == 1 and r["reduced_ep_calls"] == 1
-                and r["short_refused"],
+                and r["short_ok"] and r["short_ep_calls"] == 0,
                 f"rank {r['rank']}: the expert-parallel path: {r}")
         require(r["reduced_ok"], f"rank {r['rank']}: reduced block off the "
                 f"CPU's by {r['reduced_err']}")
@@ -4051,6 +4195,433 @@ def multidevice(fa, sd, se, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: tensor-parallel serving on ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: two ranks of a (data 1, model 2) mesh over gloo, sharing the card
+TP_SIZES = (1, 2)
+TP_SLOTS, TP_CAPACITY = 4, 1040
+#: recurrentgemma-9b: its prompts end past the 2048-token window
+TP_RG_LENS, TP_RG_CAPACITY = (8, 100, 513, 2300), RG_CAPACITY
+#: the float32 cuts: llama3.2-3b's 2 layers; the recurrent models' 3
+#: (recurrentgemma-9b's rglru, rglru, local)
+TP_F32_LAYERS = {"llama3.2-3b": 2, "recurrentgemma-9b": 3, "rwkv6-7b": 3}
+#: prefill(n) + one decode step against prefill(n + 1): the step's token
+#: lands on slot 520, the first of rank 1's chunk of 1040
+TP_STEP_N = 520
+#: dbrx-132b's depth: the mesh dry run's deepest whose per-rank peak fits
+#: this share of the card (two ranks share it; the 10% left covers both
+#: contexts and rank 0's earlier allocations)
+TP_CARD_SHARE = 0.9 / 2
+TP_MOE_ARCH = "dbrx-132b"
+
+
+def tp_desc():
+    from repro_torch.launch import mesh as tmesh
+    return tmesh.Mesh(("data", "model"), TP_SIZES)
+
+
+def tp_peak(cfg, capacity, lens) -> dict:
+    from repro_torch.launch import dryrun
+    return dryrun.mesh_serve_memory(cfg, tp_desc(), TP_SLOTS, capacity, 1,
+                                    max(lens))
+
+
+def tp_depth(arch) -> int:
+    from repro_torch import configs
+    from repro_torch.analysis.roofline import HBM_BYTES
+    from repro_torch.launch import dryrun
+    return dryrun.deepest_depth(
+        configs.get(arch), lambda c: tp_peak(c, TP_CAPACITY,
+                                             PROMPT_LENS)["peak_bytes"],
+        TP_CARD_SHARE * HBM_BYTES)
+
+
+def tp_counts() -> dict:
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     rglru, rwkv6)
+    return dict(flash_attention=flash_attention.launches,
+                decode_attention=decode_attention.launches,
+                decode_attention_partials=decode_attention.partials_launches,
+                decode_attention_combine=decode_attention.combine_launches,
+                rglru_scan=rglru.launches, rwkv6_scan=rwkv6.launches)
+
+
+def tp_zero() -> None:
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     rglru, rwkv6)
+    from repro_torch.models import collectives
+    for m in (flash_attention, rglru, rwkv6):
+        m.launches = 0
+    decode_attention.launches = decode_attention.partials_launches = 0
+    decode_attention.combine_launches = 0
+    collectives.reset()
+
+
+def tp_serve(model, prompts, capacity, dev) -> dict:
+    """Each prompt prefilled into its slot of TP_SLOTS x ``capacity``
+    caches, then MAX_NEW greedy decode steps of every slot, eager; the
+    prefill logits, the tokens and each step's ms."""
+    from repro_torch.models import kvcache
+    caches = model.init_cache(TP_SLOTS, capacity)
+    last, toks = [], []
+    for i, p in enumerate(prompts):
+        views = [kvcache.select(c, i) for c in caches]
+        logits, _ = model.prefill(
+            {"token_ids": torch.as_tensor(p[None], device=dev)},
+            capacity=capacity, cache_out=views)
+        last.append(logits[0, -1].float())
+        toks.append(int(logits[0, -1].argmax()))
+    tok = torch.tensor(toks, dtype=torch.int32, device=dev)[:, None]
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                           device=dev)
+    out, ms = [tok[:, 0].tolist()], []
+    for _ in range(MAX_NEW - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(
+            caches, {"token_ids": tok, "lengths": lengths})
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(tok[:, 0].tolist())
+        lengths = lengths + 1
+    return dict(last=torch.stack(last), tokens=[list(t) for t in zip(*out)],
+                step_ms=ms, caches=caches, tok=tok, lengths=lengths)
+
+
+def tp_build(cfg, dev, mesh, backend="auto", seed=0):
+    from repro_torch.models import build
+    model = build(cfg, backend=backend, device=dev, mesh=mesh,
+                  rules=cfg.serve_rules if mesh is not None else None)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    return model
+
+
+def tp_bf16(arch, depth, capacity, lens, dev, m) -> dict:
+    """One bf16 model on the mesh at full width: tokens, exact launches,
+    collectives against the dry run's plan, the rank's KV bytes, its peak
+    against the mesh dry run's, and (rank 0) the logits and tokens of the
+    one-device kernel path on the same weights."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.analysis import roofline
+    from repro_torch.launch import dryrun
+    from repro_torch.models import collectives
+
+    cfg = dataclasses.replace(configs.get(arch), n_layers=depth)
+    prompts = make_prompts(cfg.vocab, lens)
+    base = torch.cuda.memory_allocated()
+    print(f"  rank {dist.get_rank()}, {arch} ({depth} layers): holds "
+          f"{base / 1e9:.2f} GB before the build", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tp_build(cfg, dev, m)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tp_zero()
+    got = tp_serve(model, prompts, capacity, dev)
+    counts = tp_counts()
+    recs = list(collectives.records)
+    coll_s = collectives.seconds
+    peak = torch.cuda.max_memory_allocated() - base
+    kv = sum(t.numel() * t.element_size() for c in got["caches"]
+             for x in c.values() if isinstance(x, dict) for t in x.values())
+    plan = dryrun.serve_collectives(cfg, tp_desc(), TP_SLOTS, capacity,
+                                    lens, MAX_NEW - 1)
+    mine = roofline.parse_collectives(collectives.hlo_text(recs))
+    want = roofline.parse_collectives(collectives.hlo_text(plan))
+    # the eager step's profile, on copies of the caches' state
+    state = dict(caches=got["caches"], tok=got["tok"],
+                 lengths=got["lengths"])
+
+    def step():
+        model.decode_step(state["caches"], {"token_ids": state["tok"],
+                                            "lengths": state["lengths"]})
+    collectives.reset()
+    prof = profile_steps(step, steps=4)
+    prof["collective_host_ms_per_step"] = collectives.seconds * 1e3 / 8
+    collectives.reset()
+    res = dict(arch=arch, n_layers=depth, rank=dist.get_rank(),
+               build_s=build_s, tokens=got["tokens"],
+               step_ms=got["step_ms"], launches=counts,
+               collectives=dict(op_counts=mine.op_counts,
+                                operand_bytes=mine.operand_bytes,
+                                moved_bytes=mine.moved_bytes,
+                                host_s=coll_s),
+               planned=dict(op_counts=want.op_counts,
+                            operand_bytes=want.operand_bytes,
+                            moved_bytes=want.moved_bytes),
+               kv_bytes=kv, peak_bytes=peak,
+               predicted_peak_bytes=tp_peak(cfg, capacity,
+                                            lens)["peak_bytes"],
+               profile=prof)
+    last = got["last"]
+    del model, got, state, step
+    free_card()
+    # the one-device model needs the card the ranks' blocks held: every
+    # rank frees its blocks first, and waits for rank 0's run
+    dist.barrier()
+    if dist.get_rank() == 0:        # the one-device kernel path
+        one = tp_build(cfg, dev, None)
+        ref = tp_serve(one, prompts, capacity, dev)
+        res["one_device_kv_bytes"] = sum(
+            t.numel() * t.element_size() for c in ref["caches"]
+            for x in c.values() if isinstance(x, dict) for t in x.values())
+        res["bf16_rel_err"] = [rel_err(g, w) for g, w in
+                               zip(last, ref["last"])]
+        res["bf16_argmax_same"] = [int(g.argmax()) == int(w.argmax())
+                                   for g, w in zip(last, ref["last"])]
+        res["tokens_in_common"] = [
+            sum(a == b for a, b in zip(x, y))
+            for x, y in zip(res["tokens"], ref["tokens"])]
+        del one, ref
+        free_card()
+    dist.barrier()
+    return res
+
+
+def tp_f32(arch, dev, m) -> dict:
+    """A float32 cut of ``arch`` at full width on the mesh (the kernel
+    path) against the one-device plain path on the same weights (the
+    recurrent models' PERTURBED ones too, cut to each rank by
+    ``shard_params``): the last prompt's prefill logits, and prefill(n) +
+    one decode step against prefill(n + 1) on the mesh."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.models import build
+    from repro_torch.models.convert import shard_params
+
+    cfg = dataclasses.replace(configs.get(arch), n_layers=TP_F32_LAYERS[arch],
+                              dtype="float32", kv_cache_dtype="float32")
+    recurrent = arch != "llama3.2-3b"
+    one = build(cfg, backend="torch", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    one.init(gen)
+    if recurrent:
+        perturb_recurrent(one, gen)
+    model = build(cfg, device=dev, mesh=m, rules=cfg.serve_rules)
+    model.load_state_dict(shard_params(cfg, one.state_dict(), model.rules,
+                                       m))
+    n = 2300 if recurrent else TP_STEP_N + 1
+    p = make_prompts(cfg.vocab, (n,))[0]
+    cap = TP_RG_CAPACITY if recurrent else TP_CAPACITY
+    batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
+    got = model.prefill(batch, capacity=cap)[0][0, -1]
+    want = one.prefill(batch, capacity=cap)[0][0, -1]
+    step_n = n - 1
+    _, caches = model.prefill({"token_ids": batch["token_ids"][:, :step_n]},
+                              capacity=cap)
+    step = model.decode_step(caches, {
+        "token_ids": batch["token_ids"][:, step_n:],
+        "lengths": torch.tensor([step_n], dtype=torch.int32,
+                                device=dev)})[0][0, -1]
+    res = dict(arch=arch, n_layers=cfg.n_layers, prompt=n,
+               rel_err=rel_err(got, want),
+               argmax_same=int(got.argmax()) == int(want.argmax()),
+               step_n=step_n, step_rel_err=rel_err(step, got),
+               step_argmax_same=int(step.argmax()) == int(got.argmax()),
+               rank=dist.get_rank())
+    del one, model, caches
+    free_card()
+    return res
+
+
+def tp_moe_block(dev, m) -> dict:
+    """One float32 dbrx-132b block at decode size (4 tokens), capacity
+    factor E / k, split over the mesh (8 experts a rank) against the
+    one-device block holding all 16."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import Split
+
+    full = configs.get(TP_MOE_ARCH)
+    cfg = dataclasses.replace(full, dtype="float32", moe=dataclasses.replace(
+        full.moe, capacity_factor=full.moe.n_experts / full.moe.top_k))
+    block = moe.MoE(cfg, dev, rules=cfg.serve_rules, mesh=m,
+                    split=Split(m, cfg.serve_rules))
+    block.init(torch.Generator(device=dev).manual_seed(0))
+    x = torch.randn(1, 4, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.no_grad():
+        y, _ = block(x)
+    held = block.wi.shape[0]
+    del block
+    free_card()
+    one = moe.MoE(cfg, dev)
+    one.init(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        want, _ = one(x)
+    ok, err = within(y, want, MOE_ORACLE_TOL)
+    del one
+    free_card()
+    return dict(held=held, ok=ok, max_abs_err=err)
+
+
+def tp_rank(dev_name: str, plan: dict) -> list:
+    """Phase 18 on every rank of the 2-rank pool (mesh (1, 2))."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+
+    dev = torch.device(dev_name)
+    m = tmesh.device_mesh(TP_SIZES, device=dev.type)
+    res = {"rank": dist.get_rank()}
+    t0 = time.perf_counter()
+    res["llama"] = tp_bf16("llama3.2-3b", plan["llama3.2-3b"], TP_CAPACITY,
+                           PROMPT_LENS, dev, m)
+    res["llama_f32"] = tp_f32("llama3.2-3b", dev, m)
+    res["rgemma"] = tp_bf16("recurrentgemma-9b", plan["recurrentgemma-9b"],
+                            TP_RG_CAPACITY, TP_RG_LENS, dev, m)
+    res["rgemma_f32"] = tp_f32("recurrentgemma-9b", dev, m)
+    res["rwkv"] = tp_bf16("rwkv6-7b", plan["rwkv6-7b"], TP_CAPACITY,
+                          PROMPT_LENS, dev, m)
+    res["rwkv_f32"] = tp_f32("rwkv6-7b", dev, m)
+    res["dbrx"] = tp_bf16(TP_MOE_ARCH, plan[TP_MOE_ARCH], TP_CAPACITY,
+                          PROMPT_LENS, dev, m)
+    res["dbrx_block"] = tp_moe_block(dev, m)
+    res["seconds"] = time.perf_counter() - t0
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, res)
+    return out
+
+
+def tp_require(r: dict, layers: dict) -> None:
+    """The fatal checks of one rank's bf16 model run."""
+    arch, n = r["arch"], r["n_layers"]
+    c = r["launches"]
+    att = sum(k in ("attn", "local") for k in layers[arch])
+    rec = sum(k == "rglru" for k in layers[arch])
+    rwk = sum(k == "rwkv" for k in layers[arch])
+    prefills, steps = TP_SLOTS, MAX_NEW - 1
+    want = dict(flash_attention=att * prefills, decode_attention=0,
+                decode_attention_partials=att * steps,
+                decode_attention_combine=att * steps,
+                rglru_scan=rec * (prefills + steps),
+                rwkv6_scan=rwk * (prefills + steps))
+    require(c == want, f"{arch} rank {r['rank']}: launches {c}, want {want}")
+    require(all(len(t) == MAX_NEW for t in r["tokens"]),
+            f"{arch}: a request got fewer than {MAX_NEW} tokens")
+    mine, plan = r["collectives"], r["planned"]
+    require(mine["op_counts"] == plan["op_counts"]
+            and mine["operand_bytes"] == plan["operand_bytes"],
+            f"{arch} rank {r['rank']}: collectives {mine} != the dry "
+            f"run's {plan}")
+    require(r["peak_bytes"] <= r["predicted_peak_bytes"],
+            f"{arch} rank {r['rank']}: peak {r['peak_bytes'] / 1e9:.2f} GB "
+            f"over the mesh dry run's {r['predicted_peak_bytes'] / 1e9:.2f}")
+
+
+def tensor_parallel(dev) -> dict:
+    """Phase 18: tensor-parallel serving on 2 ranks sharing the card."""
+    from repro_torch import configs
+    from repro_torch import ranks as rank_lib
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)
+    free_card()
+    plan = {arch: configs.get(arch).n_layers
+            for arch in ("llama3.2-3b", "recurrentgemma-9b", "rwkv6-7b")}
+    plan[TP_MOE_ARCH] = tp_depth(TP_MOE_ARCH)
+    layers = {arch: dataclasses.replace(configs.get(arch),
+                                        n_layers=n).layer_kinds
+              for arch, n in plan.items()}
+    print(f"  depths: {plan} ({TP_MOE_ARCH}'s the mesh dry run's deepest "
+          f"whose per-rank peak fits {TP_CARD_SHARE:.2f} of the card)")
+    rank_lib.share_devices(TP_SIZES[1])
+    try:
+        ranks = rank_lib.rank_pool(TP_SIZES[1], dev).run("chip_smoke:tp_rank",
+                                                         dev.type, plan)
+    finally:
+        rank_lib.close_pool()
+        free_card()
+    for key in ("llama", "rgemma", "rwkv", "dbrx"):
+        rs = [r[key] for r in ranks]
+        for r in rs:
+            pr = r["profile"]
+            busy = pr.get("unprofiled_busy_share")
+            print(f"  {r['arch']} ({r['n_layers']} layers) rank {r['rank']}: "
+                  f"built in {r['build_s']:.1f} s; eager step "
+                  f"{statistics.median(r['step_ms']):.2f} ms (median of "
+                  f"{len(r['step_ms'])}), profiled "
+                  f"{pr['unprofiled_ms_per_step']:.2f} ms, device busy "
+                  f"{busy if busy is None else f'{busy:.3f}'}, collectives' "
+                  f"host ms a step {pr['collective_host_ms_per_step']:.2f}; "
+                  f"launches {r['launches']}; collectives "
+                  f"{r['collectives']['op_counts']} "
+                  f"{r['collectives']['operand_bytes'] / 1e6:.3f} MB "
+                  f"(planned {r['planned']['op_counts']} "
+                  f"{r['planned']['operand_bytes'] / 1e6:.3f} MB); KV "
+                  f"{r['kv_bytes'] / 1e9:.3f} GB; memory, {r['arch']} "
+                  f"rank {r['rank']}: mesh dry run "
+                  f"{r['predicted_peak_bytes'] / 1e9:.3f} GB, "
+                  f"max_memory_allocated {r['peak_bytes'] / 1e9:.3f} GB")
+            tp_require(r, layers)
+        require(rs[0]["tokens"] == rs[1]["tokens"],
+                f"{key}: the ranks' tokens differ")
+        r0 = rs[0]
+        require(all(r["kv_bytes"] * TP_SIZES[1] == r0["one_device_kv_bytes"]
+                    for r in rs) or key == "rwkv",
+                f"{key}: a rank's KV bytes are not 1/{TP_SIZES[1]} of the "
+                f"one-device cache's")
+        print(f"  {key} bf16 against the one-device kernel path: rel err "
+              f"{[f'{e:.3e}' for e in r0['bf16_rel_err']]}, argmax same "
+              f"{r0['bf16_argmax_same']}, tokens in common "
+              f"{r0['tokens_in_common']} of {MAX_NEW}")
+        MEMORY.extend(dict(run=f"tensor-parallel {r['arch']} rank "
+                           f"{r['rank']}",
+                           predicted_bytes=r["predicted_peak_bytes"],
+                           measured_bytes=r["peak_bytes"],
+                           measured_over_predicted=r["peak_bytes"]
+                           / r["predicted_peak_bytes"]) for r in rs)
+    for key in ("llama_f32", "rgemma_f32", "rwkv_f32"):
+        for r in (x[key] for x in ranks):
+            print(f"  f32 {r['arch']} {r['n_layers']}-layer cut, rank "
+                  f"{r['rank']}: mesh vs one-device plain path rel err "
+                  f"{r['rel_err']:.3e} (argmax same {r['argmax_same']}) at "
+                  f"{r['prompt']} tokens; prefill({r['step_n']}) + decode "
+                  f"vs prefill({r['step_n'] + 1}) rel err "
+                  f"{r['step_rel_err']:.3e} (argmax same "
+                  f"{r['step_argmax_same']})")
+            require(r["rel_err"] <= E2E_F32_REL_TOL and r["argmax_same"]
+                    and r["step_rel_err"] <= E2E_F32_REL_TOL
+                    and r["step_argmax_same"],
+                    f"f32 {r['arch']} on the mesh: {r}")
+    for r in (x["dbrx_block"] for x in ranks):
+        print(f"  f32 {TP_MOE_ARCH} block at 4 tokens on the mesh, "
+              f"{r['held']} experts a rank, vs the one-device block: max "
+              f"|diff| {r['max_abs_err']:.3e} (limit {MOE_ORACLE_TOL})")
+        require(r["ok"] and r["held"] == configs.get(
+            TP_MOE_ARCH).moe.n_experts // TP_SIZES[1],
+            f"f32 {TP_MOE_ARCH} block on the mesh: {r}")
+    # e. the mesh dry run's records of the four models at (1, 2)
+    records = {}
+    for key, arch in (("llama", "llama3.2-3b"),
+                      ("rgemma", "recurrentgemma-9b"), ("rwkv", "rwkv6-7b"),
+                      ("dbrx", TP_MOE_ARCH)):
+        rec = dryrun.mesh_cell(arch, "decode_32k", tp_desc(), "1x2")
+        cell = {k: rec[k] for k in ("status", "per_device", "collectives")
+                if k in rec}
+        cell["memory"] = {k: rec["memory"][k] for k in
+                          ("peak_bytes", "fits", "deepest_depth")} \
+            if "memory" in rec else None
+        records[arch] = cell
+        r0 = ranks[0][key]
+        print(f"  dry run (1, 2) {arch} decode_32k: peak "
+              f"{rec['memory']['peak_bytes'] / 1e9:.2f} GB a device, "
+              f"deepest depth {rec['memory']['deepest_depth']}, collectives "
+              f"a step {rec['collectives']['op_counts']}; measured in this "
+              f"phase at {r0['n_layers']} layers: peak "
+              f"{r0['peak_bytes'] / 1e9:.2f} GB, collectives "
+              f"{r0['collectives']['op_counts']} over {TP_SLOTS} prefills "
+              f"and {MAX_NEW - 1} steps")
+    out = dict(depths=plan, ranks=ranks, dryrun_1x2=records,
+               seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4107,6 +4678,7 @@ def main() -> int:
     phase("kernels vs plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
     n = flash_checks(fa, gen, dev) + decode_checks(da, gen, dev)
+    n += split_pass_checks(da, gen, dev)
     slowdown_checks(sd, gen, dev)
     n += 6 + select_checks(se, gen, dev)
     n += stream_checks(st, gen, dev)
@@ -4120,6 +4692,7 @@ def main() -> int:
                time_stream(st, probes, timer, dev),
                time_rglru(rg, timer, gen, dev),
                time_rwkv6(rk, timer, gen, dev)]
+    kernels += time_split_pass(da, timer, gen, dev)
     floor_ms = launch_floor(timer, dev)
     print(f"  timer launch floor (one-element add_, as every row is "
           f"timed): {floor_ms:.4f} ms")
@@ -4185,9 +4758,17 @@ def main() -> int:
     phase("several ranks on the card: the ring search, the expert-parallel "
           "MoE block, --devices 2, a checkpoint on a mesh")
     ranks = multidevice(fa, sd, se, dev)
+    phase("tensor-parallel serving on 2 ranks sharing the card: "
+          "llama3.2-3b, recurrentgemma-9b, rwkv6-7b, dbrx-132b")
+    tp = tensor_parallel(dev)
     phase(None)
 
+    tp_llama = tp["ranks"][0]["llama"]["launches"]
     launches = dict(result["launches"], **found["orin_x64_cuda"]["launches"],
+                    decode_attention_partials=tp_llama[
+                        "decode_attention_partials"],
+                    decode_attention_combine=tp_llama[
+                        "decode_attention_combine"],
                     stream=measured["launches"]["stream"],
                     rglru_scan=recurrent["recurrentgemma-9b"]["launches"][
                         "rglru_scan"],
@@ -4214,6 +4795,15 @@ def main() -> int:
                 f"expert-parallel {EP_ARCH} prefill, rank {r['rank']}":
                 r["prefill_flash_launches"]
                 for r in ranks["expert_parallel"]["ranks"]})
+    for name in ("flash_attention", "decode_attention_partials",
+                 "decode_attention_combine", "rglru_scan", "rwkv6_scan"):
+        row = next(kr for kr in kernels if kr["name"] == name)
+        row.setdefault("launches_by_path", {}).update({
+            f"tensor-parallel {r[key]['arch']} ({r[key]['n_layers']} "
+            f"layers), rank {r['rank']}": r[key]["launches"][name]
+            for r in tp["ranks"]
+            for key in ("llama", "rgemma", "rwkv", "dbrx")
+            if r[key]["launches"][name]})
     for name, arch in (("rglru_scan", "recurrentgemma-9b"),
                        ("rwkv6_scan", "rwkv6-7b")):
         row = next(kr for kr in kernels if kr["name"] == name)
@@ -4247,6 +4837,7 @@ def main() -> int:
     print(json.dumps({"dryrun": planned}))
     print(json.dumps({"train": trained}))
     print(json.dumps({"multidevice": ranks}))
+    print(json.dumps({"tensor_parallel": tp}))
     print(json.dumps({"memory": MEMORY}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

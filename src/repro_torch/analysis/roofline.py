@@ -11,19 +11,22 @@ constants are the card's:
     t_memory     = bytes / HBM_BW
     t_collective = collective_bytes / ICI_BW
 
-One card runs no collectives, so ``t_collective`` is 0 and the
-reference's HLO collective parser (``parse_collectives``) waits for the
-dry run on a mesh of cards, the port's last slice (ROADMAP queue 1 item
-6).
+One card runs no collectives (``t_collective`` 0).  On a mesh the dry
+run records the collectives of one pass of the tensor-parallel model on
+``meta`` (``models/collectives.py``), writes them as HLO lines and reads
+them with :func:`parse_collectives`, the reference's parser and per-op
+formulas; ``t_collective`` is then the ring-moved bytes over ``ICI_BW``
+(NVLink 4).
 """
 from __future__ import annotations
 
+import re
 from dataclasses import asdict, dataclass
 
 # NVIDIA H100 80GB HBM3 (SXM5) at its 700 W limit
 PEAK_FLOPS = 989e12          # dense bf16 tensor-core FLOP/s
 HBM_BW = 3.35e12             # HBM3 bytes/s
-ICI_BW = 450e9               # NVLink 4 bytes/s per direction (no link on one card)
+ICI_BW = 450e9               # NVLink 4 bytes/s per direction
 HBM_BYTES = 80e9             # device memory, as the card is sold (80 GB)
 
 
@@ -33,6 +36,86 @@ class CollectiveStats:
     operand_bytes: float          # Σ operand sizes (per device)
     moved_bytes: float            # ring-algorithm traffic estimate
     top: list = None              # largest ops: (op, bytes, shape)
+
+
+_DTYPE_BYTES = {
+    "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "f16": 2, "bf16": 2,
+    "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8, "f64": 8,
+    "c64": 8, "c128": 16,
+}
+
+_COLL_RE = re.compile(
+    r"=\s+(?:\()?(\w+)\[([\d,]*)\][^\s]*\s+"
+    r"(all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute)"
+    r"(?:-start)?\(")
+_TUPLE_COLL_RE = re.compile(
+    r"=\s+\(([^)]*)\)\s+"
+    r"(all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute)")
+_GROUPS_RE = re.compile(r"replica_groups=\[(\d+),(\d+)\]")
+_SHAPE_RE = re.compile(r"(\w+)\[([\d,]*)\]")
+
+
+def _shape_bytes(dtype: str, dims: str) -> float:
+    n = 1
+    for d in dims.split(","):
+        if d:
+            n *= int(d)
+    return n * _DTYPE_BYTES.get(dtype, 4)
+
+
+def parse_collectives(hlo_text: str) -> CollectiveStats:
+    """Op counts, per-device operand bytes and ring-moved bytes of the
+    collectives in HLO text (the reference's parser, line for line): an
+    all-reduce of R result bytes over g ranks moves 2 R (g - 1) / g, an
+    all-gather R (g - 1) / g of an R / g operand, a reduce-scatter R (g -
+    1) of an R g operand, an all-to-all R (g - 1) / g."""
+    counts: dict[str, int] = {}
+    operand_bytes = 0.0
+    moved = 0.0
+    top: list = []
+    for line in hlo_text.splitlines():
+        if "all-reduce" not in line and "all-gather" not in line \
+                and "reduce-scatter" not in line and "all-to-all" not in line \
+                and "collective-permute" not in line:
+            continue
+        m = _COLL_RE.search(line)
+        shapes = []
+        if m:
+            op = m.group(3)
+            shapes = [(m.group(1), m.group(2))]
+        else:
+            mt = _TUPLE_COLL_RE.search(line)
+            if not mt:
+                continue
+            op = mt.group(2)
+            shapes = _SHAPE_RE.findall(mt.group(1))
+        if line.strip().startswith("%") and "-done" in line.split("=")[0]:
+            continue                    # async -done pairs with -start
+        gm = _GROUPS_RE.search(line)
+        gsize = int(gm.group(2)) if gm else 1
+        res = sum(_shape_bytes(dt, dims) for dt, dims in shapes)
+        if op == "all-reduce":
+            operand = res
+            ring = 2 * res * (gsize - 1) / max(gsize, 1)
+        elif op == "all-gather":
+            operand = res / max(gsize, 1)
+            ring = res * (gsize - 1) / max(gsize, 1)
+        elif op == "reduce-scatter":
+            operand = res * gsize
+            ring = res * (gsize - 1)
+        elif op == "all-to-all":
+            operand = res
+            ring = res * (gsize - 1) / max(gsize, 1)
+        else:                           # collective-permute
+            operand = res
+            ring = res
+        counts[op] = counts.get(op, 0) + 1
+        operand_bytes += operand
+        moved += ring
+        top.append((op, operand, "/".join(f"{dt}[{dims}]"
+                                          for dt, dims in shapes)))
+    top.sort(key=lambda t: -t[1])
+    return CollectiveStats(counts, operand_bytes, moved, top[:8])
 
 
 @dataclass

@@ -44,6 +44,15 @@
 //   key is scored by a lane group reading 16 bytes a lane, and the P.V
 //   pass gives every thread a 16-byte column slice of V over a strided set
 //   of the tile's rows (the slices are summed once, at the end).
+// * A cache split by sequence over the ranks of a mesh runs the two
+//   passes as entries of their own: decode_attention_partials, the split
+//   pass over a rank's chunk of the cache (rows [offset, offset + S) of
+//   the sequence, so its live count is clamp(length - offset, 0, S)),
+//   writing the partials of every split, one split too; and
+//   decode_attention_combine, the combine over any number of partials
+//   concatenated on the split axis (a rank's splits times the ranks).
+// * The cache's rows may lie further apart than Hkv * D (kv_row): a view
+//   of some kv heads of a wider cache, read in place.
 // Head sizes 16, 32, 64, 80, 128 and 256 (multiples of 16, for the mma
 // tiles); the wrapper zero-pads any other head size up to the next one.
 #include <type_traits>
@@ -68,9 +77,12 @@ struct Args {
   const void* v;
   const int* lengths;
   void* o;
-  float* part_acc;    // (B, Hq, splits, D), splits > 1 only
+  float* part_acc;    // (B, Hq, splits, D), splits > 1 or partials only
   float* part_ml;     // (B, Hq, splits, 2): m, l
   int S, Hq, Hkv, G, splits, chunk;
+  int kv_row;         // elements from one cache row to the next
+  int offset;         // the cache's first row is sequence position offset
+  int partials;       // 1: always write the partials, never the output
   float scale;
 };
 
@@ -107,7 +119,7 @@ __device__ __forceinline__ void emit(const Args& a, int b, int h, int j,
                                      int d, int D, float acc, float m,
                                      float l) {
   const size_t bh = (size_t)b * a.Hq + h;
-  if (a.splits == 1) {
+  if (a.splits == 1 && !a.partials) {
     static_cast<TQ*>(a.o)[bh * D + d] = from_f<TQ>(acc / fmaxf(l, 1e-30f));
     return;
   }
@@ -178,7 +190,7 @@ __global__ void __launch_bounds__(THREADS) split_simt(Args a) {
   const int gn = min(GC, a.G - g0);                   // live heads here
   const int h0 = hk * a.G + g0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int len = min(max(a.lengths[b], 0), a.S);
+  const int len = min(max(a.lengths[b] - a.offset, 0), a.S);
   const int start = j * a.chunk, end = min(start + a.chunk, len);
   if (start >= end) {
     emit_empty<TQ>(a, b, h0, gn, j, D);
@@ -193,7 +205,7 @@ __global__ void __launch_bounds__(THREADS) split_simt(Args a) {
     ls[g] = 0.f;
   }
 
-  const size_t row = (size_t)a.Hkv * D;
+  const size_t row = (size_t)a.kv_row;
   const size_t base = (size_t)b * a.S * row + (size_t)hk * D;
   const TKV* kb = static_cast<const TKV*>(a.k) + base;
   const TKV* vb = static_cast<const TKV*>(a.v) + base;
@@ -362,7 +374,7 @@ __global__ void __launch_bounds__(THREADS) split_mma(Args a) {
   const int gn = min(16, a.G - g0);
   const int h0 = hk * a.G + g0;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int len = min(max(a.lengths[b], 0), a.S);
+  const int len = min(max(a.lengths[b] - a.offset, 0), a.S);
   const int start = j * a.chunk, end = min(start + a.chunk, len);
   if (start >= end) {
     emit_empty<bf16>(a, b, h0, gn, j, D);
@@ -375,7 +387,7 @@ __global__ void __launch_bounds__(THREADS) split_mma(Args a) {
     sm90::cp_async16(qs + r * LD + c * 8, qb + (r < gn ? r : 0) * D + c * 8,
                      r < gn);
   }
-  const size_t row = (size_t)a.Hkv * D;
+  const size_t row = (size_t)a.kv_row;
   const size_t base = (size_t)b * a.S * row + (size_t)hk * D;
   const bf16* kb = static_cast<const bf16*>(a.k) + base;
   const bf16* vb = static_cast<const bf16*>(a.v) + base;
@@ -579,7 +591,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
     err = launch_simt<TQ, TKV, D, 2>(a, B, stream);
   else
     err = launch_simt<TQ, TKV, D, 1>(a, B, stream);
-  if (err != 0 || a.splits == 1) return err;
+  if (err != 0 || a.splits == 1 || a.partials) return err;
   combine<TQ><<<dim3(a.Hq, B), D, 0, stream>>>(a.part_acc, a.part_ml,
                                                static_cast<TQ*>(a.o),
                                                a.splits);
@@ -603,32 +615,84 @@ int launch_d(const Args& a, int B, int D, cudaStream_t stream) {
 
 extern "C" {
 
-// q: (B, 1, Hq, D); k, v: (B, S, Hkv, D); lengths: (B,) int32 on the
-// device; o: (B, 1, Hq, D) of q's type; all contiguous, 16-byte aligned.
-// dtypes: 0 = float32, 1 = bfloat16.  splits >= 1 blocks per (b, kv-head
-// chunk), split j owning cache rows [j * chunk, (j + 1) * chunk), chunk a
-// multiple of 64; with splits > 1, part_acc (B * Hq * splits * D floats)
-// and part_ml (B * Hq * splits * 2) are the wrapper's scratch.  Launches
-// the split pass and, for splits > 1, the combine.  Returns
-// cudaGetLastError() after the launches.
+// q: (B, 1, Hq, D); k, v: (B, S, Hkv, D) with rows kv_row elements apart
+// (kv_row >= Hkv * D: a view of some heads of a wider cache), a batch row
+// S * kv_row; lengths: (B,) int32 on the device; o: (B, 1, Hq, D) of q's
+// type; 16-byte aligned.  dtypes: 0 = float32, 1 = bfloat16.  splits >= 1
+// blocks per (b, kv-head chunk), split j owning cache rows [j * chunk,
+// (j + 1) * chunk), chunk a multiple of 64; with splits > 1, part_acc
+// (B * Hq * splits * D floats) and part_ml (B * Hq * splits * 2) are the
+// wrapper's scratch.  Launches the split pass and, for splits > 1, the
+// combine.  Returns cudaGetLastError() after the launches.
 int decode_attention_fwd(const void* q, const void* k, const void* v,
                          const void* lengths, void* o, void* part_acc,
                          void* part_ml, int q_dtype, int kv_dtype, int B,
                          int S, int Hq, int Hkv, int D, int splits, int chunk,
-                         float scale, void* stream) {
+                         int kv_row, float scale, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || splits < 1 || chunk < 1 || chunk % 64
+      || kv_row < Hkv * D
       || (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const Args a{q, k, v, static_cast<const int*>(lengths), o,
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-               S, Hq, Hkv, Hq / Hkv, splits, chunk, scale};
+               S, Hq, Hkv, Hq / Hkv, splits, chunk, kv_row, 0, 0, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0) return launch_d<float, float>(a, B, D, s);
   if (q_dtype == 0 && kv_dtype == 1) return launch_d<float, bf16>(a, B, D, s);
   if (q_dtype == 1 && kv_dtype == 0) return launch_d<bf16, float>(a, B, D, s);
   if (q_dtype == 1 && kv_dtype == 1) return launch_d<bf16, bf16>(a, B, D, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The split pass alone, over a chunk of a sequence-split cache: k and v
+// hold sequence positions [offset, offset + S), so sequence b's live rows
+// here are the first clamp(lengths[b] - offset, 0, S).  Every split writes
+// its f32 partials (m, l, acc) to part_ml (B, Hq, splits, 2) and part_acc
+// (B, Hq, splits, D), one split too; a split with no live row writes m =
+// -1e30, l = 0, acc = 0.  The other arguments are decode_attention_fwd's.
+int decode_attention_partials(const void* q, const void* k, const void* v,
+                              const void* lengths, void* part_acc,
+                              void* part_ml, int q_dtype, int kv_dtype, int B,
+                              int S, int Hq, int Hkv, int D, int splits,
+                              int chunk, int kv_row, int offset, float scale,
+                              void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || splits < 1 || chunk < 1 || chunk % 64
+      || kv_row < Hkv * D || part_acc == nullptr || part_ml == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const Args a{q, k, v, static_cast<const int*>(lengths), nullptr,
+               static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+               S, Hq, Hkv, Hq / Hkv, splits, chunk, kv_row, offset, 1, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 0 && kv_dtype == 0) return launch_d<float, float>(a, B, D, s);
+  if (q_dtype == 0 && kv_dtype == 1) return launch_d<float, bf16>(a, B, D, s);
+  if (q_dtype == 1 && kv_dtype == 0) return launch_d<bf16, float>(a, B, D, s);
+  if (q_dtype == 1 && kv_dtype == 1) return launch_d<bf16, bf16>(a, B, D, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The combine pass alone: o (B, 1, Hq, D) of o_dtype's type from J
+// partials a (b, head), laid out as decode_attention_partials writes them
+// (several calls' partials concatenated on the J axis: a rank's splits
+// times the ranks).  Returns cudaGetLastError() after the launch.
+int decode_attention_combine(const void* part_acc, const void* part_ml,
+                             void* o, int o_dtype, int B, int Hq, int D,
+                             int J, void* stream) {
+  if (J < 1 || D < 1 || D > 1024) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Hq == 0) return 0;
+  const float* acc = static_cast<const float*>(part_acc);
+  const float* ml = static_cast<const float*>(part_ml);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (o_dtype == 0)
+    combine<float><<<dim3(Hq, B), D, 0, s>>>(acc, ml, static_cast<float*>(o),
+                                             J);
+  else if (o_dtype == 1)
+    combine<bf16><<<dim3(Hq, B), D, 0, s>>>(acc, ml, static_cast<bf16*>(o),
+                                            J);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 const char* error_string(int code) {

@@ -91,6 +91,39 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     return _dec.decode_attention_torch(q, k_cache, v_cache, lengths)
 
 
+def decode_attention_partials(q, k_chunk, v_chunk, lengths, offset=0, *,
+                              backend: Backend = "auto"):
+    """The decode attention's split pass over a chunk of a cache split by
+    sequence (positions ``[offset, offset + S)``): f32 ``(ml, acc)``,
+    (B, Hq, J, 2) and (B, Hq, J, D), for :func:`decode_attention_combine`
+    (``kernels/decode_attention.py``)."""
+    b = _resolve(backend, q, k_chunk, v_chunk)
+    if b == "stub":                 # the kernel's J on the card (132 SMs)
+        B, _, Hq, D = q.shape
+        J = _dec.decode_splits(B, k_chunk.shape[2], k_chunk.shape[1])
+        kv = (k_chunk.sum(1) + v_chunk.sum(1)).float()       # reads both
+        acc = (q[:, 0].float() * kv.repeat_interleave(
+            Hq // k_chunk.shape[2], 1))[:, :, None].expand(B, Hq, J, D)
+        ml = (acc[..., :2] + lengths.float()[:, None, None, None] * 0)
+        return ml.contiguous(), acc.contiguous()
+    if b == "cuda":
+        return _dec.decode_attention_partials(q, k_chunk, v_chunk, lengths,
+                                              offset)
+    return _dec.decode_attention_partials_torch(q, k_chunk, v_chunk,
+                                                lengths, offset)
+
+
+def decode_attention_combine(ml, acc, dtype, *, backend: Backend = "auto"):
+    """Merge partials concatenated on their J axis into (B, 1, Hq, D) of
+    ``dtype``."""
+    b = _resolve(backend, acc, ml)
+    if b == "stub":
+        return (acc.sum(2) * ml[..., :1].sum(2))[:, None].to(dtype)
+    if b == "cuda":
+        return _dec.decode_attention_combine(ml, acc, dtype)
+    return _dec.decode_attention_combine_torch(ml, acc, dtype)
+
+
 def linear_scan(a, b, h0=None, *, backend: Backend = "auto"):
     """h_t = a_t h_{t-1} + b_t over axis 1 (the RG-LRU core).  a, b:
     (B, S, D); h0: (B, D) or None.  Returns (h_all in a's dtype, h_last

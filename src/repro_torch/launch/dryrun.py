@@ -27,12 +27,26 @@ this says, in seconds and without running a kernel:
 
 writes one JSON record per cell, ``<arch>_<shape>_h100.json``, with the
 reference's keys where they mean the same thing.
+
+``--mesh single|multi|both`` plans the serving cells per device on the
+reference's meshes, (data 16, model 16) and (pod 2, data 16, model 16),
+as descriptions (``mesh_cell``; the Python API takes any mesh): the
+tensor-parallel model under ``cfg.serve_rules`` built on ``meta``, its
+per-device bytes of params, caches and batch at the reference's
+``build_cell`` dtypes (``sharded_bytes``: the shard shapes of
+``named_sharding``), the port's own per-device peak and deepest depth
+(``mesh_serve_memory``), and the collectives of one prefill or decode
+step on ``meta`` (``mesh_pass``), counted by ``parse_collectives``'s
+formulas, beside the roofline with ``t_collective`` = ring-moved bytes
+over NVLink.  Training cells on a mesh are recorded as skipped: the
+ZeRO-3 / FSDP-TP train step is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import pathlib
 import time
 
@@ -43,7 +57,8 @@ from repro_torch import configs
 from repro_torch.analysis import roofline
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeCell, \
     cell_supported
-from repro_torch.models import Model, transformer
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import Model, collectives, transformer
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.moe import capacity
 from repro_torch.train import optimizer as opt_lib
@@ -452,39 +467,262 @@ def run_cell(arch: str, shape: str,
 def _write(rec: dict, out_dir: pathlib.Path | None) -> dict:
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
-        name = f"{rec['arch']}_{rec['shape']}_{MESH}.json"
+        name = f"{rec['arch']}_{rec['shape']}_{rec['mesh']}.json"
         (out_dir / name).write_text(json.dumps(rec, indent=1))
     return rec
 
 
-def run(archs, shapes, out_dir=None, log=print) -> list[dict]:
+# ---------------------------------------------------------------------------
+# cells on a mesh
+# ---------------------------------------------------------------------------
+
+#: the meshes of ``--mesh``: the reference's two, as descriptions
+MESHES = {"single": lambda: make_production_mesh(),
+          "multi": lambda: make_production_mesh(multi_pod=True)}
+
+
+def serve_config(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` as ``build_cell`` serves it: bfloat16 parameters."""
+    if cfg.param_dtype == "bfloat16":
+        return cfg
+    return dataclasses.replace(cfg, param_dtype="bfloat16")
+
+
+def mesh_model(cfg: ModelConfig, mesh, rules=None,
+               backend: str = "stub") -> Model:
+    """The tensor-parallel serving model of ``cfg`` on ``mesh`` (a
+    description: rank 0's blocks) under ``rules`` (default
+    ``cfg.serve_rules``), on ``meta``."""
+    return Model(cfg, backend=backend, device=META, mesh=mesh,
+                 rules=cfg.serve_rules if rules is None else rules)
+
+
+def batch_inputs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """The reference's ``input_specs(cell)`` on ``meta``."""
+    B, S = cell.global_batch, cell.seq_len
+    if cell.kind == "prefill":
+        return _inputs(cfg, B, S)
+    batch = _inputs(cfg, B, 1, decode=True)
+    batch["lengths"] = torch.zeros((B,), dtype=torch.int32, device=META)
+    return batch
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def sharded_bytes(cfg: ModelConfig, cell: ShapeCell, mesh,
+                  rules=None) -> dict:
+    """Per-device bytes of ``build_cell``'s params, caches (decode) and
+    batch for a serving cell on ``mesh``: each tensor's shard shape under
+    ``rules`` (default ``cfg.serve_rules``) with the divisibility
+    fallback, at ``build_cell``'s dtypes (params in bfloat16)."""
+    cfg = serve_config(cfg)
+    model = mesh_model(cfg, mesh, rules)
+    size = _size(cfg.param_dtype)
+    params = sum(p.numel() for p in model.parameters()) * size
+    caches = 0
+    if cell.kind == "decode":
+        caches = _nbytes(_tensors(model.init_cache(cell.global_batch,
+                                                   cell.seq_len)))
+    batch = transformer.batch_rows(model, batch_inputs(cfg, cell))[0]
+    return dict(params_bytes=int(params), cache_bytes=int(caches),
+                batch_bytes=_nbytes(batch.values()),
+                total_bytes=int(params + caches + _nbytes(batch.values())))
+
+
+#: bytes a rank's peak holds beyond its tensors: the caching allocator
+#: rounds every block up (a 1.58 GB draw and a few hundred weights came to
+#: 2 MB over their sizes on the card) and cuBLAS takes a workspace
+ALLOC_SLACK = 64 << 20
+
+
+def mesh_serve_memory(cfg: ModelConfig, mesh, slots: int, capacity_: int,
+                      prefill_batch: int = 1,
+                      prefill_len: int | None = None, rules=None) -> dict:
+    """A rank's peak bytes serving ``cfg`` on ``mesh``, as
+    :func:`serve_memory` counts one card's: its blocks of the weights
+    (the port's dtypes) and of caches for ``slots`` sequences of
+    ``capacity_``, plus a prefill's temporaries (bounded by the whole
+    layer's at the rank's rows), the prompt's k/v of every kv head and
+    the logits, local and gathered; and no less than building (its
+    weights and the largest whole f32 draw ``init`` cuts its block
+    from).  Both add :data:`ALLOC_SLACK`."""
+    S = capacity_ if prefill_len is None else prefill_len
+    model = mesh_model(cfg, mesh, rules)
+    W = _nbytes(model.parameters())
+    C = _nbytes(_tensors(model.init_cache(slots, capacity_)))
+    rows = model.split.rows(prefill_batch).shard_shape((prefill_batch,))[0]
+    act = max((layer_activation_bytes(cfg, k, rows, S, False)
+               for k in set(cfg.layer_kinds)), default=0.0)
+    kv = (rows * S * 2 * cfg.n_kv_heads * cfg.d_head
+          * _size(cfg.kv_cache_dtype if cfg.kv_cache_dtype != "int8"
+                  else cfg.dtype))
+    logits = 2 * max(prefill_batch, slots) * cfg.vocab * 4
+    draw = max((math.prod(getattr(p, "whole", p.shape)) * 4
+                for p in model.parameters()), default=0)
+    build = W + draw + ALLOC_SLACK
+    run = W + C + act + kv + logits + ALLOC_SLACK
+    return dict(weights_bytes=W, cache_bytes=C,
+                activation_bytes=act + kv + logits,
+                build_bytes=float(build), run_bytes=float(run),
+                peak_bytes=max(build, run))
+
+
+def mesh_pass(cfg: ModelConfig, cell: ShapeCell, mesh, rules=None
+              ) -> tuple[list, int]:
+    """The collectives (``models.collectives.records``) and matrix-product
+    FLOPs of one rank's prefill or decode step of ``cfg`` at ``cell`` on
+    ``mesh``, run on ``meta`` through the ``stub`` mixers."""
+    model = mesh_model(cfg, mesh, rules)
+    batch = batch_inputs(cfg, cell)
+    collectives.reset()
+    with FlopCounterMode(display=False) as fc:
+        if cell.kind == "prefill":
+            model.prefill(batch, capacity=cell.seq_len)
+        else:
+            caches = model.init_cache(cell.global_batch, cell.seq_len)
+            model.decode_step(caches, batch)
+    recs = list(collectives.records)
+    collectives.reset()
+    return recs, int(fc.get_total_flops())
+
+
+def serve_collectives(cfg: ModelConfig, mesh, slots: int, capacity_: int,
+                      prompt_lens, steps: int, rules=None) -> list:
+    """The collectives a rank issues serving ``prompt_lens`` (one prefill
+    each into its slot of ``slots`` x ``capacity_`` caches) and then
+    ``steps`` decode steps of all slots, planned on ``meta``."""
+    model = mesh_model(cfg, mesh, rules)
+    caches = model.init_cache(slots, capacity_)
+    collectives.reset()
+    from repro_torch.models import kvcache
+    for i, n in enumerate(prompt_lens):
+        views = [kvcache.select(c, i) for c in caches]
+        model.prefill(_inputs(cfg, 1, n), capacity=capacity_,
+                      cache_out=views)
+    batch = _inputs(cfg, slots, 1, decode=True)
+    batch["lengths"] = torch.zeros((slots,), dtype=torch.int32, device=META)
+    for _ in range(steps):
+        model.decode_step(caches, batch)
+    recs = list(collectives.records)
+    collectives.reset()
+    return recs
+
+
+def mesh_cell(arch: str, shape: str, mesh, mesh_name: str,
+              out_dir: pathlib.Path | None = None, rules=None) -> dict:
+    """One serving cell per device on ``mesh`` (see the module's doc)."""
+    cfg = configs.get(arch)
+    rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "tag": ""}
+    ok, why = cell_supported(cfg, shape)
+    cell = SHAPES[shape]
+    if ok and cell.kind == "train":
+        ok, why = False, ("training on a mesh (the ZeRO-3 / FSDP-TP step "
+                          "and its reduce-scatters) is not ported yet")
+    if not ok:
+        rec.update(status="skip", reason=why)
+        return _write(rec, out_dir)
+    t0 = time.perf_counter()
+    n_chips = mesh.size
+    scfg = serve_config(cfg)
+    shards = sharded_bytes(cfg, cell, mesh, rules)
+    if cell.kind == "prefill":
+        def peak_of(c):
+            return mesh_serve_memory(c, mesh, cell.global_batch,
+                                     cell.seq_len, cell.global_batch,
+                                     cell.seq_len, rules)["peak_bytes"]
+    else:
+        def peak_of(c):
+            return mesh_serve_memory(c, mesh, cell.global_batch,
+                                     cell.seq_len, 1, 1, rules)["peak_bytes"]
+    mem = mesh_serve_memory(
+        scfg, mesh, cell.global_batch, cell.seq_len,
+        cell.global_batch if cell.kind == "prefill" else 1,
+        cell.seq_len if cell.kind == "prefill" else 1, rules)
+    depth = deepest_depth(scfg, peak_of)
+    recs, mm = mesh_pass(scfg, cell, mesh, rules)
+    coll = roofline.parse_collectives(collectives.hlo_text(recs))
+    flops = mm + mixer_flops(cfg, cell) / n_chips
+    tokens = cell.global_batch * (cell.seq_len if cell.kind != "decode"
+                                  else 1)
+    n = cfg.n_active_params() if cfg.moe else cfg.n_params()
+    useful = None
+    if cell.kind == "decode":
+        useful = (decode_state_bytes(cfg, cell) + 2 * n) / n_chips
+    hbm = roofline.analytic_hbm_bytes(cfg, cell) / n_chips
+    rl = roofline.analyze(
+        {"flops": flops, "bytes accessed": hbm},
+        roofline.CollectiveStats(coll.op_counts, coll.moved_bytes,
+                                 coll.moved_bytes), n_chips, 2 * n * tokens,
+        useful, cell.kind)
+    rec.update(
+        status="ok", n_chips=n_chips, mesh_shape=mesh.shape,
+        probe_s=round(time.perf_counter() - t0, 3), per_device=shards,
+        memory=dict(mem, peak_estimate_gb=round(mem["peak_bytes"] / 1e9, 3),
+                    limit_bytes=roofline.HBM_BYTES,
+                    fits=fits(mem["peak_bytes"]), deepest_depth=depth,
+                    n_layers=cfg.n_layers, global_batch=cell.global_batch),
+        collectives=dict(op_counts=coll.op_counts,
+                         operand_bytes=coll.operand_bytes,
+                         moved_bytes=coll.moved_bytes, top=coll.top),
+        cost={"flops": flops, "flops_matmul": mm, "bytes accessed": hbm},
+        roofline=roofline.to_dict(rl))
+    return _write(rec, out_dir)
+
+
+def run(archs, shapes, out_dir=None, log=print, mesh: str = MESH
+        ) -> list[dict]:
     recs = []
+    names = [MESH] if mesh == MESH else (
+        list(MESHES) if mesh == "both" else [mesh])
     for arch in archs:
         for shape in shapes:
-            rec = run_cell(arch, shape, out_dir)
-            recs.append(rec)
-            if rec["status"] == "skip":
-                log(f"[skip] {arch} x {shape}: {rec['reason']}")
-                continue
-            m, r = rec["memory"], rec["roofline"]
-            log(f"[ok] {arch} x {shape}: peak {m['peak_estimate_gb']} GB "
-                f"({'fits' if m['fits'] else 'does not fit'} "
-                f"{roofline.HBM_BYTES / 1e9:.0f} GB), deepest depth "
-                f"{m['deepest_depth']} of {m['n_layers']}, largest batch "
-                f"{m['largest_batch']}; bound={r['bottleneck']} "
-                f"frac={r['roofline_fraction']:.3f} ({rec['probe_s']} s)")
+            for name in names:
+                if name == MESH:
+                    rec = run_cell(arch, shape, out_dir)
+                else:
+                    rec = mesh_cell(arch, shape, MESHES[name](), name,
+                                    out_dir)
+                recs.append(rec)
+                _log(rec, log)
     return recs
+
+
+def _log(rec: dict, log) -> None:
+    label = f"{rec['arch']} x {rec['shape']} x {rec['mesh']}"
+    if rec["status"] == "skip":
+        log(f"[skip] {label}: {rec['reason']}")
+        return
+    m, r = rec["memory"], rec["roofline"]
+    extra = (f"largest batch {m['largest_batch']}" if "largest_batch" in m
+             else f"collectives {rec['collectives']['op_counts']}")
+    log(f"[ok] {label}: peak {m['peak_estimate_gb']} GB "
+        f"({'fits' if m['fits'] else 'does not fit'} "
+        f"{roofline.HBM_BYTES / 1e9:.0f} GB), deepest depth "
+        f"{m['deepest_depth']} of {m['n_layers']}, {extra}; "
+        f"bound={r['bottleneck']} frac={r['roofline_fraction']:.3f} "
+        f"({rec['probe_s']} s)")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
+    ap.add_argument("--mesh", default=MESH,
+                    choices=[MESH, "single", "multi", "both"])
     ap.add_argument("--out", default=str(ARTIFACTS))
     args = ap.parse_args(argv)
     archs = list(configs.ARCHS) if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
-    run(archs, shapes, pathlib.Path(args.out))
+    run(archs, shapes, pathlib.Path(args.out), mesh=args.mesh)
     print("dry-run complete.")
     return 0
 

@@ -80,6 +80,20 @@ def params_from_jax(cfg: ModelConfig, tree) -> dict[str, torch.Tensor]:
     return out
 
 
+def shard_params(cfg: ModelConfig, state: dict, rules, mesh) -> dict:
+    """``state`` (a whole model's, such as ``params_from_jax``'s) with each
+    tensor cut to the block this rank of ``mesh`` holds of it under
+    ``rules``, for ``Model(cfg, mesh=mesh, rules=rules)``: the blocks of
+    the reference's logical axes (its spec trees, ``layers._param``),
+    with ``named_sharding``'s divisibility fallback.  The generalisation
+    of :func:`shard_experts`, which cuts the experts alone."""
+    from .layers import cut
+    from .model import Model
+    shapes = dict(Model(cfg, device="meta", rules=rules,
+                        mesh=mesh).named_parameters())
+    return {k: cut(shapes[k], v) for k, v in state.items()}
+
+
 def shard_experts(cfg: ModelConfig, state: dict, rules, mesh) -> dict:
     """``state`` (a whole model's, such as ``params_from_jax``'s, or one
     MoE block's with names relative to it) with each expert weight cut to

@@ -20,13 +20,19 @@ alias the leaves and their ``.grad`` aliases ``grads``, so a backward
 accumulates every layer's gradient in place into its row of the stacked
 buffer.
 
-``rules`` (default ``cfg.rules``, as the reference's) and ``mesh`` (a
-``repro_torch.launch.mesh.Mesh``) reach the mixture of experts, whose
-expert-parallel path reads them (``moe.MoE``); the dense layers stay
-replicated.  In the serving layout a mesh over ranks gives each rank
-only its slice of the experts (``convert.shard_experts`` cuts the
-reference's weights, ``convert.params_from_jax``'s, to that slice), and
-such a model runs only blocks that take the expert-parallel path.
+``rules`` (default ``cfg.rules``, as the reference's; pass
+``cfg.serve_rules`` to serve as the reference's dry run does) and
+``mesh`` (a ``repro_torch.launch.mesh.Mesh``): in the serving layout a
+model built on a mesh holds on each rank its block of every weight and
+cache as ``named_sharding`` cuts it under ``rules``
+(:class:`repro_torch.models.sharding.Split`; ``convert.shard_params``
+cuts a whole model's state dict, such as ``convert.params_from_jax``'s,
+to a rank's), and its prefill and decode steps run tensor-parallel
+(``layers``, ``recurrent``, ``moe``): every rank is given the whole
+batch and returns the whole batch's logits.  On a mesh *description*
+(no ranks: the dry run's) the same code runs as rank 0 and its
+collectives only record.  The decode step on a mesh runs eagerly: a
+collective over ``gloo`` cannot be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from repro_torch.runtime import resolve_device
 from . import convert, kvcache, transformer
 from .layers import Embeddings, cross_entropy, dtype_of
 from .recurrent import rwkv_heads
+from .sharding import Split
 
 LAYOUTS = ("serve", "train")
 
@@ -58,10 +65,14 @@ class Model(nn.Module):
         self.layout = layout
         self.device = resolve_device(device)
         where = self.device if layout == "serve" else torch.device("meta")
-        self.emb = Embeddings(cfg, where)
+        serve_mesh = mesh if layout == "serve" else None
+        #: how this rank holds and uses its tensors on a mesh, else None
+        self.split = (None if serve_mesh is None
+                      else Split(serve_mesh, self.rules))
+        self.emb = Embeddings(cfg, where, self.split)
         self.layers = nn.ModuleList(
-            transformer.Layer(cfg, kind, where, self.rules,
-                              mesh if layout == "serve" else None)
+            transformer.Layer(cfg, kind, where, self.rules, serve_mesh,
+                              self.split)
             for kind in cfg.layer_kinds)
         if layout == "train":
             self._init_leaves()
@@ -90,7 +101,8 @@ class Model(nn.Module):
         table, zero norms and biases (``layers.py:23-31,228-242``).  The
         generator must live on the model's device.  Both layouts draw the
         same numbers in the same order; the serving layout stores them
-        cast to the dtype each weight is used in."""
+        cast to the dtype each weight is used in, and on a mesh each rank
+        draws every weight whole, one at a time, and keeps its block."""
         gen = generator
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
@@ -186,31 +198,56 @@ class Model(nn.Module):
     def init_cache(self, batch: int, capacity: int):
         """Zeroed decode caches, one dict per layer: ``{"k", "v"}`` for
         attention, ``{"h", "conv"}`` for RG-LRU, ``{"S", "x_t", "x_c"}``
-        for RWKV-6 (the shapes of ``repro/models/model.py:114-140``)."""
+        for RWKV-6 (the shapes of ``repro/models/model.py:114-140``).  On
+        a mesh, this rank's block of each (``dryrun.cache_logical``'s
+        axes): its batch rows, its chunk of a KV cache split by sequence,
+        its RG-LRU channels and RWKV-6 heads."""
         cfg = self.cfg
         dt = dtype_of(cfg.dtype)
         H = rwkv_heads(cfg)
         dh = cfg.d_model // H
+        rows = batch
+        if self.split is not None:
+            rows = self.split.rows(batch).shard_shape((batch,))[0]
 
         def zeros(*shape, dtype=dt):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        def one(kind):
+        def one(layer):
+            kind = layer.kind
             if kind == "rglru":
-                return {"h": zeros(batch, cfg.d_rnn, dtype=torch.float32),
-                        "conv": zeros(batch, 3, cfg.d_rnn)}
+                r = layer.t.r_loc
+                return {"h": zeros(rows, r, dtype=torch.float32),
+                        "conv": zeros(rows, 3, r)}
             if kind == "rwkv":
-                return {"S": zeros(batch, H, dh, dh, dtype=torch.float32),
-                        "x_t": zeros(batch, cfg.d_model),
-                        "x_c": zeros(batch, cfg.d_model)}
+                h = layer.t.u.shape[0]
+                return {"S": zeros(rows, h, dh, dh, dtype=torch.float32),
+                        "x_t": zeros(rows, cfg.d_model),
+                        "x_c": zeros(rows, cfg.d_model)}
             cap = (min(cfg.local_window, capacity) if kind == "local"
                    else capacity)
-            return {name: kvcache.init_layer(batch, cap, cfg.n_kv_heads,
-                                             cfg.d_head, cfg.kv_cache_dtype,
-                                             self.device)
+            split = self.kv_seq_split(batch, cap)
+            return {name: kvcache.new_layer(rows, cap, cfg.n_kv_heads,
+                                            cfg.d_head, cfg.kv_cache_dtype,
+                                            self.device, split)
                     for name in ("k", "v")}
 
-        return [one(kind) for kind in cfg.layer_kinds]
+        return [one(layer) for layer in self.layers]
+
+    def kv_seq_split(self, batch: int, slots: int) -> tuple:
+        """``(axes, parts, index)`` of the sequence of a KV cache of
+        ``batch`` x ``slots`` on this model's mesh (``kv_seq``, where the
+        slots divide; ``(None, 1, 0)`` off a mesh)."""
+        if self.split is None:
+            return (None, 1, 0)
+        cfg = self.cfg
+        ns = self.split.stored(("batch", "kv_seq", "kv_heads", "head_dim"),
+                               (batch, slots, cfg.n_kv_heads, cfg.d_head))
+        if ns.block(2)[1] > 1:
+            raise NotImplementedError(
+                f"a KV cache split over its kv heads ({ns.spec}): the port "
+                f"splits it by sequence only")
+        return ns.block(1)
 
 
 def build(cfg: ModelConfig, **kw) -> Model:

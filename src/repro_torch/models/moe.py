@@ -21,11 +21,20 @@ Two paths, taken under the reference's own conditions (``moe.py:177-178``):
   step (a decode step is far below 2048 tokens).
 
 A block built with a mesh over ranks holds only its rank's E/tp experts
-(``convert.shard_experts`` cuts the weights to that slice) and runs only
-the expert-parallel path: it refuses a call below the path's conditions
-(a decode step, a short prompt), since decoding on a mesh waits for the
-tensor-parallel slice of the port.  A block that holds every expert
-(built without a mesh, run under ``with mesh:``) takes either path.
+(``convert.shard_experts`` cuts the weights to that slice); a block of a
+model built on a mesh (``split``) holds its block of every weight as the
+rules cut it, the ff dimension of each expert too where "expert_mlp" is
+split (``RULES_TP_2D``: over "data").  Below the expert-parallel path's
+conditions (a decode step, a short prompt) such a block takes the
+reference's other path under the mesh (``moe.py:187-243``): every rank
+routes every token (the batch rows gathered over "data" where they are
+split, the router's logits over "experts"), dispatches them per data
+block with that block's capacity, runs its own experts on its slice of
+their ff dimension, combines what its experts computed, and the ranks'
+combines are summed (an all-reduce over "experts" and, for a split ff
+dimension, a reduce-scatter over "data" back to each rank's rows).  A
+block that holds every expert (built without a mesh, run under ``with
+mesh:``) takes either path as the one-device block does.
 
 Everything in the dispatch path is fixed-shape and reads no device value
 on the host, so the block runs inside the serving engine's captured
@@ -44,13 +53,12 @@ scatter-adds, with the same numbers:
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from . import sharding
-from .layers import _dense_, _param, dtype_of, rmsnorm
+from . import collectives, sharding
+from .layers import _dense_, _param, dtype_of, rmsnorm, split_of, use
 
 #: the fewest tokens per data shard that take the expert-parallel path
 EP_MIN_TOKENS = 2048
@@ -90,21 +98,40 @@ class MoE(nn.Module):
     (:func:`expert_slice`).  :attr:`ep_calls` counts the forwards that
     took the expert-parallel path."""
 
-    def __init__(self, cfg: ModelConfig, device=None, rules=None, mesh=None):
+    def __init__(self, cfg: ModelConfig, device=None, rules=None, mesh=None,
+                 split=None):
         super().__init__()
         self.cfg = cfg
         self.rules = dict(cfg.rules if rules is None else rules)
         self.mesh = mesh
         self.ep_calls = 0
-        d, ff = cfg.d_model, cfg.d_ff
-        self.first, held = expert_slice(cfg, self.rules, mesh)
+        d, ff, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
         dt, pdt = dtype_of(cfg.dtype), dtype_of(cfg.param_dtype)
-        self.ln = _param((d,), pdt, device)
-        self.router = _param((d, cfg.moe.n_experts), torch.float32, device)
+        self.ln = _param((d,), pdt, device, split, ("embed",))
+        self.router = _param((d, E), torch.float32, device, split,
+                             ("embed", "experts"))
+        if split is None:               # every expert, or a block's slice
+            self.first, held = expert_slice(cfg, self.rules, mesh)
+            self.expert_axis = (None if held == E
+                                else self.rules["experts"])
+            shape = (held, d, ff), (held, ff, d)
+            logical = (None, None)
+        else:
+            shape = (E, d, ff), (E, ff, d)
+            logical = (("experts", "embed", "expert_mlp"),
+                       ("experts", "expert_mlp", "embed"))
         if cfg.act == "swiglu":
-            self.wi_gate = _param((held, d, ff), dt, device)
-        self.wi = _param((held, d, ff), dt, device)
-        self.wo = _param((held, ff, d), dt, device)
+            self.wi_gate = _param(shape[0], dt, device, split, logical[0])
+        self.wi = _param(shape[0], dt, device, split, logical[0])
+        self.wo = _param(shape[1], dt, device, split, logical[1])
+        #: where the experts and their ff dimension are split (a model's
+        #: block on a mesh)
+        self.ff_axis = None
+        self.split_mesh = None if split is None else split.mesh
+        if split is not None:
+            self.expert_axis, _, index = split_of(self.wi, 0)
+            self.first = index * self.wi.shape[0]
+            self.ff_axis = split_of(self.wi, 2)[0]
 
     def _expert_names(self):
         return (("wi_gate",) if self.cfg.act == "swiglu" else ()) + ("wi",
@@ -122,7 +149,7 @@ class MoE(nn.Module):
         for name in self._expert_names():
             p = getattr(self, name)
             fan_in = ff if name == "wo" else d
-            if p.shape[0] == E:
+            if p.shape[0] == E or getattr(p, "stored", None) is not None:
                 _dense_(p, fan_in, gen)
                 continue
             x = torch.randn((E, *p.shape[1:]), generator=gen,
@@ -135,7 +162,9 @@ class MoE(nn.Module):
         (``moe.py:159-164``): float32 ``(logits, probs)`` (T, E) and the
         top-k ``(gates, experts)`` (T, k), gates renormalised."""
         k = self.cfg.moe.top_k
-        logits = h.float() @ self.router
+        logits = collectives.all_gather(h.float() @ use(self.router),
+                                        self.split_mesh,
+                                        split_of(self.router, 1)[0], -1)
         probs = torch.softmax(logits, dim=-1)
         # jax.lax.top_k: descending, the lower index first among ties
         gates, experts = probs.sort(dim=-1, descending=True, stable=True)
@@ -143,13 +172,18 @@ class MoE(nn.Module):
         gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
         return logits, probs, gates, experts
 
-    def forward(self, x):
+    def forward(self, x, rows=(None, 1, 0)):
         """x: (B, S, d) -> (x + y, {"moe_aux", "moe_z"}), both float32
-        scalars."""
+        scalars.  ``rows``: ``(axes, parts, index)`` of the batch rows a
+        rank of a model on a mesh holds (its block of the whole batch)."""
         mo = self.cfg.moe
+        row_axis, row_parts, row_index = rows
+        x_rows = x
+        if row_parts > 1:               # every rank routes every token
+            x = collectives.all_gather(x, self.split_mesh, row_axis, 0)
         B, S, d = x.shape
         T, E, k = B * S, mo.n_experts, mo.top_k
-        h = rmsnorm(x, self.ln).to(self.wi.dtype).reshape(T, d)
+        h = rmsnorm(x, use(self.ln)).to(self.wi.dtype).reshape(T, d)
         logits, probs, gates, experts = self.route(h)
 
         # load-balance and router-z losses; ce adds 1/(T k) per choice,
@@ -161,36 +195,45 @@ class MoE(nn.Module):
         zloss = mo.router_z_weight * torch.mean(
             torch.logsumexp(logits, dim=-1) ** 2)
 
-        mesh = self.mesh if self.mesh is not None else \
-            sharding._current_mesh()
+        mesh = self.mesh or self.split_mesh or sharding._current_mesh()
         tp = sharding.resolved_size(self.rules, "experts", mesh)
         dp = sharding.resolved_size(self.rules, "batch", mesh)
         if T % dp:
             dp = 1
+        wts = {n: use(getattr(self, n)) for n in self._expert_names()}
         # the reference's condition (moe.py:177-178): all-to-all pays off
-        # at prefill and training token counts; it needs ranks to run on
-        if (mesh is not None and mesh.device_mesh is not None and tp > 1
+        # at prefill and training token counts; it needs ranks to run on,
+        # or a model planned on a mesh description (the dry run)
+        if (mesh is not None and tp > 1
+                and (mesh.device_mesh is not None
+                     or mesh is self.split_mesh)
                 and E % tp == 0 and T % dp == 0
                 and (T // dp) % tp == 0 and T // dp >= EP_MIN_TOKENS):
-            y = self._experts_ep(h, gates, experts, mesh, tp)
+            for n, w in wts.items():        # whole experts, as shard_map's
+                wts[n] = collectives.all_gather(
+                    w, self.split_mesh, self.ff_axis, 1 if n == "wo" else 2)
+            y = self._experts_ep(h, gates, experts, mesh, tp, wts)
         else:
-            held = self.wi.shape[0]
-            if held != E:
-                raise ValueError(
-                    f"this block holds experts [{self.first}, "
-                    f"{self.first + held}) of {E}, so it runs only the "
-                    f"expert-parallel path, which {T} tokens over "
-                    f"{dp} data shard(s) do not take (it needs >= "
-                    f"{EP_MIN_TOKENS} a shard, divisible by the {tp} "
-                    f"expert ranks); decoding on a mesh waits for the "
-                    f"tensor-parallel slice")
-            # one dispatch block per data shard (moe.py:190-241)
-            wts = {n: getattr(self, n) for n in self._expert_names()}
+            # one dispatch block per data shard (moe.py:190-241), this
+            # rank's experts on its slice of their ff dimension
             y = torch.cat([self._experts(hb, gb, eb, wts) for hb, gb, eb in
                            zip(h.chunk(dp), gates.chunk(dp),
                                experts.chunk(dp))]) if dp > 1 else \
                 self._experts(h, gates, experts, wts)
-        return x + y.reshape(B, S, d), {"moe_aux": aux, "moe_z": zloss}
+            y = collectives.all_reduce(y, self.split_mesh or self.mesh,
+                                       self.expert_axis)
+            if (row_parts > 1 and self.ff_axis is not None
+                    and self.ff_axis == row_axis):
+                y = collectives.reduce_scatter(y.reshape(B, S, d),
+                                               self.split_mesh,
+                                               self.ff_axis, 0)
+                return x_rows + y, {"moe_aux": aux, "moe_z": zloss}
+            y = collectives.all_reduce(y, self.split_mesh, self.ff_axis)
+        y = y.reshape(B, S, d)
+        if row_parts > 1:
+            n = B // row_parts
+            y = y[row_index * n:(row_index + 1) * n]
+        return x_rows + y, {"moe_aux": aux, "moe_z": zloss}
 
     def _ffn(self, x_in, wts):
         """The expert FFNs over (E', C, d) inputs with (E', d, ff) weights
@@ -209,21 +252,30 @@ class MoE(nn.Module):
 
     def _experts(self, h, gates, experts, wts):
         """Dispatch, expert FFNs and gated combine of one block of tokens
-        (``moe.py:192-241``)."""
+        (``moe.py:192-241``), over the experts this block holds: the
+        combine of the entries they took (the rest are summed in by the
+        other ranks)."""
         T, d = h.shape
         E, k = self.cfg.moe.n_experts, self.cfg.moe.top_k
+        held = wts["wi"].shape[0]
         cap = capacity(self.cfg, T)
         _, perm, slot, keep = dispatch(self.cfg, experts)
         buf = h.new_zeros(E * cap + 1, d)          # + the spare row
         buf.index_copy_(0, slot,
                         h[:, None].expand(T, k, d).reshape(T * k, d))
-        out = self._ffn(buf[:E * cap].view(E, cap, d), wts).view(E * cap, d)
+        lo = self.first * cap
+        out = self._ffn(buf[lo:lo + held * cap].view(held, cap, d),
+                        wts).view(held * cap, d)
+        if held < E:
+            slot = slot - lo
+            keep = keep & (slot >= 0) & (slot < held * cap)
         return _combine(out, slot, keep, gates.gather(-1, perm))
 
-    def _experts_ep(self, h, gates, experts, mesh, tp):
+    def _experts_ep(self, h, gates, experts, mesh, tp, wts):
         """The expert-parallel path (``moe.py:36-111``) as this rank's
         part: its chunk of its data shard's tokens out to the experts'
-        owners and back, then every rank's chunks gathered."""
+        owners and back, then every rank's chunks gathered.  ``wts``: the
+        expert weights, whole in their ff dimension."""
         self.ep_calls += 1
         T, d = h.shape
         E, k = self.cfg.moe.n_experts, self.cfg.moe.top_k
@@ -245,22 +297,21 @@ class MoE(nn.Module):
         send = h_c.new_zeros(E * cap + 1, d)
         send.index_copy_(0, slot,
                          h_c[:, None].expand(chunk, k, d).reshape(-1, d))
-        group = mesh.group(axis)
         # (tp, E_loc, cap, d), grouped by owner rank: row block i goes to i
-        recv = _all_to_all(send[:E * cap], group).view(tp, E_loc, cap, d)
+        recv = collectives.all_to_all(send[:E * cap], mesh, axis).view(
+            tp, E_loc, cap, d)
         x_in = recv.transpose(0, 1).reshape(E_loc, tp * cap, d)
         r = mesh.coordinate(axis)
-        wts = {n: getattr(self, n) for n in self._expert_names()}
         if self.wi.shape[0] == E:                  # held whole: its slice
             wts = {n: w[r * E_loc:(r + 1) * E_loc] for n, w in wts.items()}
         out = self._ffn(x_in, wts)
-        back = _all_to_all(out.view(E_loc, tp, cap, d).transpose(0, 1)
-                           .reshape(E * cap, d), group)
+        back = collectives.all_to_all(
+            out.view(E_loc, tp, cap, d).transpose(0, 1).reshape(E * cap, d),
+            mesh, axis)
         y = _combine(back, slot, keep, g_c.gather(-1, perm))
-        y = torch.cat(_all_gather(y, group))        # the shard's T_loc
+        y = collectives.all_gather(y, mesh, axis, 0)   # the shard's T_loc
         for a in reversed(batch_axes):              # minor axis first
-            if mesh.shape[a] > 1:
-                y = torch.cat(_all_gather(y, mesh.group(a)))
+            y = collectives.all_gather(y, mesh, a, 0)
         return y
 
 
@@ -274,30 +325,6 @@ def _combine(out, slot, keep, gates):
     for j in range(k):
         y = y + contrib[:, j]
     return y
-
-
-def _staged(t, group):
-    """Where ``t`` crosses ranks over ``group``: host memory for a CUDA
-    tensor under ``gloo`` (which carries CPU tensors), else in place."""
-    if t.is_cuda and dist.get_backend(group) == "gloo":
-        return t.cpu()
-    return t
-
-
-def _all_to_all(t, group):
-    """``all_to_all_single`` of ``t``'s rows, split evenly over ``group``."""
-    src = _staged(t.contiguous(), group)
-    dst = torch.empty_like(src)
-    dist.all_to_all_single(dst, src, group=group)
-    return dst.to(t.device)
-
-
-def _all_gather(t, group) -> list:
-    """Every rank of ``group``'s ``t``, in rank order."""
-    src = _staged(t.contiguous(), group)
-    out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(out, src, group=group)
-    return [o.to(t.device) for o in out]
 
 
 def dispatch(cfg: ModelConfig, experts, cap: int | None = None):

@@ -15,8 +15,15 @@ port's :class:`PartitionSpec`, a tuple, and :func:`named_sharding` a
 :class:`NamedSharding` whose ``placements`` are DTensor's.
 :func:`constrain` and :func:`weight_use` do nothing outside a mesh or on
 a plain tensor, as the reference's do off a mesh; on a DTensor they
-``redistribute``.  The port's dense layers do not call them yet: they
-stay replicated.
+``redistribute``.
+
+A model built on a mesh (``Model(..., mesh=, rules=)``) holds plain
+tensors, not DTensors: :class:`Split` says which block of each of its
+weights, caches and batches a rank holds (``named_sharding``'s, with the
+divisibility fallback) and which it computes with (the same under the
+rules with "embed" unsplit, what ``weight_use`` gathers), and the layers
+call :mod:`repro_torch.models.collectives` where GSPMD would insert a
+collective for the reference.
 """
 from __future__ import annotations
 
@@ -140,6 +147,31 @@ class NamedSharding:
         return tuple(Shard(dim_of[a]) if a in dim_of else Replicate()
                      for a in self.mesh.axis_names)
 
+    def shard_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        """The shape of one rank's block of a tensor of ``shape``
+        (``jax.sharding.NamedSharding.shard_shape``)."""
+        out = list(shape)
+        for d, axis in enumerate(self.spec):
+            n = _axis_size(self.mesh, axis)
+            if out[d] % n:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                                 f"evenly over mesh axes {axis!r}")
+            out[d] //= n
+        return tuple(out)
+
+    def block(self, dim: int) -> tuple[Any, int, int]:
+        """``(axes, parts, index)`` of tensor dim ``dim``: the mesh axes
+        that split it (None when none does), into how many blocks, and
+        which of them this rank holds (row-major over the axes; 0 on a
+        description)."""
+        axis = self.spec[dim] if dim < len(self.spec) else None
+        if axis is None:
+            return None, 1, 0
+        index = 0
+        for a in (axis if isinstance(axis, tuple) else (axis,)):
+            index = index * self.mesh.shape[a] + self.mesh.coordinate(a)
+        return axis, _axis_size(self.mesh, axis), index
+
     def shard_of(self, tensor: torch.Tensor) -> torch.Tensor:
         """This rank's block of the whole ``tensor`` (which every rank
         holds): the spec's dims split evenly, by this rank's coordinate
@@ -261,3 +293,31 @@ def resolved_size(rules: Mapping[str, object], logical: str,
         return 1
     axis = _resolve_axis(rules.get(logical), tuple(mesh.axis_names))
     return _axis_size(mesh, axis)
+
+
+class Split:
+    """How a model built on ``mesh`` under ``rules`` holds and uses its
+    tensors (the port's stand-in for the reference's ``in_shardings`` and
+    ``weight_use``).
+
+    A tensor whose dims carry ``logical`` axes is *stored* as this rank's
+    block under ``named_sharding(mesh, rules, logical, shape)`` and
+    *computed with* as its block under the same rules with "embed" left
+    whole, which is what ``weight_use`` gathers an fsdp-stored weight to
+    (under ``serve_rules`` the two agree: "embed" is never split)."""
+
+    def __init__(self, mesh, rules: Mapping[str, object]):
+        self.mesh = mesh
+        self.rules = dict(rules)
+        self._compute = dict(rules, embed=None)
+
+    def stored(self, logical, shape) -> NamedSharding:
+        return named_sharding(self.mesh, self.rules, logical, shape)
+
+    def computed(self, logical, shape) -> NamedSharding:
+        return named_sharding(self.mesh, self._compute, logical, shape)
+
+    def rows(self, batch: int) -> NamedSharding:
+        """The sharding of a batch of ``batch`` sequences: its rows split
+        over the "batch" axes where they divide."""
+        return self.stored(("batch",), (batch,))

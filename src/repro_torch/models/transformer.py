@@ -12,6 +12,11 @@ Each layer's cache is a dict: ``{"k", "v"}`` KV-cache views for
 attention, ``{"h", "conv"}`` for RG-LRU, ``{"S", "x_t", "x_c"}`` for
 RWKV-6 (shapes: ``Model.init_cache``).  Prefill writes into the views it
 is given and a decode step updates its caches, both in place.
+
+On a mesh (``model.split``) every pass takes the whole batch and returns
+the whole batch's logits: each rank runs its block of the batch rows
+(split over the "batch" axes where they divide), and the logits are
+gathered back over those axes.
 """
 from __future__ import annotations
 
@@ -20,7 +25,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from . import kvcache, layers, moe, recurrent
+from . import collectives, kvcache, layers, moe, recurrent
+
+#: the rows split of a batch off a mesh: (axes, parts, index)
+WHOLE = (None, 1, 0)
 
 ATTENTION = ("attn", "local")
 RECURRENT = ("rglru", "rwkv")
@@ -33,23 +41,24 @@ class Layer(nn.Module):
     experts, the one layer that reads them (``moe.MoE``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device=None,
-                 rules=None, mesh=None):
+                 rules=None, mesh=None, split=None):
         super().__init__()
         self.kind = kind
         if kind in ATTENTION:
-            self.t = layers.Attention(cfg, kind, device)
+            self.t = layers.Attention(cfg, kind, device, split)
         elif kind == "rglru":
-            self.t = recurrent.RGLRU(cfg, device)
+            self.t = recurrent.RGLRU(cfg, device, split)
         elif kind == "rwkv":
-            self.t = recurrent.RWKV(cfg, device)
+            self.t = recurrent.RWKV(cfg, device, split)
         else:
             raise ValueError(f"unknown layer kind {kind!r}")
         if kind == "rwkv":
             self.c = None
         elif cfg.moe is not None:
-            self.c = moe.MoE(cfg, device, rules=rules, mesh=mesh)
+            self.c = moe.MoE(cfg, device, rules=rules, mesh=mesh,
+                             split=split)
         else:
-            self.c = layers.MLP(cfg, device)
+            self.c = layers.MLP(cfg, device, split)
 
     def init(self, gen: torch.Generator) -> None:
         self.t.init(gen)
@@ -57,11 +66,13 @@ class Layer(nn.Module):
             self.c.init(gen)
 
     def forward(self, x, positions, *, cache=None, lengths=None,
-                backend="auto"):
+                backend="auto", rows=WHOLE):
         """Returns ``(x, new, aux)``: for attention ``new`` is the prompt's
         ``(k, v)`` (prefill) or the updated cache views (decode); for the
         recurrent kinds it is the new state, never written into
-        ``cache``.  ``aux`` holds the MoE losses (empty otherwise)."""
+        ``cache``.  ``aux`` holds the MoE losses (empty otherwise).
+        ``rows``: the batch rows ``x`` holds on a mesh (the MoE routes
+        every rank's)."""
         if self.kind in ATTENTION:
             kv = None if cache is None else (cache["k"], cache["v"])
             x, new = self.t(x, positions, cache=kv, lengths=lengths,
@@ -70,7 +81,7 @@ class Layer(nn.Module):
             x, new = self.t(x, state=cache, backend=backend)
         aux = {}
         if isinstance(self.c, moe.MoE):
-            x, aux = self.c(x)
+            x, aux = self.c(x, rows)
         elif self.c is not None:
             x = self.c(x)
         return x, new, aux
@@ -90,13 +101,14 @@ def forward(model, batch, *, collect_kv=False, last_only=False,
     allocated.
     """
     cfg = model.cfg
+    batch, rows = batch_rows(model, batch)
     x = model.emb.embed(batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     caches = [] if collect_kv else None
     aux_total = {"moe_aux": 0.0, "moe_z": 0.0}
     for i, layer in enumerate(model.layers):
-        x, new, aux = layer(x, positions, backend=model.backend)
+        x, new, aux = layer(x, positions, backend=model.backend, rows=rows)
         for name, v in aux.items():
             aux_total[name] = aux_total[name] + v
         if not collect_kv:
@@ -110,20 +122,42 @@ def forward(model, batch, *, collect_kv=False, last_only=False,
                 c = {name: t.clone() for name, t in new.items()}
             caches.append(c)
             continue
-        k, v = new
+        k, v = layer.t.whole_kv(*new)
         window = cfg.local_window if layer.kind == "local" else None
         if cache_out is not None:
             c = cache_out[i]
             kvcache.write_prefill(c["k"], k, window)
             kvcache.write_prefill(c["v"], v, window)
         else:
-            kc, vc = kvcache.from_prefill(k, v, cache_capacity or S,
-                                          cfg.kv_cache_dtype, window)
+            kc, vc = kvcache.from_prefill(
+                k, v, cache_capacity or S, cfg.kv_cache_dtype, window,
+                lambda slots: model.kv_seq_split(B * rows[1], slots))
             c = {"k": kc, "v": vc}
         caches.append(c)
     if last_only:
         x = x[:, -1:]
-    return model.emb.logits(x), caches, aux_total
+    return whole_rows(model, model.emb.logits(x), rows), caches, aux_total
+
+
+def batch_rows(model, batch):
+    """This rank's rows of ``batch`` on a mesh, and their ``(axes, parts,
+    index)``; off a mesh the batch and :data:`WHOLE`."""
+    if model.split is None:
+        return batch, WHOLE
+    n = next(iter(batch.values())).shape[0]
+    rows = model.split.rows(n)
+    block = rows.block(0)
+    if block[1] == 1:
+        return batch, WHOLE
+    return {k: rows.shard_of(v) for k, v in batch.items()}, block
+
+
+def whole_rows(model, t, rows):
+    """``t``'s rows of every rank, gathered over the batch axes."""
+    axis, parts, _ = rows
+    if parts == 1:
+        return t
+    return collectives.all_gather(t, model.split.mesh, axis, 0)
 
 
 def train_forward(model, batch):
@@ -176,13 +210,14 @@ def decode_step(model, caches, batch):
     "lengths": (B,) int32}.  Returns (logits (B, 1, V), caches), the
     caches updated in place; the MoE losses are dropped, as the
     reference's ``decode_step`` drops them."""
+    batch, rows = batch_rows(model, batch)
     lengths = batch["lengths"]
     x = model.emb.embed(batch)
     positions = lengths[:, None]                      # (B,1) absolute pos
     for layer, c in zip(model.layers, caches):
         x, new, _ = layer(x, positions, cache=c, lengths=lengths,
-                          backend=model.backend)
+                          backend=model.backend, rows=rows)
         if layer.kind in RECURRENT:
             for name, t in new.items():
                 c[name].copy_(t)
-    return model.emb.logits(x), caches
+    return whole_rows(model, model.emb.logits(x), rows), caches

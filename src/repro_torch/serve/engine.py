@@ -118,12 +118,19 @@ class DecodeGraph:
 class ServingEngine:
     """``eager=True`` steps the decode eagerly on the card too (to compare
     the two paths); on the CPU it always does.  Either way the step goes
-    through :class:`DecodeGraph`."""
+    through :class:`DecodeGraph`.  The engine serves a model on one
+    device, as the reference's does: a model built on a mesh of ranks
+    serves through ``Model.prefill`` / ``decode_step`` on every rank."""
 
     def __init__(self, model: Model, max_slots: int = 4,
                  capacity: int = 256,
                  admission_gate: Callable[[Request], bool] | None = None,
                  *, eager: bool = False):
+        split = getattr(model, "split", None)
+        if split is not None and split.mesh.size > 1:
+            raise ValueError(
+                f"ServingEngine serves a model on one device; this one is "
+                f"built on a mesh of {split.mesh.shape}")
         self.model = model
         self.device = model.device
         self.max_slots = max_slots

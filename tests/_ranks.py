@@ -11,6 +11,7 @@ rank with a timeout of its own and fails on any exit code but 0.
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 import queue
 import time
 
@@ -161,7 +162,9 @@ def moe_ranks(rank, world, arch, sizes, cases):
     gives the output, the aux losses, whether the expert-parallel path
     ran and the experts the block held, or the message a sliced block
     refused the call with.  Last, a model built on the mesh prefills
-    ``EP_MIN_TOKENS`` tokens and is refused a decode step."""
+    ``EP_MIN_TOKENS`` tokens a data shard and decodes a step, on the
+    reference's weights (the npz ``decode<rows>.npz`` beside the
+    cases')."""
     from repro_torch.launch import mesh as tmesh
     from repro_torch.models import moe
     from repro_torch.models.convert import shard_experts
@@ -189,30 +192,36 @@ def moe_ranks(rank, world, arch, sizes, cases):
             whole.load_state_dict(moe_state(z))
             with m:
                 out.append(dict(sliced=run(sliced, x), whole=run(whole, x)))
-    return dict(cases=out, decode=model_decode(arch, m))
+    rows = m.shape["data"]          # EP_MIN_TOKENS a data shard
+    path = pathlib.Path(cases[0][1]).parent / f"decode{rows}.npz"
+    return dict(cases=out, decode=model_decode(arch, m, path))
 
 
-def model_decode(arch, m) -> dict:
-    """A model of ``arch`` built on mesh ``m``: the expert-parallel
-    blocks its prefill of ``EP_MIN_TOKENS`` tokens a data shard took, and
-    the message its decode step was refused with."""
+def model_decode(arch, m, path) -> dict:
+    """A model of ``arch`` built on mesh ``m`` (under its training rules)
+    from the reference's weights in ``path``: the expert-parallel blocks
+    its prefill of ``EP_MIN_TOKENS`` tokens a data shard took, and its
+    prefill's and decode step's logits."""
     from repro_torch.models import build
+    from repro_torch.models.convert import shard_params
     from repro_torch.models.moe import EP_MIN_TOKENS
     cfg = moe_config(arch, 8.0)
     model = build(cfg, device="cpu", mesh=m)
-    model.init(torch.Generator().manual_seed(0))
-    rows = m.shape["data"]          # EP_MIN_TOKENS a data shard
-    ids = torch.randint(0, cfg.vocab, (rows, EP_MIN_TOKENS),
-                        generator=torch.Generator().manual_seed(1))
-    _, caches = model.prefill({"token_ids": ids}, capacity=EP_MIN_TOKENS + 1)
-    res = dict(ep_calls=sum(layer.c.ep_calls for layer in model.layers))
-    try:
-        model.decode_step(caches, {
+    with np.load(path) as z:
+        ids = torch.from_numpy(z["ids"])
+        state = {k[6:]: torch.from_numpy(z[k]) for k in z.files
+                 if k.startswith("state.")}
+    model.load_state_dict(shard_params(cfg, state, model.rules, m))
+    with torch.no_grad():
+        logits, caches = model.prefill({"token_ids": ids},
+                                       capacity=EP_MIN_TOKENS + 1)
+        res = dict(ep_calls=sum(layer.c.ep_calls for layer in model.layers),
+                   prefill=logits.numpy())
+        step, _ = model.decode_step(caches, {
             "token_ids": ids[:, :1],
-            "lengths": torch.full((rows,), EP_MIN_TOKENS,
+            "lengths": torch.full((ids.shape[0],), EP_MIN_TOKENS,
                                   dtype=torch.int32)})
-    except ValueError as exc:
-        res["refused"] = str(exc)
+    res["decode"] = step.numpy()
     return res
 
 
@@ -255,3 +264,82 @@ def data_ranks(rank, world, rules, batch, ckpts):
             k: (v.to_local().numpy(), v.full_tensor().numpy())
             for k, v in state.items() if hasattr(v, "to_local")}))
     return res
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+def tp_case(path) -> tuple:
+    """The reference's run of one case (``tests/test_torch_tensor_parallel
+    .py``): its state dict for the port, prompt, decode tokens, capacity
+    and logits (prefill, then each step)."""
+    with np.load(path) as z:
+        state = {k[6:]: torch.from_numpy(z[k]) for k in z.files
+                 if k.startswith("state.")}
+        return (state, torch.from_numpy(z["ids"]), torch.from_numpy(z["toks"]),
+                int(z["cap"]), z["logits"])
+
+
+def serve_pass(model, ids, toks, cap) -> list:
+    """Prefill ``ids`` into caches of ``cap`` slots, then one decode step
+    a row of ``toks``; the logits of each (f32 numpy)."""
+    logits, caches = model.prefill({"token_ids": ids}, capacity=cap)
+    out = [logits.float().numpy()]
+    lengths = torch.full((ids.shape[0],), ids.shape[1], dtype=torch.int32,
+                         device=ids.device)
+    for t in toks:
+        logits, caches = model.decode_step(
+            caches, {"token_ids": t, "lengths": lengths})
+        out.append(logits.float().numpy())
+        lengths = lengths + 1
+    return out
+
+
+def tp_ranks(rank, world, sizes, cases):
+    """Each ``(name, arch, path)`` of ``cases`` on a mesh of ``sizes``: the
+    model built on the mesh under ``serve_rules`` from the reference's
+    state dict cut to this rank (``shard_params``) serves the case.
+    Returns per case the logits, the collectives recorded, the ones the
+    dry run plans for the same pass on a mesh description, and this
+    rank's KV cache bytes."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import build, collectives
+    from repro_torch.models.convert import shard_params
+    m = tmesh.device_mesh(sizes)
+    desc = tmesh.Mesh(("data", "model"), tuple(sizes))
+    out = {}
+    for name, arch, path in cases:
+        cfg = configs.get(arch).reduced()
+        state, ids, toks, cap, _ = tp_case(path)
+        model = build(cfg, device="cpu", mesh=m, rules=cfg.serve_rules)
+        model.load_state_dict(shard_params(cfg, state, cfg.serve_rules, m))
+        collectives.reset()
+        with torch.no_grad():
+            logits = serve_pass(model, ids, toks, cap)
+        got = list(collectives.records)
+        planned = dryrun.mesh_model(cfg, desc, backend="torch")
+        collectives.reset()
+        with torch.no_grad():
+            _plan(planned, ids, toks, cap)
+        want = list(collectives.records)
+        collectives.reset()
+        kv = sum(t.numel() * t.element_size()
+                 for c in model.init_cache(ids.shape[0], cap)
+                 for x in c.values() if isinstance(x, dict)
+                 for t in x.values())
+        out[name] = dict(logits=logits, records=got, planned=want,
+                         kv_bytes=kv)
+    return out
+
+
+def _plan(model, ids, toks, cap) -> None:
+    """``serve_pass`` on ``meta`` (a model on a mesh description)."""
+    meta = torch.device("meta")
+    _, caches = model.prefill({"token_ids": ids.to(meta)}, capacity=cap)
+    lengths = torch.zeros((ids.shape[0],), dtype=torch.int32, device=meta)
+    for t in toks:
+        model.decode_step(caches, {"token_ids": t.to(meta),
+                                   "lengths": lengths})

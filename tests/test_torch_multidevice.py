@@ -24,7 +24,9 @@ shim of ``tests/test_torch_search.py`` applied inside it.
   (2,2)) against ``repro``'s ``_moe_ep_shardmap`` on as many emulated
   devices, at capacity factors 8.0 and 1.25, within
   ``tests/test_torch_moe.py``'s atol = rtol = 1e-5; below 2048 tokens a
-  shard the path is not taken, in either package.
+  shard the path is not taken, in either package, and a block holding a
+  slice of the experts takes the other path over them.  A model built on
+  the mesh prefills through the path and decodes, as ``repro`` does.
 """
 import ast
 import json
@@ -172,6 +174,31 @@ for name, cf, shape, sizes in cases:
              ep=len(calls) - before,
              **{k: np.asarray(v, np.float32) for k, v in aux.items()},
              **{k: np.asarray(v, np.float32) for k, v in p.items()})
+
+# a model of EP_MIN_TOKENS tokens a data shard: its prefill and a decode
+# step on one device (at capacity factor 8.0 nothing drops, so the
+# expert-parallel path computes the same)
+from repro_torch import configs as tconfigs
+from repro_torch.models.convert import params_from_jax
+cfg = dataclasses.replace(cfg0, moe=dataclasses.replace(
+    cfg0.moe, capacity_factor=8.0))
+model = build(cfg)
+params = model.init(jax.random.PRNGKey(0))
+state = params_from_jax(dataclasses.replace(
+    tconfigs.get(args["arch"]).reduced(), moe=dataclasses.replace(
+        tconfigs.get(args["arch"]).reduced().moe, capacity_factor=8.0)),
+    params)
+for rows in (1, 2):
+    ids = np.random.default_rng(rows).integers(
+        0, cfg.vocab, (rows, 2048)).astype(np.int32)
+    logits, caches = jax.jit(lambda p, b: model.prefill(
+        p, b, capacity=2049))(params, {"token_ids": ids})
+    step, _ = jax.jit(model.decode_step)(
+        params, caches, {"token_ids": ids[:, :1],
+                         "lengths": np.full((rows,), 2048, np.int32)})
+    np.savez(out / f"decode{rows}.npz", ids=ids, prefill=np.asarray(logits),
+             decode=np.asarray(step),
+             **{f"state.{k}": v.numpy() for k, v in state.items()})
 (out / "reference.json").write_text(json.dumps(res))
 """
 
@@ -605,16 +632,16 @@ class TestFromAPlainProcess:
 
 def _moe_check(reference, results, sizes):
     """Every rank's blocks against the reference's on the same mesh: the
-    block holding every expert on every case, the block holding a slice
-    where the reference took the expert-parallel path; elsewhere the
-    sliced block refused the call."""
+    block holding every expert and the block holding a slice, on every
+    case; below the expert-parallel path's conditions the sliced block
+    takes the reference's other path over its experts, the ranks' combines
+    summed."""
     E = _ranks.moe_config(MOE_ARCH, 8.0).moe.n_experts
     for rank_res in results:
         for (name, case) in zip(moe_names(sizes), rank_res["cases"]):
             with np.load(reference["dir"] / f"{name}.npz") as z:
                 ep = int(z["ep"])
-                checked = (("whole", "sliced") if ep else ("whole",))
-                for which in checked:
+                for which in ("whole", "sliced"):
                     got = case[which]
                     np.testing.assert_allclose(got["y"], z["y"], **TOL,
                                                err_msg=f"{name} {which}")
@@ -623,9 +650,6 @@ def _moe_check(reference, results, sizes):
                                                    rtol=1e-5)
                     assert got["ep_calls"] == ep, (name, which)
                 assert case["whole"]["held"] == E
-                if not ep:
-                    assert "runs only the expert-parallel path" in \
-                        case["sliced"]["refused"], name
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -641,17 +665,21 @@ def test_expert_parallel_block_equals_the_reference(worlds, world,
 
 
 @pytest.mark.parametrize("world", [2, 4])
-def test_a_model_on_a_mesh_prefills_and_refuses_to_decode(worlds, world):
-    """A model built on a mesh holds a slice of each block's experts: its
-    prefill of 2048 tokens a data shard takes the expert-parallel path in
-    every MoE layer, and its decode step is refused, not run on gathered
-    weights."""
+def test_a_model_on_a_mesh_prefills_and_decodes(worlds, world, reference):
+    """A model built on a mesh (under its training rules: on (2, 2) the
+    weights are stored split on "embed" and gathered at use) holds a
+    slice of each block's experts: its prefill of 2048 tokens a data
+    shard takes the expert-parallel path in every MoE layer, and its
+    decode step runs on the mesh; both give ``repro``'s logits."""
     n_moe = len(_ranks.moe_config(MOE_ARCH, 8.0).layer_kinds)
+    rows = 1 if world == 2 else 2
+    with np.load(reference["dir"] / f"decode{rows}.npz") as z:
+        want = (z["prefill"], z["decode"])
     for rank_res in worlds[world]["moe"]:
         got = rank_res["decode"]
         assert got["ep_calls"] == n_moe
-        assert "decoding on a mesh waits for the tensor-parallel slice" in \
-            got["refused"]
+        for g, w in zip((got["prefill"], got["decode"]), want):
+            np.testing.assert_allclose(g, w, **TOL)
 
 
 def test_a_mesh_description_stays_on_one_device(reference):
@@ -728,11 +756,13 @@ def test_one_device_agrees_where_nothing_drops(reference, worlds):
     y, want = _one_device(d / "short.npz", 8.0)
     np.testing.assert_allclose(y, want, **TOL)
     # below 2048 tokens a block on the mesh that holds every expert takes
-    # the one-device path; one that holds 2 of the 4 refuses the call
+    # the one-device path; one that holds 2 of the 4 takes it over its
+    # experts, the ranks' combines summed, with the same numbers
     short = worlds[2]["moe"][0]["cases"][moe_names((1, 2)).index("short")]
     assert short["whole"]["ep_calls"] == 0
     np.testing.assert_allclose(short["whole"]["y"], y, **TOL)
-    assert short["sliced"]["held"] == 2 and "refused" in short["sliced"]
+    assert short["sliced"]["held"] == 2 and short["sliced"]["ep_calls"] == 0
+    np.testing.assert_allclose(short["sliced"]["y"], y, **TOL)
     y, want = _one_device(d / "ep125.npz", 1.25)
     np.testing.assert_allclose(y, want, **TOL)
     y, want = _one_device(d / "ep05.npz", 0.5)
