@@ -177,7 +177,7 @@ Phases, each fatal on failure:
 16. train, through ``repro_torch.train`` on the ``torch`` backend (the
    kernels have no backward): a. full-width stablelm-1.6b (float32 master
    leaves, bf16 compute, remat, AdamW at a constant 3e-4) on
-   ``SyntheticLM`` (seq 1024, batch 8) for 20 steps: every gradient leaf
+   ``SyntheticLM`` (seq 1024, batch 8) for 10 steps: every gradient leaf
    finite and nonzero, the mean loss of the last 5 steps below the first
    step's, no flash or decode launch, the kernel path refusing a
    gradient; step ms, tokens/s and MFU on PEAK_BF16_FLOPS reported;
@@ -215,8 +215,9 @@ Phases, each fatal on failure:
    rank's blocks bit for bit against its rows of the file's arrays.
 18. tensor-parallel serving on 2 ranks sharing the card (a (data 1,
    model 2) mesh over ``gloo``): llama3.2-3b, recurrentgemma-9b and
-   rwkv6-7b at full width and depth and dbrx-132b at the mesh dry run's
-   depth for half the card, each built on the mesh under
+   rwkv6-7b at full width, their depths cut to TP_DEPTHS, and dbrx-132b
+   at the mesh dry run's depth for half the card, each built on the mesh
+   under
    ``cfg.serve_rules`` (``Model(mesh=, rules=)``), serve 4 prompts in 4
    slots and MAX_NEW tokens a request through eager decode steps: the
    tokens equal on both ranks, every kernel's launches exact per rank
@@ -233,6 +234,29 @@ Phases, each fatal on failure:
    collectives' host ms, and the mesh dry run's (1, 2) records.  Phase
    3 also holds the decode kernel's split pass and combine, as entries
    of their own, to their plain twins and times them.
+19. training on 2 ranks sharing the card (the same mesh), each model
+   built on it under ``cfg.rules`` (``Model(layout="train", mesh=)``)
+   and trained through ``Trainer`` on the ``torch`` backend: a. full-width
+   stablelm-1.6b (24 layers, ZeRO-3: every weight gathered at use and its
+   gradient reduce-scattered), AdamW, batch 8 x 1024 (4 rows a rank), a
+   step and a profiled one: the batch's loss and gradient norm equal on
+   both ranks bit for bit, finite, every gradient block finite and
+   nonzero, each rank's peak within the mesh dry run's
+   (``mesh_train_memory``); step ms, busy share and the collectives'
+   host ms reported; b. its 2-layer cut in float32, one step on the mesh
+   against the one-device step on the card from the same seeded leaves
+   and moment (CPU_LOSS_RTOL, CPU_GRAD_RTOL, CPU_LEAF_RTOL), the
+   collectives' op counts and operand bytes equal to the mesh dry run's
+   plan (``mesh_train_step``); c. a checkpoint of the reduced
+   stablelm-1.6b saved from the ranks (whole leaves, written once),
+   restored into a one-device trainer and saved again, restored onto the
+   mesh: the state bit for bit both ways and the next loss the
+   uninterrupted trainer's under deterministic algorithms; d. full-width
+   dbrx-132b (FSDP-TP: heads, experts and vocabulary split over the model
+   axis) at the mesh train dry run's deepest depth for 45% of the card,
+   Adafactor, 16 microbatches of one 256-token sequence, MT_MOE_STEPS
+   steps: finite, equal on both ranks, peaks within the plan; and the
+   reduced dbrx-132b in float32 on the mesh against one device, as b.
 
 Each phase prints its seconds.  The last line is the contract line
 ``{"ok": true, "device": {...}}``; before it come the ``{"phase_s": ...}``,
@@ -241,7 +265,8 @@ Each phase prints its seconds.  The last line is the contract line
 ``{"characterize": ...}``, ``{"serve_recurrent": ...}``,
 ``{"gateway": ...}``, ``{"fleet": ...}``, ``{"serve_moe": ...}``,
 ``{"dryrun": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``,
-``{"tensor_parallel": ...}`` and ``{"memory": ...}`` lines,
+``{"tensor_parallel": ...}``, ``{"mesh_train": ...}`` and
+``{"memory": ...}`` lines,
 one
 ``{"kernels": [...]}`` line and the card's ``nvidia-smi`` name and power
 limit.  Without a CUDA device the
@@ -328,10 +353,10 @@ FIT_GATE = 0.05
 #: one process with the antagonist on each share of the SMs
 SPREAD_SHARES = (0.25, 0.5)
 SPREAD_REPEATS = 3
-PHASES = 18
+PHASES = 19
 #: phase 16a: full-width stablelm-1.6b training
 TRAIN_ARCH = "stablelm-1.6b"
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 8, 20, 3e-4
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 8, 10, 3e-4
 #: the measured peak of that run against the dry run's prediction (fatal)
 TRAIN_PEAK_TOL = 0.15
 #: phase 16b-c: the same widths cut to 2 layers; its batch
@@ -1682,20 +1707,23 @@ def device_ms_by_kernel(prof) -> tuple[dict, int]:
     return kernels, count
 
 
-def profile_steps(step, steps: int = 4) -> dict:
+def profile_steps(step, steps: int = 4, plain_ms: float | None = None
+                  ) -> dict:
     """Device busy share and top kernels over ``steps`` steady calls of
     ``step`` (torch.profiler; "not measured" if it records no device
     time).  The profiler slows the host's side of a step, so the same
-    number of steps just before it is timed unprofiled too: the device ms
-    a step over that step's ms is the busy share without the profiler."""
+    number of steps just before it is timed unprofiled too (unless the
+    caller timed one, ``plain_ms``): the device ms a step over that
+    step's ms is the busy share without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if plain_ms is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -4207,6 +4235,9 @@ TP_RG_LENS, TP_RG_CAPACITY = (8, 100, 513, 2300), RG_CAPACITY
 #: the float32 cuts: llama3.2-3b's 2 layers; the recurrent models' 3
 #: (recurrentgemma-9b's rglru, rglru, local)
 TP_F32_LAYERS = {"llama3.2-3b": 2, "recurrentgemma-9b": 3, "rwkv6-7b": 3}
+#: the bf16 models' depths, cut from the full ones to keep the run within
+#: its time (recurrentgemma-9b keeps 4 of its local layers)
+TP_DEPTHS = {"llama3.2-3b": 8, "recurrentgemma-9b": 12, "rwkv6-7b": 8}
 #: prefill(n) + one decode step against prefill(n + 1): the step's token
 #: lands on slot 520, the first of rank 1's chunk of 1040
 TP_STEP_N = 520
@@ -4522,8 +4553,7 @@ def tensor_parallel(dev) -> dict:
     os.environ["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)
     free_card()
-    plan = {arch: configs.get(arch).n_layers
-            for arch in ("llama3.2-3b", "recurrentgemma-9b", "rwkv6-7b")}
+    plan = dict(TP_DEPTHS)
     plan[TP_MOE_ARCH] = tp_depth(TP_MOE_ARCH)
     layers = {arch: dataclasses.replace(configs.get(arch),
                                         n_layers=n).layer_kinds
@@ -4620,6 +4650,395 @@ def tensor_parallel(dev) -> dict:
     out = dict(depths=plan, ranks=ranks, dryrun_1x2=records,
                seconds=time.perf_counter() - t0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: training on 2 ranks sharing the card
+# ---------------------------------------------------------------------------
+
+#: 19a: full-width stablelm-1.6b steps before the profiled one (a step
+#: takes ~20 s: its collectives cross host memory over gloo)
+MT_STEPS = 1
+#: 19d: full-width dbrx-132b steps
+MT_MOE_STEPS = 2
+#: 19b and 19d's float32 checks start from a moment of some steps (seeded,
+#: step MT_WARM_STEP): the first AdamW / Adafactor update is about sign(g)
+#: lr, which turns a gradient at rounding level into a 2 lr jump
+MT_WARM_STEP = 3
+
+
+def mt_peak(cfg, cell) -> dict:
+    from repro_torch.launch import dryrun
+    return dryrun.mesh_train_memory(cfg, tp_desc(), cell)
+
+
+def mt_depth(arch, cell) -> int:
+    from repro_torch import configs
+    from repro_torch.analysis.roofline import HBM_BYTES
+    from repro_torch.launch import dryrun
+    return dryrun.deepest_depth(
+        configs.get(arch), lambda c: mt_peak(c, cell)["peak_bytes"],
+        TP_CARD_SHARE * HBM_BYTES)
+
+
+def mt_trainer(cfg, dev, m, data, optimizer, ckpt_dir=None, every=50):
+    from repro_torch.models import build
+    from repro_torch.train.trainer import Trainer
+    model = build(cfg, backend="torch", device=dev, layout="train", mesh=m)
+    return Trainer(model, data, ckpt_dir=ckpt_dir, ckpt_every=every,
+                   optimizer=optimizer)
+
+
+def mt_bf16(arch, cfg, cell, steps, opt, dev, m, profile=False) -> dict:
+    """A bf16 model on the mesh at full width: ``steps`` steps (then a
+    profiled one), the losses, norms and step ms, the collectives' host
+    ms, its blocks of the gradients finite and nonzero, and its peak
+    against the mesh dry run's."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import collectives
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = mt_trainer(cfg, dev, m, train_data(
+        cfg, cell.seq_len, cell.global_batch), opt)
+    trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = trainer.model
+    collectives.reset()
+    hist = trainer.run(steps, log_every=1)
+    torch.cuda.synchronize()
+    host_s, n_coll = collectives.seconds, len(collectives.records)
+    peak = torch.cuda.max_memory_allocated() - base
+    bad = [k for k, g in model.grads.items()
+           if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0]
+    res = dict(arch=arch, n_layers=cfg.n_layers, rank=dist.get_rank(),
+               build_s=build_s, losses=[h["loss"] for h in hist],
+               grad_norms=[h["grad_norm"] for h in hist],
+               step_ms=step_ms(hist), bad_grads=bad,
+               leaf_bytes=sum(t.numel() * 4 for t in model.leaves.values()),
+               collectives_per_step=n_coll / steps,
+               collective_host_ms_per_step=host_s * 1e3 / steps,
+               peak_bytes=peak,
+               predicted_peak_bytes=mt_peak(cfg, cell)["peak_bytes"])
+    if profile:
+        batch = to_device(trainer.data.batch_at(steps), dev)
+        collectives.reset()
+        res["profile"] = profile_steps(
+            lambda: trainer.step_fn(trainer.state, batch), 1,
+            plain_ms=res["step_ms"][-1])
+        res["profile"]["collective_host_ms_per_step"] = \
+            collectives.seconds * 1e3
+        collectives.reset()
+    del trainer, model
+    free_card()
+    return res
+
+
+def mt_warm(opt, gen):
+    """A seeded moment of some steps: every state tensor |N(0, 1)| 1e-3,
+    drawn whole in the state's order."""
+    def one(t):
+        return torch.randn(t.shape, generator=gen, dtype=torch.float32,
+                           device=gen.device).abs_().mul_(1e-3)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return one(tree)
+    return walk(opt)
+
+
+def mt_against_one_device(cfg, seq, batch_n, opt_name, dev, m) -> dict:
+    """One float32 step of ``cfg`` on the mesh against the one-device step
+    on the card, both from the seeded leaves and the seeded moment
+    (``mt_warm``); the step's collectives against the mesh dry run's
+    plan.  Rank 0 compares."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build, collectives
+    from repro_torch.models.convert import gather_leaves
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.trainer import TrainState, make_train_step
+
+    batch = to_device(train_data(cfg, seq, batch_n, seed=5).batch_at(0), dev)
+    opt = opt_lib.make(opt_name, TRAIN_LR)
+
+    def warm(model):
+        o = opt_lib.for_model(opt, model)
+        whole = o.whole_state if hasattr(o, "whole_state") else o.init(
+            model.leaves)
+        st = mt_warm(whole, torch.Generator(device=dev).manual_seed(7))
+        if hasattr(o, "shardings"):
+            st = opt_lib.tree_pair(st, o.shardings,
+                                   lambda t, ns: ns.shard_of(t).clone())
+        return o, TrainState(MT_WARM_STEP, model.leaves, st)
+
+    model = build(cfg, backend="torch", device=dev, layout="train",
+                  mesh=m).init(torch.Generator(device=dev).manual_seed(0))
+    o, state = warm(model)
+    collectives.reset()
+    t0 = time.perf_counter()
+    _, met = make_train_step(model, o, cfg.microbatches)(state, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    recs = list(collectives.records)
+    collectives.reset()
+    grads = gather_leaves(model, model.grads)
+    leaves = gather_leaves(model)
+    plan, _ = dryrun.mesh_train_step(cfg, ShapeCell("t", seq, batch_n,
+                                                    "train"), tp_desc())
+    from repro_torch.analysis import roofline
+    mine = roofline.parse_collectives(collectives.hlo_text(recs))
+    want = roofline.parse_collectives(collectives.hlo_text(plan))
+    res = dict(arch=cfg.name, n_layers=cfg.n_layers, rank=dist.get_rank(),
+               loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+               step_s=step_s,
+               collectives=dict(op_counts=mine.op_counts,
+                                operand_bytes=mine.operand_bytes),
+               planned=dict(op_counts=want.op_counts,
+                            operand_bytes=want.operand_bytes))
+    del model, state, o
+    free_card()
+    if dist.get_rank() == 0:
+        one = build(cfg, backend="torch", device=dev, layout="train").init(
+            torch.Generator(device=dev).manual_seed(0))
+        o1, s1 = warm(one)
+        _, m1 = make_train_step(one, o1, cfg.microbatches)(s1, batch)
+        res["one_device_loss"] = float(m1["loss"])
+        res["loss_rel"] = abs(res["loss"] - float(m1["loss"])) / abs(
+            float(m1["loss"]))
+        res["grad_norm_rel"] = abs(res["grad_norm"] - float(
+            m1["grad_norm"])) / float(m1["grad_norm"])
+        res["grad_leaf_rel"] = max(leaf_rel(grads[k], g)
+                                   for k, g in one.grads.items())
+        rels = {k: leaf_rel(leaves[k], v) for k, v in one.leaves.items()}
+        res["worst_leaf"] = max(rels, key=rels.get)
+        res["updated_leaf_rel"] = rels[res["worst_leaf"]]
+        del one, o1, s1
+    del grads, leaves
+    free_card()
+    dist.barrier()
+    return res
+
+
+def _whole_state(trainer) -> dict:
+    """A trainer's leaves and optimizer state, whole, on the host."""
+    from repro_torch.train.checkpoint import flatten
+    sh = trainer.shardings()
+    out = {}
+    for k, v in flatten(trainer.state).items():
+        if not isinstance(v, torch.Tensor):
+            continue
+        ns = None if sh is None else flatten(sh).get(k)
+        out[k] = (v if ns is None else ns.gather(v)).detach().cpu().clone()
+    return out
+
+
+def mt_checkpoint(dev, m, work: str) -> dict:
+    """19c, on the reduced stablelm-1.6b (float32) under deterministic
+    algorithms: a mesh trainer saves at step 2 (whole leaves, rank 0
+    writes) and runs on; a one-device trainer restores the file, bit for
+    bit, and saves its own; a fresh mesh trainer restores that, bit for
+    bit, and takes step 3 as the trainer that never stopped did."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = configs.get(TRAIN_ARCH).reduced()
+    prior = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    rank = dist.get_rank()
+    try:
+        def trainer(where, ckpt, mesh):
+            t = mt_trainer(cfg, dev, mesh, train_data(cfg, 64, 4, 11),
+                           opt_lib.make("adamw", TRAIN_LR), ckpt, 2)
+            if where == "init":
+                t.init_state(torch.Generator(device=dev).manual_seed(0))
+            else:
+                t.restore_or_init()
+            return t
+        a = trainer("init", f"{work}/mesh", m)
+        a.run(2)
+        saved = _whole_state(a)
+        a.ckpt_dir = None
+        la = a.run(3)[-1]["loss"]
+        one_differ = []
+        if rank == 0:
+            c = trainer("restore", f"{work}/mesh", None)
+            got = _whole_state(c)
+            one_differ = [k for k, v in saved.items()
+                          if not torch.equal(got[k], v)]
+            c.ckpt_dir = f"{work}/one"
+            c.save()
+            del c
+        dist.barrier()
+        b = trainer("restore", f"{work}/one", m)
+        got = _whole_state(b)
+        mesh_differ = [k for k, v in saved.items()
+                       if not torch.equal(got[k], v)]
+        b.ckpt_dir = None
+        lb = b.run(3)[-1]["loss"]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prior is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior
+    return dict(rank=rank, arrays=len(saved), one_device_differ=one_differ,
+                mesh_differ=mesh_differ, loss_uninterrupted=la,
+                loss_restored=lb)
+
+
+def mt_rank(dev_name: str, plan: dict) -> list:
+    """Phase 19 on every rank of the 2-rank pool (mesh (1, 2))."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.train import optimizer as opt_lib
+
+    dev = torch.device(dev_name)
+    m = tmesh.device_mesh(TP_SIZES, device=dev.type)
+    res = {"rank": dist.get_rank()}
+    t0 = time.perf_counter()
+    cfg = configs.get(TRAIN_ARCH)
+    res["full"] = mt_bf16(TRAIN_ARCH, cfg, ShapeCell(
+        "train", TRAIN_SEQ, TRAIN_BATCH, "train"), MT_STEPS,
+        opt_lib.make("adamw", TRAIN_LR), dev, m, profile=True)
+    res["f32"] = mt_against_one_device(cut_config("float32"), CUT_SEQ,
+                                       CUT_BATCH, "adamw", dev, m)
+    res["ckpt"] = mt_checkpoint(dev, m, plan["work"])
+    full = configs.get(MOE_TRAIN_ARCH)
+    moe = dataclasses.replace(full, n_layers=plan["moe_depth"])
+    res["moe"] = mt_bf16(MOE_TRAIN_ARCH, moe, ShapeCell(
+        "train", MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, "train"), MT_MOE_STEPS,
+        opt_lib.make(moe.optimizer, moe.learning_rate), dev, m)
+    res["moe_f32"] = mt_against_one_device(full.reduced(), 16, 4,
+                                           "adafactor", dev, m)
+    res["seconds"] = time.perf_counter() - t0
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, res)
+    return out
+
+
+def mt_require_f32(r: dict) -> None:
+    require(r["collectives"]["op_counts"] == r["planned"]["op_counts"]
+            and r["collectives"]["operand_bytes"]
+            == r["planned"]["operand_bytes"],
+            f"{r['arch']} rank {r['rank']}: collectives {r['collectives']} "
+            f"!= the mesh dry run's {r['planned']}")
+    if r["rank"] != 0:
+        return
+    require(r["loss_rel"] <= CPU_LOSS_RTOL, f"mesh vs one device: {r}")
+    require(r["grad_norm_rel"] <= CPU_GRAD_RTOL
+            and r["grad_leaf_rel"] <= CPU_GRAD_RTOL
+            and r["updated_leaf_rel"] <= CPU_LEAF_RTOL,
+            f"mesh vs one device: {r}")
+
+
+def _share(v) -> str:
+    """A busy share as printed: "not measured" (or None) as it is."""
+    return v if v is None or isinstance(v, str) else f"{v:.3f}"
+
+
+def mesh_train(dev) -> dict:
+    """Phase 19: training on 2 ranks sharing the card."""
+    from repro_torch import configs
+    from repro_torch import ranks as rank_lib
+    from repro_torch.configs.base import ShapeCell
+
+    t0 = time.perf_counter()
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)
+    free_card()
+    cell = ShapeCell("train", MOE_TRAIN_SEQ, MOE_TRAIN_BATCH, "train")
+    depth = mt_depth(MOE_TRAIN_ARCH, cell)
+    work = tempfile.TemporaryDirectory()
+    plan = {"moe_depth": max(1, depth), "work": work.name}
+    print(f"  {MOE_TRAIN_ARCH}: {plan['moe_depth']} of "
+          f"{configs.get(MOE_TRAIN_ARCH).n_layers} layers (the mesh train "
+          f"dry run's deepest whose per-rank peak fits {TP_CARD_SHARE:.2f} "
+          f"of the card: {depth})")
+    rank_lib.share_devices(TP_SIZES[1])
+    try:
+        ranks = rank_lib.rank_pool(TP_SIZES[1], dev).run("chip_smoke:mt_rank",
+                                                         dev.type, plan)
+    finally:
+        rank_lib.close_pool()
+        work.cleanup()
+        free_card()
+    for key in ("full", "moe"):
+        rs = [r[key] for r in ranks]
+        for r in rs:
+            pr = r.get("profile", {})
+            busy = pr.get("unprofiled_busy_share")
+            print(f"  {r['arch']} ({r['n_layers']} layers) rank {r['rank']}: "
+                  f"built in {r['build_s']:.1f} s, {r['leaf_bytes'] / 1e9:.3f}"
+                  f" GB of float32 leaves; losses {r['losses']}, grad norms "
+                  f"{r['grad_norms']}, step ms "
+                  f"{[round(x, 1) for x in r['step_ms']]}; collectives "
+                  f"{r['collectives_per_step']:.0f} a step, host ms a step "
+                  f"{r['collective_host_ms_per_step']:.1f}"
+                  + (f"; a profiled step {pr['wall_ms_per_step']:.1f} ms, "
+                     f"device busy {_share(pr['device_busy_share'])} of it "
+                     f"and {_share(busy)} of the "
+                     f"unprofiled step, collectives' host ms "
+                     f"{pr['collective_host_ms_per_step']:.1f}" if pr else "")
+                  + f"; memory, mesh train {r['arch']} rank {r['rank']}: "
+                  f"mesh dry run {r['predicted_peak_bytes'] / 1e9:.3f} GB, "
+                  f"max_memory_allocated {r['peak_bytes'] / 1e9:.3f} GB")
+            require(all(math.isfinite(x) for x in r["losses"]
+                        + r["grad_norms"]), f"{key}: not finite: {r}")
+            require(not r["bad_grads"], f"{key} rank {r['rank']}: gradient "
+                    f"blocks not finite or all zero: {r['bad_grads']}")
+            require(r["peak_bytes"] <= r["predicted_peak_bytes"],
+                    f"{key} rank {r['rank']}: peak {r['peak_bytes'] / 1e9:.2f}"
+                    f" GB over the mesh dry run's "
+                    f"{r['predicted_peak_bytes'] / 1e9:.2f}")
+        require(rs[0]["losses"] == rs[1]["losses"]
+                and rs[0]["grad_norms"] == rs[1]["grad_norms"],
+                f"{key}: the ranks' losses or norms differ")
+        MEMORY.extend(dict(run=f"mesh train {r['arch']} rank {r['rank']}",
+                           predicted_bytes=r["predicted_peak_bytes"],
+                           measured_bytes=r["peak_bytes"],
+                           measured_over_predicted=r["peak_bytes"]
+                           / r["predicted_peak_bytes"]) for r in rs)
+    for key in ("f32", "moe_f32"):
+        for r in (x[key] for x in ranks):
+            line = (f"  float32 {r['arch']} ({r['n_layers']} layers) rank "
+                    f"{r['rank']}: a step on the mesh in {r['step_s']:.2f} s;"
+                    f" collectives {r['collectives']['op_counts']} "
+                    f"{r['collectives']['operand_bytes'] / 1e6:.3f} MB "
+                    f"(planned {r['planned']['op_counts']} "
+                    f"{r['planned']['operand_bytes'] / 1e6:.3f} MB)")
+            if r["rank"] == 0:
+                line += (f"; against one device: loss rel "
+                         f"{r['loss_rel']:.2e}, grad norm rel "
+                         f"{r['grad_norm_rel']:.2e}, gradient leaves up to "
+                         f"{r['grad_leaf_rel']:.2e}, updated leaves up to "
+                         f"{r['updated_leaf_rel']:.2e} ({r['worst_leaf']})")
+            print(line)
+            mt_require_f32(r)
+        require(ranks[0][key]["loss"] == ranks[1][key]["loss"],
+                f"{key}: the ranks' losses differ")
+    for r in (x["ckpt"] for x in ranks):
+        print(f"  checkpoint, rank {r['rank']}: {r['arrays']} arrays; the "
+              f"one-device restore differs in {len(r['one_device_differ'])},"
+              f" the mesh restore in {len(r['mesh_differ'])}; step 3 loss "
+              f"uninterrupted {r['loss_uninterrupted']!r}, restored "
+              f"{r['loss_restored']!r}")
+        require(not r["one_device_differ"] and not r["mesh_differ"],
+                f"checkpoint round trip differs: {r}")
+        require(r["loss_uninterrupted"] == r["loss_restored"],
+                f"the restored loss differs: {r}")
+    return dict(moe_depth=plan["moe_depth"], dryrun_depth=depth, ranks=ranks,
+                seconds=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -4761,6 +5180,9 @@ def main() -> int:
     phase("tensor-parallel serving on 2 ranks sharing the card: "
           "llama3.2-3b, recurrentgemma-9b, rwkv6-7b, dbrx-132b")
     tp = tensor_parallel(dev)
+    phase("training on 2 ranks sharing the card: ZeRO-3 stablelm-1.6b, "
+          "FSDP-TP dbrx-132b, a checkpoint")
+    mt = mesh_train(dev)
     phase(None)
 
     tp_llama = tp["ranks"][0]["llama"]["launches"]
@@ -4838,6 +5260,7 @@ def main() -> int:
     print(json.dumps({"train": trained}))
     print(json.dumps({"multidevice": ranks}))
     print(json.dumps({"tensor_parallel": tp}))
+    print(json.dumps({"mesh_train": mt}))
     print(json.dumps({"memory": MEMORY}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -146,7 +146,7 @@ def rwkv6(r, k, v, w, u, state0=None, *, backend: Backend = "auto"):
     (y in v's dtype, final state float32)."""
     be = _resolve(backend, r, k, v, w, u, state0)
     if be == "stub":
-        g = (r + k + w).sum(-1, keepdim=True)          # reads r, k, w
+        g = (r + k + w + u).sum(-1, keepdim=True)      # reads r, k, w, u
         y = (v * g).to(v.dtype)                        # reads v, writes y
         B, T, H, D = r.shape
         s0 = (torch.zeros((B, H, D, v.shape[-1]), dtype=torch.float32,

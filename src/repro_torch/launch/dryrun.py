@@ -38,8 +38,16 @@ per-device bytes of params, caches and batch at the reference's
 (``mesh_serve_memory``), and the collectives of one prefill or decode
 step on ``meta`` (``mesh_pass``), counted by ``parse_collectives``'s
 formulas, beside the roofline with ``t_collective`` = ring-moved bytes
-over NVLink.  Training cells on a mesh are recorded as skipped: the
-ZeRO-3 / FSDP-TP train step is not ported yet.
+over NVLink.  A training cell on a mesh plans the ZeRO-3 / FSDP-TP step
+under ``cfg.rules``: the training model on the mesh description, its
+per-device bytes of leaves, gradients, optimizer state and batch at the
+reference's dtypes (``train_sharded_bytes``: ``build_cell``'s
+``state_sh``, the optimizer's by ``_opt_shardings``' rule), the port's
+per-rank peak and deepest depth (``mesh_train_memory``), and the
+collectives and matrix-product FLOPs of one train step
+(``mesh_train_step``: the forward, the remat recompute and the backward
+of each microbatch on ``meta``, extrapolated over depth as
+``matmul_flops`` is, and the optimizer's reductions at full depth).
 """
 from __future__ import annotations
 
@@ -141,12 +149,21 @@ def layer_activation_bytes(cfg: ModelConfig, kind: str, batch: int,
         if cfg.moe is None:
             total += T * ff * a * mult
         else:
-            mo = cfg.moe
-            slots = mo.n_experts * capacity(cfg, T)
-            total += T * mo.n_experts * 4 * 2               # router
-            total += slots * (2 * d + ff * mult) * a
-            total += T * mo.top_k * d * a * 3               # gather, combine
+            total += moe_activation_bytes(cfg, T, train)
     return float(total)
+
+
+def moe_activation_bytes(cfg: ModelConfig, T: int, train: bool) -> float:
+    """The mixture of experts' part of :func:`layer_activation_bytes` at
+    ``T`` tokens: the router's f32 logits and probabilities, the dispatch
+    buffer and the expert FFNs' temporaries, the gather and combine."""
+    a = _size(cfg.dtype)
+    mo, d = cfg.moe, cfg.d_model
+    mult = 6 if train else 3
+    slots = mo.n_experts * capacity(cfg, T)
+    return float(T * mo.n_experts * 4 * 2                   # router
+                 + slots * (2 * d + cfg.d_ff * mult) * a
+                 + T * mo.top_k * d * a * 3)                # gather, combine
 
 
 def _layer_casts(cfg: ModelConfig, model: Model, kinds) -> tuple[int, int]:
@@ -617,19 +634,262 @@ def serve_collectives(cfg: ModelConfig, mesh, slots: int, capacity_: int,
     return recs
 
 
+# ---------------------------------------------------------------------------
+# training cells on a mesh
+# ---------------------------------------------------------------------------
+
+def mesh_train_model(cfg: ModelConfig, mesh, rules=None,
+                     backend: str = "stub") -> Model:
+    """The training model of ``cfg`` on ``mesh`` (a description: rank 0's
+    blocks) under ``rules`` (default ``cfg.rules``), on ``meta``."""
+    return Model(cfg, backend=backend, device=META, layout="train",
+                 mesh=mesh, rules=cfg.rules if rules is None else rules)
+
+
+def train_inputs(cfg: ModelConfig, B: int, S: int) -> dict:
+    """The reference's training ``input_specs`` on ``meta``."""
+    batch = _inputs(cfg, B, S)
+    batch["labels"] = torch.zeros((B, S), dtype=torch.int32, device=META)
+    return batch
+
+
+def mesh_optimizer(cfg: ModelConfig, model: Model):
+    return opt_lib.for_model(opt_lib.make(cfg.optimizer, cfg.learning_rate),
+                             model)
+
+
+def train_sharded_bytes(cfg: ModelConfig, cell: ShapeCell, mesh,
+                        rules=None) -> dict:
+    """Per-device bytes of ``build_cell``'s training state and batch on
+    ``mesh``: the float32 leaves' blocks (and their gradients', the same),
+    the optimizer state's blocks by the reference's ``_opt_shardings``,
+    and the batch's rows."""
+    model = mesh_train_model(cfg, mesh, rules)
+    params = _nbytes(model.leaves.values())
+    opt = _nbytes(_tensors(mesh_optimizer(cfg, model).init(model.leaves)))
+    batch = transformer.batch_rows(
+        model, train_inputs(cfg, cell.global_batch, cell.seq_len))[0]
+    nb = _nbytes(batch.values())
+    return dict(params_bytes=params, grads_bytes=params, optimizer_bytes=opt,
+                batch_bytes=nb, total_bytes=2 * params + opt + nb)
+
+
+def _compute_bytes(p) -> int:
+    """Bytes of the block a rank computes with of weight ``p`` (the
+    gathered one of an fsdp-stored weight)."""
+    return math.prod(getattr(p, "compute_shape", p.shape)) * p.element_size()
+
+
+def mesh_train_memory(cfg: ModelConfig, mesh, cell: ShapeCell,
+                      rules=None) -> dict:
+    """A rank's peak bytes in one train step of ``cfg`` at ``cell`` on
+    ``mesh``, as :func:`train_memory` counts one card's, from its blocks:
+    resident, the leaves' blocks, their gradients' and the optimizer
+    state's (the reference's blocks), the whole batch (every rank is
+    given it) and under remat one checkpoint input per region at the
+    rank's rows of a microbatch; on top, the largest of the loss phase
+    (the gathered f32 logits and their gradient, the rank's vocabulary
+    block of them, the head's gathered f32 block, its gradient and the
+    reduce-scatter's f32 copy), one region's backward (its weights cast
+    and gathered, the largest gathered weight's gradient in ``cfg.dtype``
+    and in f32, and the whole layer's activations at the rank's rows,
+    at every row where the MoE routes every row) and the optimizer's
+    temporaries (a leaf updated whole holds its whole gradient, leaf,
+    state and update); and no less than building (the leaves, the
+    buffers and the largest whole f32 draw ``init`` cuts a block from).
+    Both add :data:`ALLOC_SLACK`."""
+    M = cfg.microbatches
+    if cell.global_batch % M:
+        raise ValueError(f"global batch {cell.global_batch} does not divide "
+                         f"into {M} microbatches")
+    mb, S = cell.global_batch // M, cell.seq_len
+    model = mesh_train_model(cfg, mesh, rules)
+    W = _nbytes(model.leaves.values())
+    opt = mesh_optimizer(cfg, model)
+    O = _nbytes(_tensors(opt.init(model.leaves)))
+    rows = model.split.rows(mb)
+    r = rows.shard_shape((mb,))[0]
+    routed = mb if rows.block(0)[1] > 1 else r      # the MoE's rows
+    T = r * S
+    a = _size(cfg.dtype)
+    spans = _spans(cfg)
+    if cfg.remat:
+        saved = len(spans) * T * cfg.d_model * a
+    else:
+        saved = sum(layer_activation_bytes(cfg, k, r, S, True)
+                    for k in cfg.layer_kinds)
+    batch = _nbytes(train_inputs(cfg, cell.global_batch, S).values())
+    emb = model.emb
+    head = emb.tok if cfg.tie_embeddings else getattr(emb, "head", None)
+    head_b = 0 if head is None else math.prod(head.compute_shape) * 4
+    vocab_parts = model.split.computed(("vocab",), (cfg.vocab,)).block(0)[1]
+    local = 0 if vocab_parts == 1 else T * cfg.vocab * 4 // vocab_parts
+    loss = 2 * T * cfg.vocab * 4 + local + 3 * head_b
+    region = 0.0
+    for kinds in set(spans):
+        casts, largest = 0, 0
+        for kind in kinds:
+            layer = next(m for m in model.layers if m.kind == kind)
+            for p in layer.parameters():
+                casts += p.numel() * p.element_size() + _compute_bytes(p)
+                largest = max(largest, math.prod(getattr(
+                    p, "compute_shape", p.shape)))
+        act = sum(layer_activation_bytes(cfg, k, r, S, True)
+                  for k in kinds)
+        if cfg.moe is not None:     # every row routed on every rank
+            act += sum(moe_activation_bytes(cfg, routed * S, True)
+                       - moe_activation_bytes(cfg, T, True)
+                       for k in kinds if k != "rwkv")
+        region = max(region, casts + largest * (a + 4) + act)
+    opt_phase = 0.0
+    for path, t in model.leaves.items():
+        if path in opt.whole:
+            n = math.prod(model.leaf_shapes[path])
+            slots = len(opt.opt.slot(opt.shardings, path))
+            opt_phase = max(opt_phase, (3 + slots) * n * 4)
+        else:
+            opt_phase = max(opt_phase, (2 if cfg.optimizer == "adamw"
+                                        else 1) * t.numel() * 4)
+    draw = max((math.prod(getattr(p, "whole", p.shape)) * 4
+                for p in model.parameters()), default=0)
+    build = 2 * W + draw + ALLOC_SLACK
+    run = (2 * W + O + batch + saved + max(loss, region, opt_phase)
+           + ALLOC_SLACK)
+    return dict(weights_bytes=W, grads_bytes=W, optimizer_bytes=O,
+                batch_bytes=batch, rows=r, saved_bytes=float(saved),
+                loss_phase_bytes=float(loss), region_phase_bytes=region,
+                optimizer_phase_bytes=float(opt_phase),
+                build_bytes=float(build), run_bytes=float(run),
+                peak_bytes=max(build, run))
+
+
+def _train_pass(cfg: ModelConfig, mesh, rules, B: int, S: int
+                ) -> tuple[list, int]:
+    """The collectives and matrix-product FLOPs of one microbatch of ``B``
+    x ``S`` (its loss and backward) on ``mesh``."""
+    model = mesh_train_model(cfg, mesh, rules)
+    batch = train_inputs(cfg, B, S)
+    collectives.reset()
+    with FlopCounterMode(display=False) as fc:
+        loss, _ = model.loss_fn(batch)
+        loss.backward()
+    recs = list(collectives.records)
+    collectives.reset()
+    return recs, int(fc.get_total_flops())
+
+
+def _optimizer_pass(cfg: ModelConfig, mesh, rules) -> list:
+    """The collectives of the step's clip and update on ``mesh``."""
+    model = mesh_train_model(cfg, mesh, rules)
+    opt = mesh_optimizer(cfg, model)
+    state = opt.init(model.leaves)
+    collectives.reset()
+    grads, _ = opt.clip_by_global_norm(model.grads, cfg.grad_clip)
+    opt.apply_(grads, state, model.leaves, 0)
+    recs = list(collectives.records)
+    collectives.reset()
+    return recs
+
+
+def mesh_train_step(cfg: ModelConfig, cell: ShapeCell, mesh, rules=None,
+                    extrapolate: bool = True) -> tuple[list, float]:
+    """The collectives (``models.collectives.records``) and matrix-product
+    FLOPs (the remat recompute included) of one rank's train step of
+    ``cfg`` at ``cell`` on ``mesh``, run on ``meta`` through the ``stub``
+    mixers.  ``extrapolate``: from microbatch passes at one block-pattern
+    group, two and one plus the remainder layers (as ``matmul_flops``),
+    the records as a multiset; else the step itself
+    (``train.trainer.make_train_step``), in the order issued."""
+    from repro_torch.train.trainer import TrainState, make_train_step
+    from collections import Counter
+    M = cfg.microbatches
+    mb, S = max(1, cell.global_batch // M), cell.seq_len
+    if not extrapolate:
+        model = mesh_train_model(cfg, mesh, rules)
+        opt = mesh_optimizer(cfg, model)
+        state = TrainState(0, model.leaves, opt.init(model.leaves))
+        step = make_train_step(model, opt, M)
+        collectives.reset()
+        with FlopCounterMode(display=False) as fc:
+            step(state, train_inputs(cfg, M * mb, S))
+        recs = list(collectives.records)
+        collectives.reset()
+        return recs, float(fc.get_total_flops())
+    P = len(cfg.block_pattern)
+
+    def probe(n):
+        recs, fl = _train_pass(dataclasses.replace(cfg, n_layers=n), mesh,
+                               rules, mb, S)
+        return Counter(recs), fl
+
+    G, tail = divmod(cfg.n_layers, P)
+    if G == 0:
+        per, flops = probe(cfg.n_layers)
+    else:
+        c1, f1 = probe(P)
+        per, flops = Counter(c1), f1
+        if G > 1:
+            c2, f2 = probe(2 * P)
+            for k, n in (c2 - c1).items():
+                per[k] += (G - 1) * n
+            flops += (G - 1) * (f2 - f1)
+        if tail:
+            ct, ft = probe(P + tail)
+            per.update(ct - c1)
+            flops += ft - f1
+    recs = []
+    for k, n in per.items():
+        recs += [k] * (n * M)
+    return recs + _optimizer_pass(cfg, mesh, rules), float(M * flops)
+
+
+def mesh_train_cell(cfg: ModelConfig, cell: ShapeCell, mesh, rec: dict,
+                    rules=None) -> dict:
+    """``rec`` filled with a training cell on ``mesh``."""
+    t0 = time.perf_counter()
+    n_chips = mesh.size
+    shards = train_sharded_bytes(cfg, cell, mesh, rules)
+    mem = mesh_train_memory(cfg, mesh, cell, rules)
+    depth = deepest_depth(cfg, lambda c: mesh_train_memory(
+        c, mesh, cell, rules)["peak_bytes"])
+    recs, mm = mesh_train_step(cfg, cell, mesh, rules)
+    coll = roofline.parse_collectives(collectives.hlo_text(recs))
+    flops = mm + mixer_flops(cfg, cell) / n_chips
+    tokens = cell.global_batch * cell.seq_len
+    n = cfg.n_active_params() if cfg.moe else cfg.n_params()
+    hbm = roofline.analytic_hbm_bytes(cfg, cell) / n_chips
+    rl = roofline.analyze(
+        {"flops": flops, "bytes accessed": hbm},
+        roofline.CollectiveStats(coll.op_counts, coll.moved_bytes,
+                                 coll.moved_bytes), n_chips, 6 * n * tokens,
+        None, cell.kind)
+    rec.update(
+        status="ok", n_chips=n_chips, mesh_shape=mesh.shape,
+        probe_s=round(time.perf_counter() - t0, 3), per_device=shards,
+        memory=dict(mem, peak_estimate_gb=round(mem["peak_bytes"] / 1e9, 3),
+                    limit_bytes=roofline.HBM_BYTES,
+                    fits=fits(mem["peak_bytes"]), deepest_depth=depth,
+                    n_layers=cfg.n_layers, global_batch=cell.global_batch),
+        collectives=dict(op_counts=coll.op_counts,
+                         operand_bytes=coll.operand_bytes,
+                         moved_bytes=coll.moved_bytes, top=coll.top),
+        cost={"flops": flops, "flops_matmul": mm, "bytes accessed": hbm},
+        roofline=roofline.to_dict(rl))
+    return rec
+
+
 def mesh_cell(arch: str, shape: str, mesh, mesh_name: str,
               out_dir: pathlib.Path | None = None, rules=None) -> dict:
-    """One serving cell per device on ``mesh`` (see the module's doc)."""
+    """One cell per device on ``mesh`` (see the module's doc)."""
     cfg = configs.get(arch)
     rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "tag": ""}
     ok, why = cell_supported(cfg, shape)
     cell = SHAPES[shape]
-    if ok and cell.kind == "train":
-        ok, why = False, ("training on a mesh (the ZeRO-3 / FSDP-TP step "
-                          "and its reduce-scatters) is not ported yet")
     if not ok:
         rec.update(status="skip", reason=why)
         return _write(rec, out_dir)
+    if cell.kind == "train":
+        return _write(mesh_train_cell(cfg, cell, mesh, rec, rules), out_dir)
     t0 = time.perf_counter()
     n_chips = mesh.size
     scfg = serve_config(cfg)

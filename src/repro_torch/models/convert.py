@@ -23,7 +23,8 @@ reference's own leaves: ``leaf_map`` lists their shapes by path in the
 reference's tree order and says which leaf, and which row of a stacked
 leaf, holds each of the serving layout's parameters, the inverse of
 ``params_from_jax``; ``leaves_from_jax`` flattens the reference's params
-onto those paths.
+onto those paths.  On a mesh ``shard_leaves`` cuts whole leaves to the
+blocks a rank holds and ``gather_leaves`` gathers them back.
 """
 from __future__ import annotations
 
@@ -92,6 +93,32 @@ def shard_params(cfg: ModelConfig, state: dict, rules, mesh) -> dict:
     shapes = dict(Model(cfg, device="meta", rules=rules,
                         mesh=mesh).named_parameters())
     return {k: cut(shapes[k], v) for k, v in state.items()}
+
+
+def shard_leaves(model, leaves: dict) -> dict[str, torch.Tensor]:
+    """Whole training leaves (``leaves_from_jax``'s numpy arrays, or a
+    one-device model's ``leaves``) cut to the blocks this rank of a
+    training model on a mesh holds (``model.leaf_shardings``); a model
+    off a mesh takes them whole."""
+    out = {}
+    for path, v in leaves.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))
+        ns = None if model.leaf_shardings is None \
+            else model.leaf_shardings[path]
+        out[path] = t if ns is None else ns.shard_of(t)
+    return out
+
+
+def gather_leaves(model, blocks: dict | None = None
+                  ) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_leaves`: every rank's blocks (default
+    the model's leaves) gathered into whole leaves, on every rank."""
+    blocks = model.leaves if blocks is None else blocks
+    if model.leaf_shardings is None:
+        return dict(blocks)
+    return {path: model.leaf_shardings[path].gather(t)
+            for path, t in blocks.items()}
 
 
 def shard_experts(cfg: ModelConfig, state: dict, rules, mesh) -> dict:

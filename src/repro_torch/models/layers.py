@@ -59,9 +59,16 @@ def _param(shape, dtype, device, split=None, logical=None
     p = nn.Parameter(torch.empty(_merged(local, groups), dtype=dtype,
                                  device=device), requires_grad=False)
     p.whole, p.ref, p.stored, p.computed = full, ref, stored, computed
+    p.logical = tuple(logical)
     p.gathers = _gathers(stored, computed, len(ref))
     p.compute_shape = _merged(computed.shard_shape(ref), groups)
     return p
+
+
+#: what a split weight carries about its blocks (:func:`_param`), which
+#: a training model's view of it carries too (``Model.bound``)
+SPLIT_ATTRS = ("whole", "ref", "stored", "computed", "logical", "gathers",
+               "compute_shape")
 
 
 def _merged(ref_shape, groups) -> tuple[int, ...]:
@@ -105,13 +112,18 @@ def cut(p: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
 def use(p: torch.Tensor) -> torch.Tensor:
     """The block of weight ``p`` a rank computes with: ``p`` itself, or
     for a weight stored split on "embed" (fsdp rules) its block gathered
-    over those axes (the reference's ``weight_use``)."""
+    over those axes (the reference's ``weight_use``).  In training the
+    gradient goes back reduce-scattered over the axes that split the
+    batch rows (``p.rows``, set by ``Model.bound``), each rank's rows
+    giving a partial, and as this rank's block over any other."""
     gathers = getattr(p, "gathers", None)
     if not gathers:
         return p
+    rows = getattr(p, "rows", ())
     t = p.reshape(p.stored.shard_shape(p.ref))
     for dim, axis in gathers:
-        t = collectives.all_gather(t, p.stored.mesh, axis, dim)
+        t = collectives.all_gather(t, p.stored.mesh, axis, dim,
+                                   back="sum" if axis in rows else "own")
     return t.reshape(p.compute_shape)
 
 
@@ -263,7 +275,11 @@ class Attention(nn.Module):
         hq, hkv, dh = self.hq_loc, self.hkv_loc, cfg.d_head
         wq = use(self.wq)
         h = rmsnorm(x, use(self.ln)).to(wq.dtype)
-        q, k, v = h @ wq, h @ use(self.wk), h @ use(self.wv)
+        # column-parallel over the heads: each rank's share of dh is a
+        # partial (enter); k and v too where their heads split
+        h_q = collectives.enter(h, self.mesh, self.heads_axis)
+        h_kv = h_q if self.kv_split else h
+        q, k, v = h_q @ wq, h_kv @ use(self.wk), h_kv @ use(self.wv)
         if cfg.qkv_bias:
             q, k, v = q + use(self.bq), k + use(self.bk), v + use(self.bv)
         q = rope(q.view(B, S, hq, dh), positions, cfg.rope_theta)
@@ -274,8 +290,9 @@ class Attention(nn.Module):
         if cache is None:
             kq, vq = k, v
             if not self.kv_split and self.hq_loc < cfg.n_heads:
-                kq, vq = (t[:, :, self.kv_lo:self.kv_hi].contiguous()
-                          for t in (k, v))
+                # every rank's whole k and v, each reading its heads' slice
+                kq, vq = (collectives.enter(t, self.mesh, self.heads_axis)[
+                    :, :, self.kv_lo:self.kv_hi].contiguous() for t in (k, v))
             out = ops.attention(q, kq, vq, causal=not cfg.bidirectional,
                                 window=window, block_kv=cfg.attn_block_kv,
                                 backend=backend)
@@ -375,7 +392,8 @@ class MLP(nn.Module):
 
     def forward(self, x):
         wi = use(self.wi)
-        h = rmsnorm(x, use(self.ln)).to(wi.dtype)
+        h = collectives.enter(rmsnorm(x, use(self.ln)).to(wi.dtype),
+                              self.mesh, self.axis)
         up = h @ wi
         act = self.cfg.act
         if act == "swiglu":
@@ -460,6 +478,7 @@ class Embeddings(nn.Module):
             w, dim = use(self.head), 1
         axis = split_of(self.tok if self.cfg.tie_embeddings else self.head,
                         dim)[0]
+        h = collectives.enter(h, self.mesh, axis)
         return collectives.all_gather(h @ w.float(), self.mesh, axis, -1)
 
 
@@ -468,15 +487,21 @@ class Embeddings(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def cross_entropy(cfg: ModelConfig, logits, labels, mask=None):
+def cross_entropy(cfg: ModelConfig, logits, labels, mask=None,
+                  count=None):
     """Mean token NLL + z-loss; logits f32 (B, S, V).  Returns ``(loss,
     {"nll", "z"})`` as ``repro``'s ``cross_entropy``; the loss's backward
-    is :class:`CrossEntropy`'s."""
+    is :class:`CrossEntropy`'s.  ``count``: the mask's sum over the whole
+    batch where ``logits`` are one rank's rows of it (default: this
+    mask's), so that the ranks' losses sum to the batch's mean."""
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=logits.device)
-    loss, nll, z = CrossEntropy.apply(logits, labels, mask.float(),
-                                      cfg.z_loss)
+    mask = mask.float()
+    if count is None:
+        count = mask.sum()
+    loss, nll, z = CrossEntropy.apply(logits, labels, mask, cfg.z_loss,
+                                      count)
     return loss, {"nll": nll, "z": z}
 
 
@@ -489,12 +514,12 @@ class CrossEntropy(torch.autograd.Function):
     the logits are the largest activation of a training step."""
 
     @staticmethod
-    def forward(ctx, logits, labels, mask, z_loss):
+    def forward(ctx, logits, labels, mask, z_loss, count):
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, labels.long()[..., None])[..., 0]
         nll = logz - gold
         zl = z_loss * logz ** 2
-        denom = torch.clamp(mask.sum(), min=1.0)
+        denom = torch.clamp(count, min=1.0)
         ctx.save_for_backward(logits, labels, mask, logz, denom)
         ctx.z_loss = z_loss
         nll_mean = (nll * mask).sum() / denom
@@ -510,4 +535,4 @@ class CrossEntropy(torch.autograd.Function):
         d.mul_((1.0 + 2.0 * ctx.z_loss * logz)[..., None])
         d.scatter_(-1, idx, d.gather(-1, idx) - 1.0)
         d.mul_((mask * (g / denom))[..., None])
-        return d, None, None, None
+        return d, None, None, None, None

@@ -22,9 +22,9 @@ buffer.
 
 ``rules`` (default ``cfg.rules``, as the reference's; pass
 ``cfg.serve_rules`` to serve as the reference's dry run does) and
-``mesh`` (a ``repro_torch.launch.mesh.Mesh``): in the serving layout a
-model built on a mesh holds on each rank its block of every weight and
-cache as ``named_sharding`` cuts it under ``rules``
+``mesh`` (a ``repro_torch.launch.mesh.Mesh``): a model built on a mesh
+holds on each rank its block of every weight and cache as
+``named_sharding`` cuts it under ``rules``
 (:class:`repro_torch.models.sharding.Split`; ``convert.shard_params``
 cuts a whole model's state dict, such as ``convert.params_from_jax``'s,
 to a rank's), and its prefill and decode steps run tensor-parallel
@@ -33,6 +33,21 @@ batch and returns the whole batch's logits.  On a mesh *description*
 (no ranks: the dry run's) the same code runs as rank 0 and its
 collectives only record.  The decode step on a mesh runs eagerly: a
 collective over ``gloo`` cannot be captured in a CUDA graph.
+
+Training on a mesh (``layout="train"``, ``rules=cfg.rules``: ZeRO-3 or
+FSDP-TP) keeps on each rank its block of every float32 leaf and a
+gradient buffer of that block (``leaf_shardings``, the reference's
+``in_shardings``); ``convert.shard_leaves`` cuts whole leaves to them and
+``convert.gather_leaves`` is its inverse.  ``loss_fn`` is given the
+whole batch and runs this rank's rows of it: each layer gathers its
+weights over the "embed" axes at use (``layers.use``, a reduce-scatter
+back) and runs tensor-parallel where the rules split heads, "mlp",
+"rnn", "vocab" or "experts", with the gradients' collectives of
+:mod:`repro_torch.models.collectives`; a leaf that the rows' axes do not
+split gets its gradient summed over them.  The loss it returns is this
+rank's share (its rows' token losses over the whole batch's count, plus
+its share of the MoE losses every rank computes); its metrics are the
+batch's, summed over the ranks.
 """
 from __future__ import annotations
 
@@ -43,10 +58,10 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.runtime import resolve_device
-from . import convert, kvcache, transformer
-from .layers import Embeddings, cross_entropy, dtype_of
+from . import collectives, convert, kvcache, transformer
+from .layers import SPLIT_ATTRS, Embeddings, cross_entropy, dtype_of
 from .recurrent import rwkv_heads
-from .sharding import Split
+from .sharding import Split, named_sharding
 
 LAYOUTS = ("serve", "train")
 
@@ -65,24 +80,45 @@ class Model(nn.Module):
         self.layout = layout
         self.device = resolve_device(device)
         where = self.device if layout == "serve" else torch.device("meta")
-        serve_mesh = mesh if layout == "serve" else None
         #: how this rank holds and uses its tensors on a mesh, else None
-        self.split = (None if serve_mesh is None
-                      else Split(serve_mesh, self.rules))
+        self.split = None if mesh is None else Split(mesh, self.rules)
         self.emb = Embeddings(cfg, where, self.split)
         self.layers = nn.ModuleList(
-            transformer.Layer(cfg, kind, where, self.rules, serve_mesh,
-                              self.split)
+            transformer.Layer(cfg, kind, where, self.rules, mesh, self.split)
             for kind in cfg.layer_kinds)
+        #: the mesh axes that split the batch rows of the last training
+        #: pass (``loss_fn``)
+        self.row_axes: tuple[str, ...] = ()
         if layout == "train":
             self._init_leaves()
 
     def _init_leaves(self) -> None:
+        params = dict(self.named_parameters())
         shapes, self._row_of = convert.leaf_map(
-            self.cfg, ((n, p.shape) for n, p in self.named_parameters()))
+            self.cfg, ((n, getattr(p, "whole", p.shape))
+                       for n, p in params.items()))
+        #: each leaf's whole shape and its logical axes (the reference's
+        #: spec, "layers" first where stacked)
+        self.leaf_shapes = shapes
+        self.leaf_logical = {}
+        for name, (path, row) in self._row_of.items():
+            lg = getattr(params[name], "logical", None) or (None,) * len(
+                shapes[path][row is not None:])
+            self.leaf_logical[path] = (("layers",) if row is not None
+                                       else ()) + tuple(lg)
+        #: this rank's block of each leaf (None off a mesh)
+        self.leaf_shardings = None
+        blocks = shapes
+        if self.split is not None:
+            self.leaf_shardings = {
+                path: named_sharding(self.mesh, self.rules,
+                                     self.leaf_logical[path], shape)
+                for path, shape in shapes.items()}
+            blocks = {path: ns.shard_shape(shapes[path])
+                      for path, ns in self.leaf_shardings.items()}
         dt = dtype_of(self.cfg.param_dtype)
         self.leaves = {path: torch.empty(shape, dtype=dt, device=self.device)
-                       for path, shape in shapes.items()}
+                       for path, shape in blocks.items()}
         self.grads = {path: torch.zeros_like(t)
                       for path, t in self.leaves.items()}
         self._rows = {}
@@ -90,6 +126,10 @@ class Model(nn.Module):
             leaf, grad = self.leaves[path], self.grads[path]
             if row is not None:
                 leaf, grad = leaf[row], grad[row]
+            p = params[name]
+            if leaf.numel() != p.numel():
+                raise AssertionError(f"{name}: block {tuple(leaf.shape)} of "
+                                     f"leaf {path} != {tuple(p.shape)}")
             t = leaf.detach().requires_grad_()
             t.grad = grad
             self._rows[name] = t
@@ -129,8 +169,21 @@ class Model(nn.Module):
             row = self._rows[f"{prefix}.{name}"]
             if not cast:
                 row = row.detach()
+            elif self.split is not None:
+                # a leaf the rows' axes do not split: each rank's
+                # gradient of it is its rows' partial
+                gathered = {a for _, a in getattr(p, "gathers", ())}
+                for a in self.row_axes:
+                    if a not in gathered:
+                        row = collectives.enter(row, self.mesh, a)
             w = row.reshape(p.shape)
-            weights[name] = w.to(p.dtype) if cast else w
+            w = w.to(p.dtype) if cast else w
+            if self.split is not None:
+                for attr in SPLIT_ATTRS:
+                    if hasattr(p, attr):
+                        setattr(w, attr, getattr(p, attr))
+                w.rows = self.row_axes
+            weights[name] = w
         return _bind(module, weights)
 
     def weights(self) -> dict[str, torch.Tensor]:
@@ -150,15 +203,39 @@ class Model(nn.Module):
         """Mean token NLL + z-loss + the MoE losses, with gradients
         enabled (``repro``'s ``transformer.loss_fn``).  Returns ``(loss,
         metrics)``; in the training layout a ``backward`` of the loss
-        accumulates into ``grads``."""
+        accumulates into ``grads``.  On a mesh ``batch`` is the whole
+        batch, ``loss`` this rank's share of the batch's loss (its
+        backward gives this rank's blocks of the batch's gradients) and
+        ``metrics`` the batch's: the token terms summed over the ranks,
+        the MoE losses every rank computes."""
+        count = None
+        if self.split is not None:
+            labels = batch["labels"]
+            mask = batch.get("mask")
+            count = (mask.float().sum() if mask is not None else torch.tensor(
+                float(labels.numel()), device=labels.device))
+        batch, rows = transformer.batch_rows(self, batch)
+        axis, parts, _ = rows
+        # kept for the backward, whose remat recompute binds the weights
+        # again
+        self.row_axes = () if axis is None else (
+            axis if isinstance(axis, tuple) else (axis,))
         with torch.enable_grad():
-            logits, aux = transformer.train_forward(self, batch)
+            logits, aux = transformer.train_forward(self, batch, rows)
             loss, metrics = cross_entropy(self.cfg, logits, batch["labels"],
-                                          batch.get("mask"))
+                                          batch.get("mask"), count)
             for k, v in aux.items():
-                loss = loss + v
+                # each rank computes the MoE losses of every row
+                loss = loss + (v / parts if parts > 1 else v)
                 metrics[k] = v
         metrics["loss"] = loss
+        if parts > 1:
+            with torch.no_grad():
+                keys = ("loss", "nll", "z")
+                t = torch.stack([metrics[k].detach() for k in keys])
+                for a in (axis if isinstance(axis, tuple) else (axis,)):
+                    t = collectives.all_reduce(t, self.mesh, a)
+                metrics.update(zip(keys, t.unbind()))
         return loss, metrics
 
     # ------------------------------------------------------------------

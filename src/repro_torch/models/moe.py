@@ -180,11 +180,20 @@ class MoE(nn.Module):
         row_axis, row_parts, row_index = rows
         x_rows = x
         if row_parts > 1:               # every rank routes every token
-            x = collectives.all_gather(x, self.split_mesh, row_axis, 0)
+            # (in training each rank's gradient of the others' rows is a
+            # partial: its aux losses', summed back to their ranks)
+            x = collectives.all_gather(x, self.split_mesh, row_axis, 0,
+                                       back="sum")
         B, S, d = x.shape
         T, E, k = B * S, mo.n_experts, mo.top_k
         h = rmsnorm(x, use(self.ln)).to(self.wi.dtype).reshape(T, d)
+        # the router's logits and the experts are split over "experts":
+        # each rank's share of dh, and of the gates' gradient (its experts
+        # combine their own entries), is a partial
+        axis = self.expert_axis if self.split_mesh is not None else None
+        h = collectives.enter(h, self.split_mesh, axis)
         logits, probs, gates, experts = self.route(h)
+        gates = collectives.enter(gates, self.split_mesh, axis)
 
         # load-balance and router-z losses; ce adds 1/(T k) per choice,
         # as the reference's scatter does (counts / (T k) rounds otherwise)
@@ -211,7 +220,8 @@ class MoE(nn.Module):
                 and (T // dp) % tp == 0 and T // dp >= EP_MIN_TOKENS):
             for n, w in wts.items():        # whole experts, as shard_map's
                 wts[n] = collectives.all_gather(
-                    w, self.split_mesh, self.ff_axis, 1 if n == "wo" else 2)
+                    w, self.split_mesh, self.ff_axis, 1 if n == "wo" else 2,
+                    back="sum")
             y = self._experts_ep(h, gates, experts, mesh, tp, wts)
         else:
             # one dispatch block per data shard (moe.py:190-241), this

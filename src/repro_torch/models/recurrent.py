@@ -102,7 +102,8 @@ class RGLRU(nn.Module):
     def forward(self, x, state=None, backend="auto"):
         w_in = use(self.w_in)
         dt = w_in.dtype
-        h_in = rmsnorm(x, use(self.ln)).to(dt)
+        h_in = collectives.enter(rmsnorm(x, use(self.ln)).to(dt),
+                                 self.mesh, self.axis)
         gate = F.gelu(h_in @ use(self.w_gate), approximate="tanh")
         u = h_in @ w_in
         u, conv = _causal_conv4(u, use(self.conv_w), use(self.conv_b),
@@ -114,6 +115,7 @@ class RGLRU(nn.Module):
             both = collectives.all_reduce(
                 torch.cat((u @ use(self.wa), u @ use(self.wx)), -1),
                 self.mesh, self.axis)
+            both = collectives.enter(both, self.mesh, self.axis)
             mine = slice(self.c0, self.c0 + self.r_loc)
             rgate = torch.sigmoid(both[..., :r][..., mine])
             igate = torch.sigmoid(both[..., r:][..., mine])
@@ -207,15 +209,18 @@ class RWKV(nn.Module):
         h = rmsnorm(x, W["ln_t"]).to(dt)
         shifted, x_t_last = _token_shift(h, state["x_t"].to(dt))
 
+        def split(t):           # entering work split over "rnn"
+            return collectives.enter(t, self.mesh, self.axis)
+
         def lerp(mu):
-            return h * (1 - W[mu]) + shifted * W[mu]
+            return split(h * (1 - W[mu]) + shifted * W[mu])
 
         r = (lerp("mu_r") @ W["wr"]).reshape(B, S, H, dh)
         k = (lerp("mu_k") @ W["wk"]).reshape(B, S, H, dh)
         v = (lerp("mu_v") @ W["wv"]).reshape(B, S, H, dh)
-        g = F.silu(h @ W["wg"])
-        xw = lerp("mu_w")
-        w_log = W["w0"] + torch.tanh(xw.float() @ W["w_lora_a"]) \
+        g = F.silu(split(h) @ W["wg"])
+        xw = h * (1 - W["mu_w"]) + shifted * W["mu_w"]
+        w_log = W["w0"] + split(torch.tanh(xw.float() @ W["w_lora_a"])) \
             @ W["w_lora_b"]
         w = torch.exp(-torch.exp(w_log)).reshape(B, S, H, dh)
         y, S_new = ops.rwkv6(r, k, v, w.to(dt), W["u"], state["S"],
@@ -226,10 +231,11 @@ class RWKV(nn.Module):
         # ---- channel mix ----
         hc = rmsnorm(x, W["ln_c"]).to(dt)
         shifted_c, x_c_last = _token_shift(hc, state["x_c"].to(dt))
-        kk = (hc * (1 - W["mu_ck"]) + shifted_c * W["mu_ck"]) @ W["ck"]
+        kk = collectives.enter(hc * (1 - W["mu_ck"]) + shifted_c * W["mu_ck"],
+                               self.mesh, self.mlp_axis) @ W["ck"]
         kk = torch.square(F.relu(kk))
-        rr = torch.sigmoid((hc * (1 - W["mu_cr"]) + shifted_c * W["mu_cr"])
-                           @ W["cr"])
+        rr = torch.sigmoid(split(hc * (1 - W["mu_cr"])
+                                 + shifted_c * W["mu_cr"]) @ W["cr"])
         # cr's rnn-split receptance meets the mlp-summed kk @ cv
         rr = collectives.all_gather(rr, self.mesh, self.axis, -1)
         y2 = rr * collectives.all_reduce(kk @ W["cv"], self.mesh,

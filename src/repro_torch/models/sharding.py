@@ -190,6 +190,22 @@ class NamedSharding:
                 out = out.narrow(d, self.mesh.coordinate(a) * size, size)
         return out
 
+    def axes(self) -> tuple[str, ...]:
+        """The mesh axes this sharding splits some dim over."""
+        return tuple(a for d in range(len(self.spec))
+                     for a in _names(self.spec, d))
+
+    def gather(self, block: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from this rank's ``block`` of it: all-gathered
+        over each split dim's axes, minor axis first (the inverse of
+        :meth:`shard_of`; on a description, rank 0's block repeated)."""
+        from . import collectives
+        out = block
+        for d in range(len(self.spec)):
+            for a in reversed(_names(self.spec, d)):
+                out = collectives.all_gather(out, self.mesh, a, d)
+        return out
+
     def place(self, tensor: torch.Tensor):
         """``tensor`` (whole, on every rank) as a DTensor under this
         sharding, built from this rank's block with no communication, on
@@ -204,6 +220,13 @@ class NamedSharding:
             local = local.to(dm.device_type)
         return DTensor.from_local(local, self.mesh.device_mesh,
                                   self.placements, run_check=False)
+
+
+def _names(spec, d) -> tuple:
+    axis = spec[d] if d < len(spec) else None
+    if axis is None:
+        return ()
+    return axis if isinstance(axis, tuple) else (axis,)
 
 
 def named_sharding(mesh, rules: Mapping[str, object],

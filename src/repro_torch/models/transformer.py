@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig
 from . import collectives, kvcache, layers, moe, recurrent
@@ -160,7 +160,7 @@ def whole_rows(model, t, rows):
     return collectives.all_gather(t, model.split.mesh, axis, 0)
 
 
-def train_forward(model, batch):
+def train_forward(model, batch, rows=WHOLE):
     """Full-sequence forward with gradients, for the loss: ``(logits,
     aux)``, ``aux`` the MoE losses summed layer by layer in order, as the
     reference's scan carries them.  In the training layout each layer
@@ -168,7 +168,10 @@ def train_forward(model, batch):
     block-pattern group (and each remainder layer) is a
     ``torch.utils.checkpoint`` region, as the reference checkpoints its
     scan body and tail layers: a group keeps only its input, and its
-    activations and weight casts are recomputed in the backward."""
+    activations and weight casts are recomputed in the backward (on a
+    mesh, its weight gathers too, as GSPMD's are under remat).  On a
+    mesh ``batch`` holds this rank's ``rows`` of the batch
+    (:func:`batch_rows`) and the logits are theirs."""
     cfg = model.cfg
     with model.bound("emb", model.emb):
         x = model.emb.embed(batch)
@@ -179,14 +182,19 @@ def train_forward(model, batch):
         for li in span:
             layer = model.layers[li]
             with model.bound(f"layers.{li}", layer):
-                x, _, a = layer(x, positions, backend=model.backend)
+                x, _, a = layer(x, positions, backend=model.backend,
+                                rows=rows)
             aux = {k: aux[k] + a[k] if k in a else aux[k] for k in aux}
         return x, aux
 
     aux = {"moe_aux": 0.0, "moe_z": 0.0}
     for span in remat_spans(cfg):
         if cfg.remat:
-            x, aux = checkpoint(run, x, aux, span, use_reentrant=False)
+            # the whole region again, as the reference's remat: stopping
+            # once the saved tensors are back would leave out collectives
+            # by what each backend saves
+            with set_checkpoint_early_stop(False):
+                x, aux = checkpoint(run, x, aux, span, use_reentrant=False)
         else:
             x, aux = run(x, aux, span)
     with model.bound("emb", model.emb):

@@ -6,7 +6,9 @@ Checkpoints store host-side numpy arrays keyed by tree path (``step``,
 single .npz written atomically (tmp + rename) with a rolling ``latest``
 pointer and configurable keep count.  The paths and shapes are the
 reference's (the training layout keeps its leaves), so a checkpoint that
-either package writes restores in the other.  Arrays stay whole on disk;
+either package writes restores in the other.  Arrays stay whole on disk:
+``save(..., shardings=)`` from the ranks of a mesh gathers each block
+into its whole array and rank 0 of the mesh alone writes, and
 ``restore(..., shardings=)`` places each one under its sharding on a
 mesh of ranks, so either package's checkpoint restores onto any mesh.
 """
@@ -61,12 +63,39 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save(ckpt_dir: str | pathlib.Path, step: int, state: Any,
-         keep: int = 3) -> pathlib.Path:
+         keep: int = 3, shardings: Any | None = None) -> pathlib.Path:
     """Atomic save of ``state`` (dataclasses, dicts, sequences of tensors
-    or numbers) at ``step``."""
+    or numbers) at ``step``.  ``shardings``: on the ranks of a mesh, a
+    tree matching ``state`` whose ``NamedSharding`` leaves say which
+    block of each tensor this rank holds; every rank calls ``save``, the
+    blocks are gathered (one tensor at a time) and rank 0 of the mesh
+    writes the whole arrays while the others wait for it."""
     ckpt_dir = pathlib.Path(ckpt_dir)
+    final = ckpt_dir / f"ckpt_{step:08d}.npz"
+    if shardings is not None:
+        where = flatten(shardings)
+        flat, mesh = {}, None
+        for k, v in flatten(state).items():
+            ns = where.get(k)
+            if isinstance(v, torch.Tensor) and ns is not None:
+                mesh = ns.mesh
+                v = ns.gather(v)
+            flat[k] = _to_numpy(v)
+        writer = mesh is None or not any(mesh.coordinate(a)
+                                         for a in mesh.axis_names)
+        if writer:
+            _write(ckpt_dir, step, flat, keep)
+        if mesh is not None and mesh.device_mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
+        return final
+    return _write(ckpt_dir, step, {k: _to_numpy(v)
+                                   for k, v in flatten(state).items()}, keep)
+
+
+def _write(ckpt_dir: pathlib.Path, step: int, flat: dict,
+           keep: int) -> pathlib.Path:
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    flat = {k: _to_numpy(v) for k, v in flatten(state).items()}
     flat["__step__"] = np.asarray(step)
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     try:

@@ -13,7 +13,19 @@ buffers, both keyed and shaped as the reference's leaves, and the step
 updates them in place (the reference donates its state).  On a card the
 model runs the ``torch`` backend: the kernels have no backward and
 refuse a gradient (``kernels/ops.py``).  ``Trainer(mesh=)`` stores its
-mesh, as the reference's does; nothing reads it there either.
+mesh, as the reference's does; nothing reads it there either: a model
+built on a mesh carries its own.
+
+On a mesh (ZeRO-3 or FSDP-TP, ``Model(..., layout="train", mesh=m)``)
+the step has the same form on every rank: it is given the whole batch
+(every rank makes it, a pure function of the seed and step), each
+microbatch is a slice of it as the reference's scan takes them, and the
+model runs this rank's rows of each; the leaves, gradients and
+optimizer state are this rank's blocks (``optimizer.for_model``), and
+the reported loss and gradient norm are the batch's, equal on every
+rank.  A checkpoint from ranks holds whole leaves, written once
+(``checkpoint.save(shardings=)``), so either package and any mesh
+restores it; ``restore_or_init`` gives each rank its blocks.
 """
 from __future__ import annotations
 
@@ -42,6 +54,9 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer,
     cfg = model.cfg
     if model.layout != "train":
         raise ValueError("training needs Model(..., layout='train')")
+    optimizer = opt_lib.for_model(optimizer, model)
+    clip = getattr(optimizer, "clip_by_global_norm",
+                   opt_lib.clip_by_global_norm)
 
     def train_step(state: TrainState, batch):
         if state.params is not model.leaves:
@@ -53,9 +68,9 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer,
             lsum = 0.0
             for i in range(microbatches):
                 mb = {k: v.chunk(microbatches)[i] for k, v in batch.items()}
-                loss, _ = model.loss_fn(mb)
+                loss, met = model.loss_fn(mb)
                 loss.backward()
-                lsum = lsum + loss.detach()
+                lsum = lsum + met["loss"].detach()
             for g in model.grads.values():
                 g.div_(microbatches)
             loss = lsum / microbatches
@@ -63,11 +78,10 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer,
         else:
             loss, metrics = model.loss_fn(batch)
             loss.backward()
-            loss = loss.detach()
             metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
                        for k, v in metrics.items()}
-        grads, gnorm = opt_lib.clip_by_global_norm(model.grads,
-                                                   cfg.grad_clip)
+            loss = metrics["loss"]
+        grads, gnorm = clip(model.grads, cfg.grad_clip)
         optimizer.apply_(grads, state.opt, state.params, state.step)
         out_metrics = dict(metrics)
         out_metrics.update(loss=loss, grad_norm=gnorm)
@@ -95,7 +109,7 @@ class Trainer:
             optimizer = opt_lib.make(
                 cfg.optimizer, lr, **({"weight_decay": cfg.weight_decay}
                                       if cfg.optimizer == "adamw" else {}))
-        self.optimizer = optimizer
+        self.optimizer = opt_lib.for_model(optimizer, model)
         self.data = data
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
@@ -119,21 +133,44 @@ class Trainer:
     def restore_or_init(self, generator: torch.Generator | None = None
                         ) -> TrainState:
         if self.ckpt_dir and ckpt_lib.latest_step(self.ckpt_dir) is not None:
-            # shapes only: the checkpoint lands on the host, then each
-            # leaf is copied into the model's own storage
-            leaves = self.model.leaves
-            meta = {k: torch.empty_like(v, device="meta")
-                    for k, v in leaves.items()}
-            like = TrainState(0, meta, self.optimizer.init(meta))
+            # shapes only: the checkpoint lands on the host whole, then
+            # each leaf (this rank's block of it, on a mesh) is copied
+            # into the model's own storage
+            model, dev = self.model, self.model.device
+            leaves = model.leaves
+            meta = {k: torch.empty(s, dtype=leaves[k].dtype, device="meta")
+                    for k, s in model.leaf_shapes.items()}
+            sh = self.shardings()
+            whole = getattr(self.optimizer, "whole_state", None)
+            like = TrainState(0, meta, whole if whole is not None
+                              else self.optimizer.init(meta))
             got, _ = ckpt_lib.restore(self.ckpt_dir, like)
+            cut = (lambda t, ns: t) if sh is None else (
+                lambda t, ns: ns.shard_of(t))
             with torch.no_grad():
                 for path, t in got.params.items():
-                    leaves[path].copy_(t)
-            dev = self.model.device
-            opt = _map(got.opt, lambda t: t.to(dev))
+                    leaves[path].copy_(cut(t, None if sh is None
+                                           else sh.params[path]))
+            opt = (_map(got.opt, lambda t: t.to(dev)) if sh is None else
+                   opt_lib.tree_pair(got.opt, sh.opt, lambda t, ns: ns.shard_of(
+                       t).to(dev, copy=True)))
             self.state = TrainState(got.step, leaves, opt)
             return self.state
         return self.init_state(generator)
+
+    def shardings(self) -> TrainState | None:
+        """The state's shardings on the model's mesh (the step's none),
+        or None off a mesh."""
+        if self.model.leaf_shardings is None:
+            return None
+        return TrainState(None, self.model.leaf_shardings,
+                          self.optimizer.shardings)
+
+    def save(self) -> None:
+        """A checkpoint of the state at its step; on a mesh every rank
+        calls it and whole leaves are written once."""
+        ckpt_lib.save(self.ckpt_dir, int(self.state.step), self.state,
+                      shardings=self.shardings())
 
     # ------------------------------------------------------------------
     def _install_signal_handler(self):
@@ -169,11 +206,10 @@ class Trainer:
             self.state, metrics = self.step_fn(self.state, batch)
             if self._interrupted:
                 if self.ckpt_dir:
-                    ckpt_lib.save(self.ckpt_dir, int(self.state.step),
-                                  self.state)
+                    self.save()
                 raise KeyboardInterrupt("preempted; emergency ckpt saved")
             if self.ckpt_dir and (step + 1) % self.ckpt_every == 0:
-                ckpt_lib.save(self.ckpt_dir, int(self.state.step), self.state)
+                self.save()
             if (step + 1) % log_every == 0 or step == steps - 1:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step"] = step + 1
@@ -182,7 +218,7 @@ class Trainer:
                 if on_metrics:
                     on_metrics(m)
         if self.ckpt_dir:
-            ckpt_lib.save(self.ckpt_dir, int(self.state.step), self.state)
+            self.save()
         return history
 
 
@@ -190,3 +226,4 @@ def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
     return fn(tree)
+
