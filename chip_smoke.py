@@ -256,7 +256,17 @@ Phases, each fatal on failure:
    axis) at the mesh train dry run's deepest depth for 45% of the card,
    Adafactor, 16 microbatches of one 256-token sequence, MT_MOE_STEPS
    steps: finite, equal on both ranks, peaks within the plan; and the
-   reduced dbrx-132b in float32 on the mesh against one device, as b.
+   reduced dbrx-132b in float32 on the mesh against one device, as b;
+   e. a preemption: c's trainer, whose rank 1 alone sends itself a
+   SIGTERM during step 2; both ranks must raise ``KeyboardInterrupt``
+   after step 2, the one checkpoint must be c's uninterrupted state at
+   step 2 bit for bit, and a mesh trainer restored from it must take
+   step 3 with the uninterrupted loss; then the 2-layer cut (float32,
+   AdamW) saved from the mesh and restored onto it: the host growth
+   (``/proc/self/statm``, sampled) of the rank that does not write
+   during the save, and of each rank during the restore, within 2 x
+   the largest whole array + MT_HOST_SLACK (the writer's save growth
+   reported: it keeps its host copies).
 
 Each phase prints its seconds.  The last line is the contract line
 ``{"ok": true, "device": {...}}``; before it come the ``{"phase_s": ...}``,
@@ -285,6 +295,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -4839,30 +4850,38 @@ def _whole_state(trainer) -> dict:
     return out
 
 
+def mt_small_trainer(where, dev, ckpt, mesh, every=2):
+    """19c and 19e's trainer: the reduced stablelm-1.6b (float32) on
+    ``mesh`` (None: one device), AdamW, seeded data; from seeded weights
+    (``where`` "init") or restored from ``ckpt``."""
+    from repro_torch import configs
+    from repro_torch.train import optimizer as opt_lib
+    cfg = configs.get(TRAIN_ARCH).reduced()
+    t = mt_trainer(cfg, dev, mesh, train_data(cfg, 64, 4, 11),
+                   opt_lib.make("adamw", TRAIN_LR), ckpt, every)
+    if where == "init":
+        t.init_state(torch.Generator(device=dev).manual_seed(0))
+    else:
+        t.restore_or_init()
+    return t
+
+
 def mt_checkpoint(dev, m, work: str) -> dict:
     """19c, on the reduced stablelm-1.6b (float32) under deterministic
     algorithms: a mesh trainer saves at step 2 (whole leaves, rank 0
     writes) and runs on; a one-device trainer restores the file, bit for
     bit, and saves its own; a fresh mesh trainer restores that, bit for
-    bit, and takes step 3 as the trainer that never stopped did."""
+    bit, and takes step 3 as the trainer that never stopped did.  Then
+    19e's preemption (``mt_preempt``) against the same state and loss."""
     import torch.distributed as dist
-    from repro_torch import configs
-    from repro_torch.train import optimizer as opt_lib
 
-    cfg = configs.get(TRAIN_ARCH).reduced()
     prior = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.use_deterministic_algorithms(True)
     rank = dist.get_rank()
     try:
         def trainer(where, ckpt, mesh):
-            t = mt_trainer(cfg, dev, mesh, train_data(cfg, 64, 4, 11),
-                           opt_lib.make("adamw", TRAIN_LR), ckpt, 2)
-            if where == "init":
-                t.init_state(torch.Generator(device=dev).manual_seed(0))
-            else:
-                t.restore_or_init()
-            return t
+            return mt_small_trainer(where, dev, ckpt, mesh)
         a = trainer("init", f"{work}/mesh", m)
         a.run(2)
         saved = _whole_state(a)
@@ -4884,6 +4903,8 @@ def mt_checkpoint(dev, m, work: str) -> dict:
                        if not torch.equal(got[k], v)]
         b.ckpt_dir = None
         lb = b.run(3)[-1]["loss"]
+        del a, b
+        preempt = mt_preempt(dev, m, f"{work}/preempt", saved, la)
     finally:
         torch.use_deterministic_algorithms(False)
         if prior is None:
@@ -4892,7 +4913,135 @@ def mt_checkpoint(dev, m, work: str) -> dict:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = prior
     return dict(rank=rank, arrays=len(saved), one_device_differ=one_differ,
                 mesh_differ=mesh_differ, loss_uninterrupted=la,
-                loss_restored=lb)
+                loss_restored=lb, preempt=preempt)
+
+
+def mt_preempt(dev, m, ckpt: str, saved: dict, loss3: float) -> dict:
+    """19e, the preemption: 19c's mesh trainer asked for 3 steps, whose
+    rank 1 alone sends itself a real SIGTERM from its data's
+    ``batch_at`` during step 2 (after step 1's vote).  Returns what it
+    raised, the checkpoints written, the arrays that differ from 19c's
+    uninterrupted state at step 2 (``saved``), and the step-3 loss of a
+    mesh trainer restored from the checkpoint beside 19c's (``loss3``)."""
+    import signal
+
+    import numpy as np
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    t = mt_small_trainer("init", dev, ckpt, m, every=50)
+    if rank == 1:
+        batch_at = t.data.batch_at
+
+        def signalled(step):
+            if step == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return batch_at(step)
+        t.data.batch_at = signalled
+    raised = None
+    t0 = time.perf_counter()
+    try:
+        t.run(3)
+    except KeyboardInterrupt as exc:
+        raised = str(exc)
+    run_s = time.perf_counter() - t0
+    files = sorted(os.listdir(ckpt))
+    res = dict(rank=rank, raised=raised, step=t.state.step, files=files,
+               run_s=run_s, loss_uninterrupted=loss3,
+               differ=["no checkpoint at step 2"], restored_step=None,
+               loss_restored=None)
+    del t
+    if "ckpt_00000002.npz" in files:
+        with np.load(f"{ckpt}/ckpt_00000002.npz") as z:
+            res["differ"] = [k for k, v in saved.items()
+                             if k not in z.files
+                             or not np.array_equal(z[k], v.numpy())]
+        r = mt_small_trainer("restore", dev, ckpt, m)
+        r.ckpt_dir = None
+        res["restored_step"] = r.state.step
+        res["loss_restored"] = r.run(3)[-1]["loss"]
+        del r
+    free_card()
+    return res
+
+
+#: 19e: the host memory a rank may add to a save or restore beyond two
+#: whole arrays (a gather's received blocks and their concatenation)
+MT_HOST_SLACK = 0.5e9
+
+
+def _rss() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class HostGrowth:
+    """The most this process's resident set grew above its size at entry
+    while the block ran: ``/proc/self/statm`` sampled every 5 ms by a
+    thread (``ru_maxrss`` keeps earlier phases' high-water mark)."""
+
+    def __enter__(self):
+        gc.collect()
+        self.base = self.most = _rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        self.t0 = time.perf_counter()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.005):
+            self.most = max(self.most, _rss())
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.t0
+        self._stop.set()
+        self._thread.join()
+        self.most = max(self.most, _rss())
+        self.bytes = self.most - self.base
+
+
+def mt_memory(dev, m, work: str) -> dict:
+    """19e, the host memory: the 2-layer cut (float32, AdamW) at its
+    init, saved from the mesh (rank 0 writes) and restored onto a fresh
+    mesh trainer; each rank's host growth during each call, its largest
+    whole array (leaf or optimizer state), and the file's bytes."""
+    import torch.distributed as dist
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import optimizer as opt_lib
+
+    cfg = cut_config("float32")
+    ckpt = f"{work}/memory"
+
+    def trainer():
+        return mt_trainer(cfg, dev, m, train_data(cfg, CUT_SEQ, CUT_BATCH),
+                          opt_lib.make("adamw", TRAIN_LR), ckpt, 1 << 30)
+    t = trainer()
+    t.init_state(torch.Generator(device=dev).manual_seed(0))
+    whole = dict(ckpt_lib.flatten(t.optimizer.whole_state), **{
+        k: torch.empty(s, dtype=t.model.leaves[k].dtype, device="meta")
+        for k, s in t.model.leaf_shapes.items()})
+    largest = max(v.numel() * v.element_size() for v in whole.values())
+    with HostGrowth() as save:
+        t.save()
+    state_bytes = sum(v.numel() * v.element_size() for v in whole.values())
+    del t
+    free_card()
+    r = trainer()
+    with HostGrowth() as restore:
+        r.restore_or_init()
+    step = r.state.step
+    del r
+    free_card()
+    res = dict(rank=dist.get_rank(), writer=m.coordinate("model") == 0,
+               n_layers=cfg.n_layers, largest_bytes=largest,
+               state_bytes=state_bytes, step=step,
+               file_bytes=os.path.getsize(f"{ckpt}/ckpt_00000000.npz"),
+               save_bytes=save.bytes, save_s=save.seconds,
+               restore_bytes=restore.bytes, restore_s=restore.seconds,
+               bound_bytes=2 * largest + MT_HOST_SLACK)
+    dist.barrier()
+    return res
 
 
 def mt_rank(dev_name: str, plan: dict) -> list:
@@ -4914,6 +5063,7 @@ def mt_rank(dev_name: str, plan: dict) -> list:
     res["f32"] = mt_against_one_device(cut_config("float32"), CUT_SEQ,
                                        CUT_BATCH, "adamw", dev, m)
     res["ckpt"] = mt_checkpoint(dev, m, plan["work"])
+    res["memory"] = mt_memory(dev, m, plan["work"])
     full = configs.get(MOE_TRAIN_ARCH)
     moe = dataclasses.replace(full, n_layers=plan["moe_depth"])
     res["moe"] = mt_bf16(MOE_TRAIN_ARCH, moe, ShapeCell(
@@ -4945,6 +5095,46 @@ def mt_require_f32(r: dict) -> None:
 def _share(v) -> str:
     """A busy share as printed: "not measured" (or None) as it is."""
     return v if v is None or isinstance(v, str) else f"{v:.3f}"
+
+
+def mt_require_preempt(ranks: list) -> None:
+    """19e's readings, printed, and its checks."""
+    for r in (x["ckpt"]["preempt"] for x in ranks):
+        print(f"  preemption, rank {r['rank']} (a SIGTERM to rank 1 alone "
+              f"during step 2): raised {r['raised']!r} at step {r['step']} "
+              f"after {r['run_s']:.1f} s; files {r['files']}; arrays "
+              f"differing from the uninterrupted step-2 state "
+              f"{len(r['differ'])}; restored at step {r['restored_step']}, "
+              f"step 3 loss uninterrupted {r['loss_uninterrupted']!r}, "
+              f"restored {r['loss_restored']!r}")
+        require(r["raised"] == "preempted; emergency ckpt saved"
+                and r["step"] == 2, f"preemption: {r}")
+        require(r["files"] == ["ckpt_00000002.npz", "latest"],
+                f"preemption: checkpoints {r['files']}")
+        require(not r["differ"] and r["restored_step"] == 2
+                and r["loss_restored"] == r["loss_uninterrupted"],
+                f"preemption: the checkpoint or its restart differs: {r}")
+    for r in (x["memory"] for x in ranks):
+        who = "writes" if r["writer"] else "does not write"
+        print(f"  host memory, rank {r['rank']} ({who}), {TRAIN_ARCH} at "
+              f"{r['n_layers']} layers, float32 + AdamW "
+              f"({r['state_bytes'] / 1e9:.3f} GB of whole arrays, the "
+              f"largest {r['largest_bytes'] / 1e9:.3f} GB; file "
+              f"{r['file_bytes'] / 1e9:.3f} GB): growth during the save "
+              f"{r['save_bytes'] / 1e9:.3f} GB in {r['save_s']:.1f} s, "
+              f"during the restore {r['restore_bytes'] / 1e9:.3f} GB in "
+              f"{r['restore_s']:.1f} s; bound 2 x largest + "
+              f"{MT_HOST_SLACK / 1e9:.1f} GB = {r['bound_bytes'] / 1e9:.3f} "
+              f"GB")
+        require(r["writer"] or r["save_bytes"] <= r["bound_bytes"],
+                f"host memory: rank {r['rank']} grew "
+                f"{r['save_bytes'] / 1e9:.3f} GB during a save it does not "
+                f"write")
+        require(r["restore_bytes"] <= r["bound_bytes"] and r["step"] == 0,
+                f"host memory: rank {r['rank']} grew "
+                f"{r['restore_bytes'] / 1e9:.3f} GB during the restore")
+    require(sum(x["memory"]["writer"] for x in ranks) == 1,
+            "host memory: not one writer")
 
 
 def mesh_train(dev) -> dict:
@@ -5037,6 +5227,7 @@ def mesh_train(dev) -> dict:
                 f"checkpoint round trip differs: {r}")
         require(r["loss_uninterrupted"] == r["loss_restored"],
                 f"the restored loss differs: {r}")
+    mt_require_preempt(ranks)
     return dict(moe_depth=plan["moe_depth"], dryrun_depth=depth, ranks=ranks,
                 seconds=time.perf_counter() - t0)
 
@@ -5181,7 +5372,7 @@ def main() -> int:
           "llama3.2-3b, recurrentgemma-9b, rwkv6-7b, dbrx-132b")
     tp = tensor_parallel(dev)
     phase("training on 2 ranks sharing the card: ZeRO-3 stablelm-1.6b, "
-          "FSDP-TP dbrx-132b, a checkpoint")
+          "FSDP-TP dbrx-132b, a checkpoint, a preemption")
     mt = mesh_train(dev)
     phase(None)
 

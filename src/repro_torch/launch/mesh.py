@@ -19,6 +19,7 @@ import torch
 import torch.distributed as dist
 
 from ..models import sharding
+from ..runtime import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -80,15 +81,18 @@ def make_host_mesh() -> Mesh:
 
 
 def device_mesh(sizes, axis_names=("data", "model"),
-                device: str | torch.device = "cpu") -> Mesh:
+                device: str | torch.device | None = None) -> Mesh:
     """A mesh over the ranks of the initialized process group, whose world
-    size must be the product of ``sizes``."""
+    size must be the product of ``sizes``, on ``device``'s type: the card
+    by default (``runtime.resolve_device``, which raises without one);
+    ``device="cpu"`` on the host."""
     from torch.distributed.device_mesh import init_device_mesh
+    device = resolve_device(device)
     sizes, axis_names = tuple(sizes), tuple(axis_names)
     world = dist.get_world_size()
     if math.prod(sizes) != world:
         raise ValueError(f"a mesh of {sizes} needs {math.prod(sizes)} "
                          f"ranks; the process group has {world}")
-    dm = init_device_mesh(torch.device(device).type, sizes,
+    dm = init_device_mesh(device.type, sizes,
                           mesh_dim_names=axis_names)
     return Mesh(axis_names, sizes, dm)

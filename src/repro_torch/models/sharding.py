@@ -209,15 +209,15 @@ class NamedSharding:
     def place(self, tensor: torch.Tensor):
         """``tensor`` (whole, on every rank) as a DTensor under this
         sharding, built from this rank's block with no communication, on
-        the mesh's device type."""
+        the mesh's device type.  The block is a copy: the DTensor keeps
+        no view of the whole tensor alive."""
         from torch.distributed.tensor import DTensor
         dm = self.mesh.device_mesh
         if dm is None:
             raise ValueError(f"mesh {self.mesh.shape} is a description; "
                              f"placing a tensor needs a mesh over ranks")
-        local = self.shard_of(tensor).contiguous()
-        if local.device.type != dm.device_type:
-            local = local.to(dm.device_type)
+        local = self.shard_of(tensor).to(
+            dm.device_type, memory_format=torch.contiguous_format, copy=True)
         return DTensor.from_local(local, self.mesh.device_mesh,
                                   self.placements, run_check=False)
 

@@ -44,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from .obs import get_logger
+from .runtime import resolve_device
 
 log = get_logger(__name__)
 
@@ -93,15 +94,19 @@ def choose_backend(world: int, device: str | torch.device) -> str:
 
 
 def init_ranks(world: int, rank: int, store_dir: str | Path, *,
-               device: str | torch.device = "cpu",
+               device: str | torch.device | None = None,
                backend: str | None = None,
                timeout_s: float = DEFAULT_TIMEOUT_S) -> str:
     """Join (as ``rank``) the default process group of ``world`` ranks
-    that meet through a ``FileStore`` in ``store_dir``; returns the
-    backend, chosen by :func:`choose_backend` unless given.  Every wait,
-    the rendezvous's and each collective's, ends after ``timeout_s``."""
+    that meet through a ``FileStore`` in ``store_dir``, on ``device``:
+    the card by default (``runtime.resolve_device``, which raises
+    without one, before anything touches ``torch.distributed``);
+    ``device="cpu"`` on the host.  Returns the backend, chosen by
+    :func:`choose_backend` unless given.  Every wait, the rendezvous's
+    and each collective's, ends after ``timeout_s``."""
+    device = resolve_device(device)
     backend = backend or choose_backend(world, device)
-    if torch.device(device).type == "cuda":
+    if device.type == "cuda":
         # a card of its own under nccl; ranks sharing cards take turns
         torch.cuda.set_device(rank % torch.cuda.device_count())
     # the ranks are on one host: gloo needs no name resolution then
@@ -113,8 +118,7 @@ def init_ranks(world: int, rank: int, store_dir: str | Path, *,
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=world, timeout=timeout)
     if rank == 0:
-        log.info("%d ranks on %s over %s", world,
-                 torch.device(device).type, backend)
+        log.info("%d ranks on %s over %s", world, device.type, backend)
     return backend
 
 

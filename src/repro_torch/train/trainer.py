@@ -17,15 +17,20 @@ mesh, as the reference's does; nothing reads it there either: a model
 built on a mesh carries its own.
 
 On a mesh (ZeRO-3 or FSDP-TP, ``Model(..., layout="train", mesh=m)``)
-the step has the same form on every rank: it is given the whole batch
-(every rank makes it, a pure function of the seed and step), each
+every rank builds its own ``Trainer`` over its blocks and makes the same
+calls.  The step has the same form on every rank: it is given the whole
+batch (every rank makes it, a pure function of the seed and step), each
 microbatch is a slice of it as the reference's scan takes them, and the
 model runs this rank's rows of each; the leaves, gradients and
 optimizer state are this rank's blocks (``optimizer.for_model``), and
 the reported loss and gradient norm are the batch's, equal on every
-rank.  A checkpoint from ranks holds whole leaves, written once
+rank.  After each step the ranks agree on a preemption: a SIGTERM to
+any of them makes all of them save the emergency checkpoint at that
+step and raise (the reference's one controller decides alone).  A
+checkpoint from ranks holds whole leaves, written once
 (``checkpoint.save(shardings=)``), so either package and any mesh
-restores it; ``restore_or_init`` gives each rank its blocks.
+restores it; ``restore_or_init`` reads it one array at a time and gives
+each rank its blocks.
 """
 from __future__ import annotations
 
@@ -92,7 +97,8 @@ def make_train_step(model: Model, optimizer: opt_lib.Optimizer,
 
 
 class Trainer:
-    """Fault-tolerant single-controller training driver.
+    """Fault-tolerant training loop: one process, or every rank of a
+    mesh in step (the module's doc).
 
     ``optimizer``: the reference builds its optimizer from the config
     (``cfg.optimizer`` under ``warmup_cosine(cfg.learning_rate)``); one
@@ -118,6 +124,7 @@ class Trainer:
                                        cfg.microbatches)
         self.state: TrainState | None = None
         self._interrupted = False
+        self._vote = _preemption_vote(model)
 
     # ------------------------------------------------------------------
     def init_state(self, generator: torch.Generator | None = None
@@ -132,31 +139,35 @@ class Trainer:
 
     def restore_or_init(self, generator: torch.Generator | None = None
                         ) -> TrainState:
-        if self.ckpt_dir and ckpt_lib.latest_step(self.ckpt_dir) is not None:
-            # shapes only: the checkpoint lands on the host whole, then
-            # each leaf (this rank's block of it, on a mesh) is copied
-            # into the model's own storage
-            model, dev = self.model, self.model.device
-            leaves = model.leaves
-            meta = {k: torch.empty(s, dtype=leaves[k].dtype, device="meta")
-                    for k, s in model.leaf_shapes.items()}
-            sh = self.shardings()
-            whole = getattr(self.optimizer, "whole_state", None)
-            like = TrainState(0, meta, whole if whole is not None
-                              else self.optimizer.init(meta))
-            got, _ = ckpt_lib.restore(self.ckpt_dir, like)
-            cut = (lambda t, ns: t) if sh is None else (
-                lambda t, ns: ns.shard_of(t))
-            with torch.no_grad():
-                for path, t in got.params.items():
-                    leaves[path].copy_(cut(t, None if sh is None
-                                           else sh.params[path]))
-            opt = (_map(got.opt, lambda t: t.to(dev)) if sh is None else
-                   opt_lib.tree_pair(got.opt, sh.opt, lambda t, ns: ns.shard_of(
-                       t).to(dev, copy=True)))
-            self.state = TrainState(got.step, leaves, opt)
-            return self.state
-        return self.init_state(generator)
+        """The latest checkpoint under ``ckpt_dir``, else
+        ``init_state(generator)``.  The checkpoint is read one whole
+        array at a time: each (this rank's block of it, on a mesh) is
+        copied into the model's storage or the optimizer state on the
+        model's device before the next is read."""
+        if not (self.ckpt_dir
+                and ckpt_lib.latest_step(self.ckpt_dir) is not None):
+            return self.init_state(generator)
+        model, dev = self.model, self.model.device
+        leaves = model.leaves
+        meta = {k: torch.empty(s, dtype=leaves[k].dtype, device="meta")
+                for k, s in model.leaf_shapes.items()}
+        whole = getattr(self.optimizer, "whole_state", None)
+        like = TrainState(0, meta, whole if whole is not None
+                          else self.optimizer.init(meta))
+        sh = self.shardings()
+        where = {} if sh is None else ckpt_lib.flatten(sh)
+
+        @torch.no_grad()
+        def place(key, t):
+            ns = where.get(key)
+            block = t if ns is None else ns.shard_of(t)
+            part, _, path = key.partition("/")
+            if part == "params":
+                return leaves[path].copy_(block)
+            return block.to(dev, copy=True)
+        got, _ = ckpt_lib.restore(self.ckpt_dir, like, place=place)
+        self.state = TrainState(got.step, leaves, got.opt)
+        return self.state
 
     def shardings(self) -> TrainState | None:
         """The state's shardings on the model's mesh (the step's none),
@@ -168,9 +179,17 @@ class Trainer:
 
     def save(self) -> None:
         """A checkpoint of the state at its step; on a mesh every rank
-        calls it and whole leaves are written once."""
+        calls it at the same step, and whole leaves are written once."""
         ckpt_lib.save(self.ckpt_dir, int(self.state.step), self.state,
                       shardings=self.shardings())
+
+    def _preempted(self) -> bool:
+        """Whether to take the emergency checkpoint now: this process's
+        flag, or on a mesh whether any rank's is set (every rank votes
+        after every step, so that all of them act at the same one)."""
+        if self._vote is None:
+            return self._interrupted
+        return self._vote(self._interrupted)
 
     # ------------------------------------------------------------------
     def _install_signal_handler(self):
@@ -186,7 +205,8 @@ class Trainer:
     def run(self, steps: int, log_every: int = 10,
             on_metrics=None) -> list[dict]:
         """``steps`` steps under a SIGTERM handler that saves an emergency
-        checkpoint; the handler it replaced comes back when it returns or
+        checkpoint (on a mesh, after the first step whose vote sees a
+        flag); the handler it replaced comes back when it returns or
         raises, so that no handler keeps this trainer (and its model and
         state) alive after the run."""
         assert self.state is not None, "call restore_or_init first"
@@ -204,7 +224,7 @@ class Trainer:
         for step in range(start, steps):
             batch = to_device(self.data.batch_at(step), self.model.device)
             self.state, metrics = self.step_fn(self.state, batch)
-            if self._interrupted:
+            if self._preempted():
                 if self.ckpt_dir:
                     self.save()
                 raise KeyboardInterrupt("preempted; emergency ckpt saved")
@@ -222,8 +242,22 @@ class Trainer:
         return history
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+def _preemption_vote(model) -> Callable[[bool], bool] | None:
+    """On a mesh over ranks, a vote of every rank of the process group
+    (which the mesh spans): ``vote(flag)`` is whether any rank gave True,
+    a one-element max all-reduce of a host value over ``gloo`` (a group
+    of its own, made here, when the default group is ``nccl``, so that
+    the vote never waits on the card).  None off a mesh: no collective."""
+    mesh = model.mesh
+    if model.leaf_shardings is None or mesh.device_mesh is None:
+        return None
+    import torch.distributed as dist
+    group = None if dist.get_backend() == "gloo" else dist.new_group(
+        backend="gloo")
+
+    def vote(flag: bool) -> bool:
+        t = torch.tensor([int(flag)], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return bool(t.item())
+    return vote
 

@@ -236,7 +236,7 @@ def train_ranks(rank, world, sizes, cases, planted=()):
     from repro_torch.models.convert import gather_leaves
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train.trainer import TrainState, make_train_step
-    m = tmesh.device_mesh(sizes)
+    m = tmesh.device_mesh(sizes, device="cpu")
     out = {}
     for name, arch, _, B, S, M, patch, path in cases:
         leaves, batches = load_inputs(path)
@@ -309,7 +309,7 @@ def collective_grads(rank, world, inputs):
     sum's replicated consumers)."""
     from repro_torch.launch import mesh as tmesh
     from repro_torch.models import collectives as C
-    m = tmesh.device_mesh((1, world))
+    m = tmesh.device_mesh((1, world), device="cpu")
     out = {}
 
     def run(name, fn, x, c):
@@ -345,7 +345,7 @@ def optimizer_ranks(rank, world, sizes, cases):
     from repro_torch.launch import mesh as tmesh
     from repro_torch.models.convert import gather_leaves, shard_leaves
     from repro_torch.train import optimizer as opt_lib
-    m = tmesh.device_mesh(sizes)
+    m = tmesh.device_mesh(sizes, device="cpu")
     out = []
     for arch, name, leaves, grads, state in cases:
         model = mesh_model(arch, 1, None, m, leaves)
@@ -375,7 +375,7 @@ def checkpoint_ranks(rank, world, sizes, arch, path, ckpt_dirs):
     from repro_torch.launch import mesh as tmesh
     from repro_torch.models.convert import gather_leaves
     from repro_torch.train.trainer import Trainer, TrainState
-    m = tmesh.device_mesh(sizes)
+    m = tmesh.device_mesh(sizes, device="cpu")
     leaves, _ = load_inputs(path)
 
     def trainer(ckpt_dir):
@@ -397,6 +397,136 @@ def checkpoint_ranks(rank, world, sizes, arch, path, ckpt_dirs):
                                              b.optimizer.shardings)))
     restored["loss"] = b.run(b.state.step + 1)[-1]["loss"]
     return dict(saved=saved, next_loss=next_loss, restored=restored)
+
+
+# ---------------------------------------------------------------------------
+# a preemption, and the host memory of a checkpoint, on the ranks
+# ---------------------------------------------------------------------------
+PREEMPT_ARCH = "stablelm-1.6b"
+
+
+def preempt_trainer(m, ckpt_dir=None):
+    """A ``Trainer`` of the reduced ``PREEMPT_ARCH`` on mesh ``m`` from
+    seeded weights and a fresh AdamW state."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build
+    from repro_torch.train.trainer import Trainer
+    cfg = config(PREEMPT_ARCH)
+    model = build(cfg, backend="torch", device="cpu", layout="train", mesh=m)
+    t = Trainer(model, SyntheticLM(DataConfig(cfg.vocab, 16, 4, seed=3)),
+                ckpt_dir=ckpt_dir)
+    t.init_state(torch.Generator().manual_seed(1))
+    return t
+
+
+def whole_state(t) -> dict:
+    """A trainer's leaves and optimizer state gathered whole, keyed as in
+    a checkpoint."""
+    from repro_torch.models.convert import gather_leaves
+    return {**{f"params/{k}": v for k, v in _numpy(gather_leaves(
+        t.model)).items()}, **{f"opt/{k}": v for k, v in _numpy(
+            _gather_state(t.state.opt, t.optimizer.shardings)).items()}}
+
+
+def preempt_ranks(rank, world, sizes, flagged, ckpt_dir):
+    """A trainer on a mesh of ``sizes`` asked for 4 steps, whose rank
+    ``flagged`` alone gets a SIGTERM during its second step (sent from
+    its data's ``batch_at``, after the first step's vote); then, in the
+    same group, an uninterrupted trainer's 2 steps.  Returns what the
+    first raised, its step, and the second's whole state."""
+    import signal
+    from repro_torch.launch import mesh as tmesh
+    m = tmesh.device_mesh(sizes, device="cpu")
+    t = preempt_trainer(m, ckpt_dir)
+    if rank == flagged:
+        batch_at = t.data.batch_at
+
+        def signalled(step):
+            if step == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return batch_at(step)
+        t.data.batch_at = signalled
+    raised = None
+    try:
+        t.run(4)
+    except KeyboardInterrupt as exc:
+        raised = str(exc)
+    u = preempt_trainer(m)
+    u.run(2)
+    return dict(raised=raised, step=t.state.step, whole=whole_state(u))
+
+
+class _Live:
+    """Weak references to the storages of whole tensors: :meth:`count` is
+    how many are still alive, :meth:`add` takes one more."""
+
+    def __init__(self):
+        self.refs, self.most = [], 0
+
+    def add(self, t) -> None:
+        import weakref
+        self.most = max(self.most, self.count())
+        self.refs.append(weakref.ref(t.untyped_storage()))
+
+    def count(self) -> int:
+        return sum(r() is not None for r in self.refs)
+
+
+def memory_ranks(rank, world, ckpt_dir, gather_bytes):
+    """On a (1, world) mesh, a trainer's save after a step (gathering
+    ``gather_bytes`` of a whole array at a time), then a fresh trainer's
+    restore of it, watched: at every gather of the save
+    (``NamedSharding.gather``) and at every whole array the restore
+    reads (its ``place``), how many of the earlier ones are still alive
+    (by storage), and the save's conversions to numpy.  Returns those,
+    whether this rank wrote, and whether the restored state is the saved
+    one bit for bit."""
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models.sharding import NamedSharding
+    from repro_torch.train import checkpoint as ckpt
+    m = tmesh.device_mesh((1, world), device="cpu")
+    ckpt.GATHER_BYTES = gather_bytes
+    t = preempt_trainer(m)
+    t.run(1)
+    t.ckpt_dir = ckpt_dir
+    gathered, numpy_calls = _Live(), [0]
+    gather, to_numpy, restore = (NamedSharding.gather, ckpt._to_numpy,
+                                 ckpt.restore)
+
+    def watched_gather(self, block):
+        out = gather(self, block)
+        if out is not block:            # a leaf no axis splits stays put
+            gathered.add(out)
+        return out
+
+    def counted(leaf):
+        numpy_calls[0] += 1
+        return to_numpy(leaf)
+    NamedSharding.gather, ckpt._to_numpy = watched_gather, counted
+    try:
+        t.save()
+    finally:
+        NamedSharding.gather, ckpt._to_numpy = gather, to_numpy
+    read = _Live()
+
+    def watched_restore(ckpt_dir, like, shardings=None, step=None,
+                        place=None):
+        def watched(path, whole):
+            read.add(whole)
+            return place(path, whole)
+        return restore(ckpt_dir, like, shardings, step, watched)
+    u = preempt_trainer(m, ckpt_dir)
+    ckpt.restore = watched_restore
+    try:
+        u.restore_or_init()
+    finally:
+        ckpt.restore = restore
+    want, got = whole_state(t), whole_state(u)
+    return dict(writer=m.coordinate("model") == 0,
+                gathers=len(gathered.refs), gathered_most=gathered.most,
+                numpy_calls=numpy_calls[0], reads=len(read.refs),
+                read_most=read.most, step=u.state.step,
+                equal=all(np.array_equal(got[k], v) for k, v in want.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -484,7 +614,7 @@ def grads_ranks(rank, world, sizes, cases):
     from repro_torch.launch import mesh as tmesh
     from repro_torch.models import build
     from repro_torch.models.convert import gather_leaves, shard_leaves
-    m = tmesh.device_mesh(sizes)
+    m = tmesh.device_mesh(sizes, device="cpu")
     out = []
     for arch, rules, patch, leaves, batch in cases:
         cfg = config(arch, 1, patch)

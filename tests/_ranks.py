@@ -88,7 +88,8 @@ def collect(started) -> list:
 def _entry(fn, rank, world, store_dir, results, args):
     from repro_torch import ranks
     torch.set_num_threads(1)
-    ranks.init_ranks(world, rank, store_dir, timeout_s=INIT_TIMEOUT_S)
+    ranks.init_ranks(world, rank, store_dir, device="cpu",
+                     timeout_s=INIT_TIMEOUT_S)
     try:
         res = fn(rank, world, *args)
     finally:
@@ -168,7 +169,7 @@ def moe_ranks(rank, world, arch, sizes, cases):
     from repro_torch.launch import mesh as tmesh
     from repro_torch.models import moe
     from repro_torch.models.convert import shard_experts
-    m = tmesh.device_mesh(sizes)
+    m = tmesh.device_mesh(sizes, device="cpu")
 
     def run(block, x):
         try:
@@ -249,12 +250,12 @@ def data_ranks(rank, world, rules, batch, ckpts):
     from repro_torch.train import checkpoint
     res = {"batch": {}, "ckpt": []}
     for sizes in ((world, 1), (1, world)):
-        m = tmesh.device_mesh(sizes)
+        m = tmesh.device_mesh(sizes, device="cpu")
         placed = device_put_batch(batch, m, rules)
         res["batch"][sizes] = {
             k: (v.to_local().numpy(), tuple(map(str, v.placements)),
                 v.full_tensor().numpy()) for k, v in placed.items()}
-    m = tmesh.device_mesh((1, world))
+    m = tmesh.device_mesh((1, world), device="cpu")
     for ckpt_dir, like, logical in ckpts:
         shardings = sharding.tree_shardings(
             m, rules, logical, {k: v for k, v in like.items()
@@ -308,7 +309,7 @@ def tp_ranks(rank, world, sizes, cases):
     from repro_torch.launch import mesh as tmesh
     from repro_torch.models import build, collectives
     from repro_torch.models.convert import shard_params
-    m = tmesh.device_mesh(sizes)
+    m = tmesh.device_mesh(sizes, device="cpu")
     desc = tmesh.Mesh(("data", "model"), tuple(sizes))
     out = {}
     for name, arch, path in cases:
