@@ -6,8 +6,14 @@ the plain PyTorch version.  There is no fallback between the two: a CUDA
 tensor the kernel cannot take raises.
 
 Replaces the TPU kernel ``src/repro/kernels/rwkv6.py`` (``_kernel``,
-launched by ``rwkv6_scan``).  The source note in the ``.cu`` file says
-what bounds the kernel on the card and how its design answers that.
+launched by ``rwkv6_scan``).  A prefill (T > 1) runs the chunked scan of
+:func:`rwkv6_chunked_torch` on the tensor cores; its plain twin is
+:func:`twin`, the tolerances it is held to :data:`TWIN_TOL` (against the
+twin) and the reference's (against :func:`rwkv6_torch`).  A decode step
+(T = 1) repeats :func:`rwkv6_torch`'s bits, and so does
+:func:`sequential_scan`, the earlier step-by-step prefill, kept only as
+the chunked one's yardstick (no served path calls it).  The source note in the ``.cu`` file says what bounds
+the kernel on the card and how its design answers that.
 """
 from __future__ import annotations
 
@@ -31,23 +37,42 @@ def _lib() -> ctypes.CDLL:
     fn = lib.rwkv6_fwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+#: the C entry's ``form`` for T > 1
+_SEQUENTIAL, _CHUNKED = 0, 1
 
 
 def rwkv6_scan(r, k, v, w, u, state0=None):
     """r, k, w: (B, T, H, D); v: (B, T, H, Dv); u: (H, D); state0:
     (B, H, D, Dv) or None (zeros).  Returns (y (B, T, H, Dv) in v's dtype,
     state (B, H, D, Dv) float32).  On a CUDA tensor this launches the
-    kernel; on a CPU tensor it runs :func:`rwkv6_torch`."""
+    kernel (T = 1: the decode kernel; else the chunked prefill) and counts
+    the launch; on a CPU tensor it runs :func:`rwkv6_torch`."""
+    global launches
     if not r.is_cuda:
         return rwkv6_torch(r, k, v, w, u, state0)
-    return _launch(r, k, v, w, u, state0)
+    out = _launch(r, k, v, w, u, state0, _CHUNKED)
+    launches += 1
+    return out
 
 
-def _launch(r, k, v, w, u, state0):
-    global launches
+def sequential_scan(r, k, v, w, u, state0=None):
+    """The step-by-step prefill kernel the chunked one replaced
+    (``rwkv6_prefill`` in ``csrc/rwkv6.cu``), which repeats
+    :func:`rwkv6_torch`'s bits: the yardstick the chunked prefill is timed
+    and checked beside, on no served path, so not counted in
+    :data:`launches`.  Arguments and results as :func:`rwkv6_scan` (T = 1
+    takes the decode kernel)."""
+    if not r.is_cuda:
+        return rwkv6_torch(r, k, v, w, u, state0)
+    return _launch(r, k, v, w, u, state0, _SEQUENTIAL)
+
+
+def _launch(r, k, v, w, u, state0, form):
     ins = (r, k, v, w, u)
     tensors = ins if state0 is None else ins + (state0,)
     if not all(t.is_cuda and t.device == r.device for t in tensors):
@@ -85,10 +110,9 @@ def _launch(r, k, v, w, u, state0):
     code = lib.rwkv6_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if state0 is None else state0.data_ptr(), y.data_ptr(),
-        state.data_ptr(), _DTYPE_CODE[r.dtype], B, T, H, D, Dv,
+        state.data_ptr(), _DTYPE_CODE[r.dtype], form, B, T, H, D, Dv,
         torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, code, "rwkv6_scan")
-    launches += 1
     return y, state
 
 
@@ -99,9 +123,9 @@ def rwkv6_torch(r, k, v, w, u, state0=None):
 
     Each step's D terms of y are summed by halving (the first half plus
     the second, D padded with zeros to a power of two), where
-    ``_rwkv6_xla`` leaves the order to XLA: the kernel, which rounds
-    every op as these eager ops do and sums in the same order, equals this
-    version bit for bit."""
+    ``_rwkv6_xla`` leaves the order to XLA: the decode kernel and the
+    sequential prefill, which round every op as these eager ops do and sum
+    in the same order, equal this version bit for bit."""
     B, T, H, D = r.shape
     Dv = v.shape[-1]
     S = (torch.zeros((B, H, D, Dv), dtype=torch.float32, device=r.device)
@@ -128,12 +152,68 @@ def rwkv6_torch(r, k, v, w, u, state0=None):
 #: ``P_{t+1}`` stays at or above this, else from pairwise products
 FACTOR_MIN = 2.0 ** -64
 
+#: the chunk length of the CUDA kernel's chunked prefill (``csrc/rwkv6.cu``)
+CHUNK = 16
 
-def rwkv6_chunked_torch(r, k, v, w, u, state0=None, chunk=16):
+#: the chunked kernel against its plain twin, ``rwkv6_chunked_torch(...,
+#: chunk=CHUNK, split=<bf16 inputs>)``, by type and output.  The two do the
+#: same operations on the same (split) operands and differ only in the
+#: order of float32 products and sums (tensor-core accumulation, each
+#: slice's share of A split on its own, the decay products by a scan, k ⊙ Σ
+#: as (k / P) P_C, a fast division), ~1e-6 relative: the float32 state, and
+#: float32 y, within 1e-4; bf16 y within one bf16 step (2^-7 |y|), where
+#: the two fall on either side of a rounding boundary, and 1e-3 where y's
+#: terms cancel.
+TWIN_TOL = {torch.float32: {"y": dict(atol=1e-4, rtol=1e-4),
+                            "state": dict(atol=1e-4, rtol=1e-4)},
+            torch.bfloat16: {"y": dict(atol=1e-3, rtol=2.0 ** -7),
+                             "state": dict(atol=1e-4, rtol=1e-4)}}
+
+
+def twin(r, k, v, w, u, state0=None):
+    """The chunked kernel's plain twin on these inputs:
+    :func:`rwkv6_chunked_torch` at :data:`CHUNK`, with the bf16 kernel's
+    operand pieces for bf16 inputs."""
+    return rwkv6_chunked_torch(r, k, v, w, u, state0, CHUNK,
+                               r.dtype == torch.bfloat16)
+
+
+def bf16_pieces(x):
+    """``x`` (float32) as three bfloat16 pieces held in float32, each the
+    nearest-even bfloat16 of what the ones before it leave, as
+    ``csrc/rwkv6.cu::split3`` rounds them: their sum carries the 24 bits of
+    a float32 significand."""
+    pieces = []
+    for _ in range(3):
+        p = x.to(torch.bfloat16).float()
+        pieces.append(p)
+        x = x - p
+    return tuple(pieces)
+
+
+def _mm_split(a, b):
+    """``a @ b`` from the pieces of both operands, in the kernel's order:
+    the piece products down to 2^-16 of the leading one, largest first
+    (a0 b0, a0 b1, a1 b0, a0 b2, a1 b1, a2 b0)."""
+    pa, pb = bf16_pieces(a), bf16_pieces(b)
+    out = pa[0] @ pb[0]
+    for n in (1, 2):
+        for m in range(n + 1):
+            out = out + pa[m] @ pb[n - m]
+    return out
+
+
+def _mm_split_left(a, b):
+    """``a @ b`` for a ``b`` that bfloat16 holds exactly: a0 b + a1 b +
+    a2 b."""
+    pa = bf16_pieces(a)
+    return pa[0] @ b + pa[1] @ b + pa[2] @ b
+
+
+def rwkv6_chunked_torch(r, k, v, w, u, state0=None, chunk=16, split=False):
     """The RWKV-6 recurrence in chunks of ``chunk`` steps, in float32: the
-    form whose work is two chained matrix products a chunk, held by the
-    tests against :func:`rwkv6_torch` and ``repro``'s backends.  Nothing
-    serves through it.
+    algorithm of the CUDA kernel's chunked prefill, and its plain twin
+    at ``chunk=CHUNK`` (with ``split=True`` for bfloat16 inputs).
 
     Same arguments and results as :func:`rwkv6_torch`.  With ``P_t = w_0
     ... w_{t-1}`` within a chunk and ``Σ_s = w_{s+1} ... w_{C-1}``, a
@@ -149,9 +229,17 @@ def rwkv6_chunked_torch(r, k, v, w, u, state0=None, chunk=16):
     ``P_{t+1}`` all stay at or above :data:`FACTOR_MIN` forms A_ts as
     ``(r_t ⊙ P_t) . (k_s / P_{s+1})``; any other forms each ``w_{s+1} ...
     w_{t-1}`` as a running product.  T is padded to whole chunks (r = k =
-    v = 0, w = 1)."""
+    v = 0, w = 1).
+
+    ``split=True`` models the bfloat16 kernel's tensor-core operands:
+    every float32 operand of a product (r ⊙ P, k / P, k ⊙ Σ, A and S)
+    enters as its three bfloat16 pieces (:func:`bf16_pieces`), the piece
+    products below 2^-16 of the leading one dropped; V, bfloat16 already,
+    enters whole."""
     B, T, H, D = r.shape
     Dv = v.shape[-1]
+    mm = _mm_split if split else torch.matmul
+    mm_v = _mm_split_left if split else torch.matmul
     pt = -T % chunk
     rf, kf, wf = (F.pad(x.float().transpose(1, 2), (0, 0, 0, pt), value=pad)
                   for x, pad in ((r, 0.0), (k, 0.0), (w, 1.0)))
@@ -170,16 +258,18 @@ def rwkv6_chunked_torch(r, k, v, w, u, state0=None, chunk=16):
                          ones], 2)                          # Σ_0 .. Σ_{C-1}
         q = rc * P[:, :, :chunk]
         fast = (P[:, :, 1:] >= FACTOR_MIN).flatten(2).all(-1)
-        factored = q @ (kc / P[:, :, 1:]).transpose(-1, -2)
-        rows, dec = [], torch.ones_like(rc)     # dec[s] = w_{s+1} ... w_{t-1}
-        for t in range(chunk):
-            rows.append(((rc[:, :, t, None] * dec) * kc).sum(-1))
-            dec = torch.cat([dec[:, :, :t] * wc[:, :, t, None],
-                             dec[:, :, t:]], 2)
-        A = torch.where(fast[..., None, None], factored, torch.stack(rows, 2))
+        A = mm(q, (kc / P[:, :, 1:]).transpose(-1, -2))
+        if not bool(fast.all()):
+            rows, dec = [], torch.ones_like(rc)  # dec[s] = w_{s+1} ... w_{t-1}
+            for t in range(chunk):
+                rows.append(((rc[:, :, t, None] * dec) * kc).sum(-1))
+                dec = torch.cat([dec[:, :, :t] * wc[:, :, t, None],
+                                 dec[:, :, t:]], 2)
+            A = torch.where(fast[..., None, None], A, torch.stack(rows, 2))
         A = torch.where(lower, A, 0.0)
         A = A + torch.diag_embed((rc * uf * kc).sum(-1))
-        ys.append(q @ S + A @ vc)
-        S = P[:, :, chunk, :, None] * S + (kc * sig).transpose(-1, -2) @ vc
+        ys.append(mm(q, S) + mm_v(A, vc))
+        S = P[:, :, chunk, :, None] * S \
+            + mm_v((kc * sig).transpose(-1, -2), vc)
     y = torch.cat(ys, 2)[:, :, :T].transpose(1, 2)
     return y.to(v.dtype), S

@@ -26,7 +26,10 @@ this says, in seconds and without running a kernel:
         --shape all --out artifacts/dryrun_h100
 
 writes one JSON record per cell, ``<arch>_<shape>_h100.json``, with the
-reference's keys where they mean the same thing.
+reference's keys where they mean the same thing.  As the reference's, it
+skips a cell whose record is already there (``[cached]``) unless
+``--force``, and a cell that raises is printed ``[FAIL]`` with its
+traceback while the run goes on; it then lists the failures and exits 1.
 
 ``--mesh single|multi|both`` plans the serving cells per device on the
 reference's meshes, (data 16, model 16) and (pod 2, data 16, model 16),
@@ -57,6 +60,7 @@ import json
 import math
 import pathlib
 import time
+import traceback
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
@@ -938,19 +942,41 @@ def mesh_cell(arch: str, shape: str, mesh, mesh_name: str,
     return _write(rec, out_dir)
 
 
-def run(archs, shapes, out_dir=None, log=print, mesh: str = MESH
-        ) -> list[dict]:
+def run(archs, shapes, out_dir=None, log=print, mesh: str = MESH,
+        force: bool = False) -> list[dict]:
+    """Every (arch, shape, mesh) cell, as the reference's ``main`` walks
+    them.  A cell whose artifact is already in ``out_dir`` is read back
+    and logged ``[cached]`` unless ``force``.  A cell that raises is
+    logged ``[FAIL]`` with its traceback, writes nothing, and the walk
+    goes on: its record has ``status`` "fail" and the traceback under
+    ``error``."""
     recs = []
     names = [MESH] if mesh == MESH else (
         list(MESHES) if mesh == "both" else [mesh])
     for arch in archs:
         for shape in shapes:
             for name in names:
-                if name == MESH:
-                    rec = run_cell(arch, shape, out_dir)
-                else:
-                    rec = mesh_cell(arch, shape, MESHES[name](), name,
-                                    out_dir)
+                label = f"{arch} x {shape} x {name}"
+                art = (None if out_dir is None else
+                       pathlib.Path(out_dir) / f"{arch}_{shape}_{name}.json")
+                if art is not None and art.exists() and not force:
+                    rec = json.loads(art.read_text())
+                    log(f"[cached] {label}: {rec.get('status')}")
+                    recs.append(rec)
+                    continue
+                try:
+                    if name == MESH:
+                        rec = run_cell(arch, shape, out_dir)
+                    else:
+                        rec = mesh_cell(arch, shape, MESHES[name](), name,
+                                        out_dir)
+                except Exception:
+                    error = traceback.format_exc()
+                    log(f"[FAIL] {label}\n{error}")
+                    recs.append({"arch": arch, "shape": shape, "mesh": name,
+                                 "tag": "", "status": "fail",
+                                 "error": error})
+                    continue
                 recs.append(rec)
                 _log(rec, log)
     return recs
@@ -979,10 +1005,18 @@ def main(argv=None):
     ap.add_argument("--mesh", default=MESH,
                     choices=[MESH, "single", "multi", "both"])
     ap.add_argument("--out", default=str(ARTIFACTS))
+    ap.add_argument("--force", action="store_true",
+                    help="recompute existing artifacts")
     args = ap.parse_args(argv)
     archs = list(configs.ARCHS) if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
-    run(archs, shapes, pathlib.Path(args.out), mesh=args.mesh)
+    recs = run(archs, shapes, pathlib.Path(args.out), mesh=args.mesh,
+               force=args.force)
+    failures = [f"{r['arch']} x {r['shape']} x {r['mesh']}" for r in recs
+                if r["status"] == "fail"]
+    if failures:
+        print("FAILURES:", failures)
+        return 1
     print("dry-run complete.")
     return 0
 

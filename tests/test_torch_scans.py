@@ -7,10 +7,12 @@ versions and oracles and ``repro``'s ``ref``, ``xla`` and
 tolerances (scan: atol = rtol = 2e-5 in float32, 2e-2 in bfloat16;
 RWKV-6: atol 1e-4 / 5e-2, rtol 5e-2).
 
-Tests marked ``cuda`` hold the two scan kernels against their plain
-versions bit for bit (RG-LRU at every served prefill length and through
-its element copies; RWKV-6 at every length of RWKV_TS and decay of
-RWKV_DECAYS) and skip on hosts without a CUDA device.
+Tests marked ``cuda`` hold the RG-LRU kernel against its plain version
+bit for bit (at every served prefill length and through its element
+copies), and the RWKV-6 kernel at every length of RWKV_TS and decay of
+RWKV_DECAYS: its decode (T = 1) bit for bit, its chunked prefill within
+rwkv_tol of the plain version and ``rwkv6.TWIN_TOL`` of its chunked twin;
+they skip on hosts without a CUDA device.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -72,8 +74,8 @@ def scan_inputs(seed, B, S, D):
 #: products leave 2^-64 within 16 steps; rwkv6-7b's own range, exp(-exp(w0
 #: + lora)) around w0 = -6 (models/recurrent.py), ~0.9975
 RWKV_DECAYS = ("sigmoid", "edges", "steep", "model")
-#: RWKV-6 lengths: decode, and around 16-step chunks (the kernel's staging
-#: and the chunked form's)
+#: RWKV-6 lengths: decode, and around the chunked kernel's 16-step chunks
+#: (C - 1, C, C + 1, 2C + 1 for C = rwkv6.CHUNK)
 RWKV_TS = (1, 2, 15, 16, 17, 33, 64, 65)
 
 
@@ -257,25 +259,43 @@ def test_rglru_kernel_element_copies(cuda_device, dtype, shape):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _rwkv6_held(got, args, dtype):
+    """The kernel's outputs as its form is held: T = 1 (the decode kernel)
+    equal to the plain version bit for bit; the chunked prefill within
+    rwkv_tol of it and within ``rwkv6.TWIN_TOL`` of its chunked twin."""
+    want = trk.rwkv6_torch(*args)
+    for g, x in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(np32(g.cpu()), np32(x.cpu()),
+                                   **rwkv_tol(dtype))
+    if args[0].shape[1] == 1:
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
+        return
+    tol = trk.TWIN_TOL[DTYPES[dtype][1]]
+    for name, g, x in zip(("y", "state"), got, trk.twin(*args)):
+        np.testing.assert_allclose(np32(g.cpu()), np32(x.cpu()), **tol[name])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", RWKV_SHAPES + [(4, 1, 64, 64, 64),
                                                  (1, 33, 3, 16, 40)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("with_state", [False, True])
 def test_rwkv6_kernel_vs_plain(cuda_device, shape, dtype, with_state):
+    """T = 1 bit for bit; T > 1 (the chunked prefill) within rwkv_tol of
+    the plain version and ``rwkv6.TWIN_TOL`` of its twin; the sequential
+    form bit for bit."""
     r, k, v, w, u, s0 = rwkv_inputs(21, *shape)
     ts = [_card(x, dtype, cuda_device) for x in (r, k, v, w, u)]
     st = torch.from_numpy(s0).to(cuda_device) if with_state else None
     before = trk.launches
-    got, got_state = tops.rwkv6(*ts, st)
+    got = tops.rwkv6(*ts, st)
     torch.cuda.synchronize()
     assert trk.launches == before + 1
-    want, want_state = trk.rwkv6_torch(*ts, st)
-    np.testing.assert_allclose(np32(got.cpu()), np32(want.cpu()),
-                               **rwkv_tol(dtype))
-    np.testing.assert_allclose(np32(got_state.cpu()), np32(want_state.cpu()),
-                               **rwkv_tol(dtype))
-    assert torch.equal(got, want) and torch.equal(got_state, want_state)
+    _rwkv6_held(got, (*ts, st), dtype)
+    seq = trk.sequential_scan(*ts, st)
+    assert all(torch.equal(g, x)
+               for g, x in zip(seq, trk.rwkv6_torch(*ts, st)))
 
 
 @pytest.mark.cuda
@@ -283,21 +303,36 @@ def test_rwkv6_kernel_vs_plain(cuda_device, shape, dtype, with_state):
 @pytest.mark.parametrize("decay", RWKV_DECAYS)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_rwkv6_kernel_edges_vs_plain(cuda_device, T, decay, dtype):
-    """Around the kernel's 16 staged steps, with w = 0 and w = 1
-    exactly, steep decays and the model's own range; head sizes that the
-    prefill's 16-column blocks, 8 residues and the decode's 4-wide vectors
-    do not divide: finite and equal to the plain version bit for bit."""
+    """Around the chunk of 16 steps (C - 1, C, C + 1, 2C + 1), with w = 0
+    and w = 1 exactly, steep decays (the pairwise form) and the model's
+    own range; head sizes that the prefill's 32-column blocks, 16-byte
+    pieces and the decode's 4-wide vectors do not divide: finite, T = 1
+    bit for bit, T > 1 within rwkv_tol of the plain version and
+    ``rwkv6.TWIN_TOL`` of the chunked twin."""
     for D, Dv, with_state in ((40, 24, True), (24, 40, False),
                               (20, 18, True)):
         r, k, v, w, u, s0 = rwkv_inputs(22 + T, 2, T, 2, D, Dv, decay)
         ts = [_card(x, dtype, cuda_device) for x in (r, k, v, w, u)]
         st = torch.from_numpy(s0).to(cuda_device) if with_state else None
         got = tops.rwkv6(*ts, st)
-        want = trk.rwkv6_torch(*ts, st)
         torch.cuda.synchronize()
-        for g, x in zip(got, want):
-            assert bool(torch.isfinite(g).all())
-            assert torch.equal(g, x)
+        _rwkv6_held(got, (*ts, st), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rwkv6_kernel_heads_independent(cuda_device, dtype):
+    """A head's outputs are the same bits whether it is launched among 64
+    heads or among 32 (a tensor-parallel rank's share of rwkv6-7b)."""
+    r, k, v, w, u, s0 = rwkv_inputs(24, 1, 300, 64, 64, 64, "model")
+    ts = [_card(x, dtype, cuda_device) for x in (r, k, v, w)]
+    ut = _card(u, dtype, cuda_device)
+    st = torch.from_numpy(s0).to(cuda_device)
+    y, state = trk.rwkv6_scan(*ts, ut, st)
+    y32, s32 = trk.rwkv6_scan(*(x[:, :, :32].contiguous() for x in ts),
+                              ut[:32].contiguous(), st[:, :32].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(y32, y[:, :, :32]) and torch.equal(s32, state[:, :32])
 
 
 @pytest.mark.cuda
