@@ -1,14 +1,22 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flash-turn [ROOT] [-DNAME=VALUE ...]
 
 Run from the repository root (``src/`` is put on ``sys.path`` here).
+The second form is one turn of a comparison call on the bf16 flash
+route at head sizes 64 and 128 (``flash_turn``), for the package under
+``ROOT/src`` (a ``git archive`` of another commit; this checkout by
+default), its flash source built with the nvcc defines given.
 Phases, each fatal on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: all seven CUDA kernels from ``src/repro_torch/kernels/csrc/``
    for ``sm_90a``, one ``nvcc`` per source, started together; ``ptxas``'s
    registers and spills of the attention and RWKV-6 kernels are reported;
+   the bf16 flash kernel at head sizes 64 and 128 (``flash_sm90``) must
+   hold ``wgmma`` (HGMMA) and TMA (UTMALDG) instructions in its SASS and
+   spill nothing;
 3. kernels: each kernel against its plain PyTorch version on the card
    (attention: float32 at atol = rtol = 2e-5, bfloat16 at 2e-2, the
    tolerances of ``tests/test_kernels.py``; PCCS slowdown: float64 at
@@ -32,7 +40,8 @@ Phases, each fatal on failure:
    head size the kernels are built for (16, 32, 64, 80, 128, 256) and at
    40, which the wrappers pad,
    recurrentgemma-9b's MQA at 256, hubert-xlarge's 16 heads of 80, flash
-   at q-tile edges (Sq of 1, 63, 65) and Sq < Skv, decode with one
+   at q-tile edges (Sq of 1, 63, 65, 127, 128, 129) and Sq < Skv, decode
+   with one
    sequence over 8192 slots (the most splits), lengths 0, 1, S and on
    split boundaries, groups of 1, 3, 6, 8 and 16; the MoE models' 48/8
    and 64/4 heads of 128), then timed (CUDA events,
@@ -43,7 +52,10 @@ Phases, each fatal on failure:
    beside the timer's launch floor (a one-element ``add_`` timed the same
    way): flash in bf16 and in float32 (the characterization's shape),
    both attention kernels also at llama3.2-3b's 24/8 heads of 128,
-   dbrx-132b's 48/8 and qwen3-moe-235b-a22b's 64/4, the
+   dbrx-132b's 48/8 and qwen3-moe-235b-a22b's 64/4 (flash also at
+   llama3.2-3b's other prompt lengths, at 4096 tokens and at a
+   tensor-parallel rank's 12/4 heads; each flash row names the kernel
+   that served it), the
    scans at a prefill's and at a decode step's shape (both at every
    served prompt length, RWKV-6's chunked prefill beside its sequential
    form, the parent design, and in float32 too), the select
@@ -57,7 +69,10 @@ Phases, each fatal on failure:
    have launched (24 flash launches per prefill, 24 decode launches per
    decode step, replays counted), and each prompt's prefill through the
    kernels must match the plain path (same argmax, relative logits error
-   <= 2e-2); then an engine that steps eagerly must give the same tokens;
+   <= 2e-2); the 1000-token prefill is profiled (device ms of the
+   prefill and of its attention; ``flash_sm90`` must run and
+   ``flash_mma`` must not); then an engine that steps eagerly must give
+   the same tokens;
    the step ms and busy share of both are reported;
 5. float32 end to end: the same prefills on full-width stablelm-1.6b with
    float32 weights, activations and KV cache, kernel path against plain
@@ -503,7 +518,8 @@ def bound(flops: float, nbytes: float,
 
 
 #: the kernels ``ptxas_rows`` reports (demangled, shortened)
-PTXAS_KEEP = ("flash_mma<", "flash_kernel<float", "split_mma<", "combine<",
+PTXAS_KEEP = ("flash_sm90<", "flash_mma<", "flash_kernel<float",
+              "split_mma<", "combine<",
               "split_simt<bf16, bf16, 64, 1>",
               "split_simt<bf16, bf16, 256, 1>",
               "split_simt<float, float, 64, 1>",
@@ -537,6 +553,40 @@ def ptxas_rows(build, name: str) -> dict:
             rows[short] = (f"{r.get('registers')} registers, "
                            f"{r.get('spill_stores')} B spill stores")
     return rows
+
+
+def sm90_sass(build) -> dict:
+    """``flash_sm90``'s SASS in this run's build (``cuobjdump -sass``):
+    its HGMMA (``wgmma``), UTMALDG and UTMASTG (TMA load and store)
+    instructions by instantiation, and its spills (``ptxas -v``).  Fatal
+    unless every instantiation holds HGMMA and UTMALDG and spills
+    nothing."""
+    lib = build.library_path("flash_attention")
+    sass = subprocess.run(
+        [str(Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
+         str(lib)], capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "flash_sm90" in m.group(1) else None
+            if fn:
+                counts[fn] = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG"),
+                                           0)
+        elif fn:
+            for op in counts[fn]:
+                if re.search(rf"\b{op}\b", line):
+                    counts[fn][op] += 1
+    spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+              for k, v in build.ptxas_report("flash_attention").items()
+              if "flash_sm90" in k}
+    require(len(counts) == 2 and all(c["HGMMA"] and c["UTMALDG"]
+                                     for c in counts.values()),
+            f"flash_sm90's SASS lacks wgmma or TMA: {counts}")
+    require(len(spills) == 2 and not any(spills.values()),
+            f"flash_sm90 spills: {spills}")
+    return {"D=" + re.search(r"ILi(\d+)E", k).group(1): dict(
+        c, spilled_bytes=spills[k]) for k, c in counts.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -586,13 +636,17 @@ def flash_checks(fa, gen, dev) -> int:
     for s in PROMPT_LENS:
         cases += [(1, s, s, 48, 8, 128, True, None),
                   (1, s, s, 64, 4, 128, True, None)]
-    # q-tile edges (Sq of 1, 63, 65) and Sq < Skv at every head size:
-    # one query row, a tile one row short, a tile spilling one row over
+    # q-tile edges (Sq of 1, 63, 65; 127, 128, 129 around flash_sm90's
+    # 128-row tile) and Sq < Skv at every head size: one query row, a
+    # tile one row short, a tile spilling one row over
     for D in CHECK_HEAD_DIMS:
         cases += [(1, 1, 129, 4, 2, D, True, None),
                   (2, 63, 63, 4, 1, D, True, None),
                   (1, 65, 200, 4, 4, D, True, 48),
-                  (1, 65, 130, 4, 2, D, False, None)]
+                  (1, 65, 130, 4, 2, D, False, None),
+                  (1, 127, 127, 4, 2, D, True, None),
+                  (2, 128, 300, 6, 1, D, True, 100),
+                  (1, 129, 129, 4, 4, D, False, None)]
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
         for B, Sq, Skv, Hq, Hkv, D, causal, window in cases:
@@ -813,29 +867,44 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
         bound_ms=b_ms, bound_by=b_by, library_ms=timer(library))
 
 
+#: the causal bf16 layers ``flash_sm90`` is timed at, (B, S, Hq, Hkv, D)
+#: by row: stablelm-1.6b's 32 heads of 64 at 1024 tokens (the kernel's
+#: own row); llama3.2-3b's 24 query heads over 8 kv heads of 128 (the
+#: gateway's second tenant) at 1024 tokens, at the other served prompt
+#: lengths, at 4096 (where attention's share of a prefill grows) and on
+#: a tensor-parallel rank of 2 (12/4 heads); the MoE models' layers at
+#: 1024 tokens: dbrx-132b's 48 over 8 and qwen3-moe-235b-a22b's 64 over 4
+SM90_ROWS = {
+    "": (1, 1024, 32, 32, 64),
+    "at_llama": (1, 1024, 24, 8, 128),
+    "at_llama_8": (1, 8, 24, 8, 128),
+    "at_llama_100": (1, 100, 24, 8, 128),
+    "at_llama_513": (1, 513, 24, 8, 128),
+    "at_llama_4096": (1, 4096, 24, 8, 128),
+    "at_llama_rank": (1, 1024, 12, 4, 128),
+    "at_dbrx": (1, 1024, 48, 8, 128),
+    "at_qwen3_moe": (1, 1024, 64, 4, 128)}
+
+
 def time_flash(fa, timer, gen, dev) -> dict:
-    """Slice shapes: one 1024-token causal prefill, 32 heads of 64, bf16;
-    recurrentgemma-9b's local layer at its 2300-token prompt (16 query
-    heads and one kv head of 256, window 2048); the float32 kernel at
-    the characterization's group shape (batch 2, seq 256, 32 heads of
-    64); llama3.2-3b's layer (24 query heads over 8 kv heads of 128,
-    the gateway's second tenant) at 1024 tokens; and the MoE models'
-    layers at 1024 tokens: dbrx-132b's 48 over 8 and qwen3-moe-235b-
-    a22b's 64 over 4 heads of 128."""
+    """Slice shapes: SM90_ROWS; recurrentgemma-9b's local layer at its
+    2300-token prompt (16 query heads and one kv head of 256, window
+    2048); the float32 kernel at the characterization's group shape
+    (batch 2, seq 256, 32 heads of 64).  ``kernel`` names the kernel
+    that served each row."""
+    def row(B, S, Hq, Hkv, D, window=None, dtype=torch.bfloat16):
+        return dict(flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D,
+                                 window, dtype),
+                    kernel=fa.kernel_for(dtype, D))
+
+    rows = {k: row(*shape) for k, shape in SM90_ROWS.items()}
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:113",
-        **flash_timing(fa, timer, gen, dev, 1, 1024, 32, 32, 64, None),
-        at_d256=flash_timing(fa, timer, gen, dev, 1, 2300, 16, 1, 256, 2048),
-        at_f32=flash_timing(fa, timer, gen, dev, 2, 256, 32, 32, 64, None,
-                            torch.float32),
-        at_llama=flash_timing(fa, timer, gen, dev, 1, 1024, 24, 8, 128,
-                              None),
-        at_dbrx=flash_timing(fa, timer, gen, dev, 1, 1024, 48, 8, 128,
-                             None),
-        at_qwen3_moe=flash_timing(fa, timer, gen, dev, 1, 1024, 64, 4, 128,
-                                  None))
+        **rows.pop(""),
+        at_d256=row(1, 2300, 16, 1, 256, 2048),
+        at_f32=row(2, 256, 32, 32, 64, None, torch.float32), **rows)
 
 
 def decode_timing(da, timer, gen, dev, B, S, Hq, Hkv, D, lens) -> dict:
@@ -1705,6 +1774,8 @@ def serve(fa, da, dev) -> dict:
         require(rel <= E2E_REL_TOL, f"S={len(p)}: rel err {rel} > "
                 f"{E2E_REL_TOL}")
         rel_errs.append(rel)
+    flash_e2e = prefill_flash(model, batch, views)
+    print(f"  prefill S={len(prompts[-1])}, device ms: {flash_e2e}")
 
     return dict(arch=cfg.name, requests=len(done), max_new=MAX_NEW,
                 prompt_lens=list(PROMPT_LENS), capacity=2048,
@@ -1713,7 +1784,7 @@ def serve(fa, da, dev) -> dict:
                 tokens_per_s=m["tokens_out"] / wall,
                 mean_decode_step_ms=m["mean_step_ms"],
                 prefill_ms=prefill_ms, e2e_logits_rel_err=rel_errs,
-                oracle_vs_plain_rel_err=floor,
+                oracle_vs_plain_rel_err=floor, prefill_flash=flash_e2e,
                 max_memory_allocated=peak,
                 graph_launches_per_replay=eng.graph.graph.launches,
                 profile=profile_decode(eng, prompts),
@@ -1848,23 +1919,43 @@ def profile_decode(eng, prompts, steps: int = 4) -> dict:
     return out
 
 
-def profile_prefill(model, batch, views, scan: str) -> dict:
-    """Device ms of one prefill through the kernels (torch.profiler): all
-    kernels', and those whose names hold ``scan`` (the recurrent scan's);
-    "not measured" if the profiler records no device time.  Unlike the
-    prefill's wall time, which the eager host dispatch paces, this moves
-    with the kernels."""
+def prefill_kernels(model, batch, views) -> dict:
+    """Device ms by kernel name of one prefill (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         model.prefill(batch, cache_out=views)
         torch.cuda.synchronize()
-    kernels, _ = device_ms_by_kernel(prof)
+    return device_ms_by_kernel(prof)[0]
+
+
+def profile_prefill(model, batch, views, scan: str) -> dict:
+    """Device ms of one prefill through the kernels (torch.profiler): all
+    kernels', and those whose names hold ``scan`` (the recurrent scan's);
+    "not measured" if the profiler records no device time.  Unlike the
+    prefill's wall time, which the eager host dispatch paces, this moves
+    with the kernels."""
+    kernels = prefill_kernels(model, batch, views)
     if not kernels:
         return {"device_ms": "not measured", "scan_ms": "not measured"}
     return {"device_ms": sum(kernels.values()),
             "scan_ms": sum(v for k, v in kernels.items() if scan in k)}
+
+
+def prefill_flash(model, batch, views) -> dict:
+    """One prefill's device ms and its attention's (``flash_sm90``), by
+    the profiler's kernel names.  Fatal if it ran ``flash_mma`` or no
+    ``flash_sm90`` (every served model's heads are of 64 or 128)."""
+    kernels = prefill_kernels(model, batch, views)
+    if not kernels:
+        return {"device_ms": "not measured", "attention_ms": "not measured"}
+    ms = {k: sum(v for n, v in kernels.items() if k in n)
+          for k in ("flash_sm90", "flash_mma")}
+    require(ms["flash_sm90"] > 0 and ms["flash_mma"] == 0,
+            f"the served prefill's attention kernels: {ms}")
+    return {"device_ms": sum(kernels.values()),
+            "attention_ms": ms["flash_sm90"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3036,6 +3127,8 @@ def gateway(fa, da, dev, bundle_path: Path) -> dict:
         require(top_g == top_w, f"llama S={len(p)}: argmax differs")
         require(llama_rel[-1] <= E2E_REL_TOL,
                 f"llama S={len(p)}: rel err {llama_rel[-1]} > {E2E_REL_TOL}")
+    llama_flash = prefill_flash(llama.model, batch, views)
+    print(f"  llama3.2-3b prefill S={len(p)}, device ms: {llama_flash}")
 
     # 4. the shared KV budget: GW_BUDGET_SLOTS slots of the larger tenant
     budget = GW_BUDGET_SLOTS * max(s.kv_bytes_per_slot
@@ -3102,6 +3195,7 @@ def gateway(fa, da, dev, bundle_path: Path) -> dict:
         tenants=tenants, wall_clock_reschedules=run["reschedules"],
         slowdown_threshold=gcfg.slowdown_threshold,
         llama_logits_rel_err=llama_rel, llama_oracle_vs_plain=llama_floor,
+        llama_prefill_flash=llama_flash,
         budget=dict(bytes=budget, slots=GW_BUDGET_SLOTS,
                     max_kv_in_use=max(budgeted["kv"]), deferred=deferred,
                     steps=len(budgeted["kv"]),
@@ -3463,6 +3557,8 @@ def serve_moe(arch, mods, dev) -> dict:
         require(top_g == top_w, f"S={len(p)}: argmax differs")
         require(rel <= limit, f"S={len(p)}: rel err {rel} > {limit}")
         prompts_out.append(row)
+    flash_e2e = prefill_flash(model, batch, views)
+    print(f"  prefill S={len(p)}, device ms: {flash_e2e}")
 
     result = dict(arch=arch, reduced=reduced, requests=len(done),
                   max_new=MAX_NEW, prompt_lens=list(PROMPT_LENS),
@@ -3472,7 +3568,7 @@ def serve_moe(arch, mods, dev) -> dict:
                   wall_s=wall, mean_decode_step_ms=m["mean_step_ms"],
                   max_memory_allocated=peak,
                   graph_launches_per_replay=eng.graph.graph.launches,
-                  prompts=prompts_out,
+                  prompts=prompts_out, prefill_flash=flash_e2e,
                   profile=profile_decode(eng, prompts))
     del eng
     result["eager"] = eager_comparison(model, prompts, 2048, graph_tokens)
@@ -5416,6 +5512,84 @@ def mesh_train(dev) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+def turn_prefills(arch: str, seed: int, dev) -> list:
+    """Full-width ``arch`` with the weights its served check uses (seeded
+    ``seed``), one prefill a served prompt: the kernel path's last
+    logits against the plain path's (relative error, same argmax), the
+    median wall ms of 5 prefills and one profiled prefill's device ms,
+    all kernels' and the flash kernels'."""
+    from repro_torch import configs
+    from repro_torch.models import build
+
+    cfg = configs.get(arch)
+    model = build(cfg, backend="auto", device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    out = []
+    for p in make_prompts(cfg.vocab):
+        batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
+        g, w = (last_logits(model, b, batch, None) for b in ("cuda", "torch"))
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        kernels = prefill_kernels(model, batch, None)
+        out.append(dict(
+            S=len(p), rel_err=rel_err(g, w),
+            same_argmax=int(g.argmax()) == int(w.argmax()),
+            wall_ms=statistics.median(walls),
+            device_ms=sum(kernels.values()) if kernels else "not measured",
+            flash_ms=(sum(v for k, v in kernels.items() if "flash" in k)
+                      if kernels else "not measured")))
+    del model
+    free_card()
+    return out
+
+
+def flash_turn(args: list) -> int:
+    """One turn of a comparison call on the bf16 flash route at head sizes
+    64 and 128.  ``args``: ``[ROOT] [-DNAME=VALUE ...]``.  The package
+    under ``ROOT/src`` (this checkout's by default) builds its flash
+    source with those nvcc defines added, times its kernel at SM90_ROWS
+    beside the library call (``flash_timing``: L2 flushed, the median of
+    15), and prefills full-width stablelm-1.6b and llama3.2-3b with the
+    weights of their served checks (phase 4's and the gateway's) at every
+    served prompt (``turn_prefills``).  Prints the card's line and one
+    ``{"flash_turn": ...}`` line.  Run each turn in a process of its own
+    (parent, change, change, parent): the package is imported once."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    defines = [a for a in args if a.startswith("-D")]
+    roots = [a for a in args if not a.startswith("-D")]
+    require(len(roots) <= 1, f"--flash-turn takes one ROOT, got {roots}")
+    root = Path(roots[0]).resolve() if roots else ROOT
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    require(Path(fa.__file__).is_relative_to(root / "src"),
+            f"imported {fa.__file__}, not the package under {root}")
+    _build.NVCC_FLAGS = (*_build.NVCC_FLAGS, *defines)
+    t0 = time.perf_counter()
+    _build.load("flash_attention")
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timer = Timer(dev)
+    rows = {k or "stablelm": flash_timing(fa, timer, gen, dev, *shape, None)
+            for k, shape in SM90_ROWS.items()}
+    prefills = {arch: turn_prefills(arch, seed, dev)
+                for arch, seed in (("stablelm-1.6b", 0), ("llama3.2-3b", 1))}
+    print(card_line())
+    print(json.dumps({"flash_turn": dict(
+        root=str(root), defines=defines, build_s=build_s, rows=rows,
+        prefills=prefills)}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -5468,6 +5642,8 @@ def main() -> int:
     for name, rows in ptxas.items():
         for kernel, line in rows.items():
             print(f"  ptxas {name}: {kernel}: {line}")
+    sm90 = sm90_sass(_build)
+    print(f"  SASS flash_sm90: {sm90}")
 
     mods = {"flash_attention": fa, "decode_attention": da,
             "rglru_scan": rg, "rwkv6_scan": rk}
@@ -5499,9 +5675,11 @@ def main() -> int:
                    else f"{row['library_ms']:.4f} ms")
             parent = ("" if "parent_ms" not in row
                       else f" [parent {row['parent_ms']:.4f} ms]")
-            print(f"  {kr['name']} at {row['shape']}: {row['ms']:.4f} ms"
-                  f"{parent}, plain {row['plain_ms']:.4f} ms, library {lib}, "
-                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            served = f" ({row['kernel']})" if "kernel" in row else ""
+            print(f"  {kr['name']} at {row['shape']}{served}: "
+                  f"{row['ms']:.4f} ms{parent}, plain {row['plain_ms']:.4f} "
+                  f"ms, library {lib}, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})")
     print(f"  {n} comparisons passed")
 
     phase("serve full-width stablelm-1.6b (CUDA graph, then eager)")
@@ -5578,6 +5756,7 @@ def main() -> int:
         kr["launches"] = launches[kr["name"]]
         if kr["name"] in ptxas:
             kr["ptxas"] = ptxas[kr["name"]]
+    kernels[0]["sass_flash_sm90"] = sm90
     for name in ("flash_attention", "decode_attention"):
         row = next(kr for kr in kernels if kr["name"] == name)
         row["launches_by_path"] = {
@@ -5649,4 +5828,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(flash_turn(sys.argv[2:]) if sys.argv[1:2] == ["--flash-turn"]
+             else main())

@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_tiles.cuh"
+
 namespace {
 
 constexpr int LANES = 32;            // channels a warp owns
@@ -101,41 +103,10 @@ template <> __device__ __forceinline__ unsigned short to_bits<__nv_bfloat16>(
 }
 
 // The tensor memory accelerator (TMA): a 2-D box of a tensor map into
-// shared memory, its arrival counted by an mbarrier (PTX ISA,
-// cp.async.bulk.tensor and mbarrier).
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-      smem_addr(bar)));
-}
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)), "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{ .reg .pred p;\n"
-        "  mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "  selp.u32 %0, 1, 0, p; }"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
-      "l"(map), "r"(smem_addr(bar)), "r"(col), "r"(row)
-      : "memory");
-}
+// shared memory, its arrival counted by an mbarrier (sm90_tiles.cuh).
+using sm90::bar_expect;
+using sm90::bar_wait;
+using sm90::tma_load;
 
 template <typename T>
 struct Ring {
@@ -231,7 +202,7 @@ rglru_prefill(const __grid_constant__ CUtensorMap ma,
   const size_t ld = (size_t)D;
 
   if (TMA && lane == 0) {
-    for (int k = 0; k < STAGES; ++k) bar_init(&ring.full[k]);
+    for (int k = 0; k < STAGES; ++k) sm90::bar_init(&ring.full[k], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncwarp();
@@ -300,32 +271,11 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime (the libraries
-// link no libcuda).
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess
-        && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The (rows, D) row-major tensor at base as TMA boxes of STEPS rows x 32
 // channels.
 template <typename T>
 bool tensor_map(CUtensorMap* map, const void* base, long long rows, int D) {
-  const EncodeTiled encode = encoder();
+  const sm90::EncodeTiled encode = sm90::encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
   const cuuint64_t stride[1] = {(cuuint64_t)D * sizeof(T)};

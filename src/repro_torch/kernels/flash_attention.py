@@ -7,10 +7,13 @@ between the two: a CUDA tensor the kernel cannot take raises.
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
 (``_kernel``, launched by ``flash_attention``).  The source note in the
-``.cu`` file says what bounds the kernel on the card and how its design
-answers that.  The wrapper's one launch takes the tensor-core kernel for
-bfloat16 and the CUDA-core kernel for float32 (chosen in ``csrc`` by the
-dtype code).
+``.cu`` file says what bounds the kernels on the card and how their
+designs answer that.  The wrapper's one launch takes the kernel that
+:func:`kernel_for` names (chosen in ``csrc`` by the dtype code and the
+head size alone): for bfloat16 at head sizes 64 and 128 the TMA-fed,
+warp-specialised ``wgmma`` kernel ``flash_sm90``, for the other bfloat16
+sizes the ``mma.sync`` kernel ``flash_mma``, for float32 the CUDA-core
+``flash_kernel``.
 """
 from __future__ import annotations
 
@@ -28,17 +31,36 @@ launches = 0
 #: zero-padded up to the next of these (:func:`padded_head_dim`)
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels of ``csrc/flash_attention.cu``, indexed by the code its
+#: ``flash_attention_route`` returns
+KERNELS = ("flash_kernel", "flash_mma", "flash_sm90")
+#: the head sizes ``flash_sm90`` serves in bfloat16
+SM90_HEAD_DIMS = (64, 128)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
-        fn.restype = ctypes.c_int
+    if lib.flash_attention_fwd.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_fwd.argtypes = [p, p, p, p] + [i] * 9 + [f, p]
+        lib.flash_attention_route.argtypes = [i, i]
+        for fn in (lib.flash_attention_fwd, lib.flash_attention_route):
+            fn.restype = i
     return lib
+
+
+def kernel_for(dtype: torch.dtype, D: int) -> str:
+    """The kernel a call of head size ``D`` in ``dtype`` launches on the
+    card: one of :data:`KERNELS`, from the dtype and the padded head size
+    alone (``csrc``'s ``route`` decides the same; the card tests hold the
+    two together).  Raises as :func:`padded_head_dim` and for a dtype the
+    kernels do not take."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash_attention: no kernel for {dtype}")
+    Dp = padded_head_dim(D)
+    if dtype == torch.float32:
+        return "flash_kernel"
+    return "flash_sm90" if Dp in SM90_HEAD_DIMS else "flash_mma"
 
 
 def padded_head_dim(D: int) -> int:
@@ -72,10 +94,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return _launch(q, k, v, causal, window)
 
 
-def _launch(q, k, v, causal, window):
-    global launches
-    if not (k.is_cuda and v.is_cuda and q.device == k.device == v.device):
-        raise ValueError("flash_attention: q, k, v must be on one CUDA device")
+def check_args(q, k, v, window) -> int:
+    """Refuse what the kernels do not take; return the padded head size.
+
+    Everything :func:`flash_attention` checks before a launch but the
+    device, so the CPU tests reach it."""
     if q.dtype not in _DTYPE_CODE or not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_attention: q, k, v must share one dtype of "
                         f"float32/bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -94,7 +117,17 @@ def _launch(q, k, v, causal, window):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned "
-                         "(the bf16 kernel copies 16 bytes at a time)")
+                         "(the bf16 kernels copy 16 bytes at a time)")
+    return Dp
+
+
+def _launch(q, k, v, causal, window):
+    global launches
+    if not (k.is_cuda and v.is_cuda and q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v must be on one CUDA device")
+    Dp = check_args(q, k, v, window)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1:3]
     if Dp != D:
         q, k, v = (pad_head(x, Dp) for x in (q, k, v))
     lib = _lib()
