@@ -4,19 +4,20 @@
     python3 chip_smoke.py --flash-turn [ROOT] [-DNAME=VALUE ...]
 
 Run from the repository root (``src/`` is put on ``sys.path`` here).
-The second form is one turn of a comparison call on the bf16 flash
-route at head sizes 64 and 128 (``flash_turn``), for the package under
-``ROOT/src`` (a ``git archive`` of another commit; this checkout by
-default), its flash source built with the nvcc defines given.
+The second form is one turn of a comparison call on the flash routes at
+head sizes 64 and 128, bf16 and float32 (``flash_turn``), for the
+package under ``ROOT/src`` (a ``git archive`` of another commit; this
+checkout by default), its flash source built with the nvcc defines
+given.
 Phases, each fatal on failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: all seven CUDA kernels from ``src/repro_torch/kernels/csrc/``
    for ``sm_90a``, one ``nvcc`` per source, started together; ``ptxas``'s
    registers and spills of the attention and RWKV-6 kernels are reported;
-   the bf16 flash kernel at head sizes 64 and 128 (``flash_sm90``) must
-   hold ``wgmma`` (HGMMA) and TMA (UTMALDG) instructions in its SASS and
-   spill nothing;
+   the flash kernels at head sizes 64 and 128 (``flash_sm90``, bf16, and
+   ``flash_sm90_f32``, float32) must hold ``wgmma`` (HGMMA) instructions
+   in their SASS and spill nothing, and ``flash_sm90`` TMA (UTMALDG) ones;
 3. kernels: each kernel against its plain PyTorch version on the card
    (attention: float32 at atol = rtol = 2e-5, bfloat16 at 2e-2, the
    tolerances of ``tests/test_kernels.py``; PCCS slowdown: float64 at
@@ -50,7 +51,13 @@ Phases, each fatal on failure:
    the same function (``F.scaled_dot_product_attention`` for attention,
    ``torch.add(y, x, alpha=c)`` for the stream; none for the other four),
    beside the timer's launch floor (a one-element ``add_`` timed the same
-   way): flash in bf16 and in float32 (the characterization's shape),
+   way): flash in bf16 and in float32 (``flash_sm90_f32``, an entry of
+   its own: the characterization's shape, phase 5's 1000-token prefill
+   and dbrx-132b's 48/8 heads of 128 at 513 and 2048, each held to its
+   bound at three TF32 products' rate, with the CUDA cores' float32
+   bound beside it, and, with its plain version, against a float64
+   reference), decode in
+   float32 at the characterization's decode group,
    both attention kernels also at llama3.2-3b's 24/8 heads of 128,
    dbrx-132b's 48/8 and qwen3-moe-235b-a22b's 64/4 (flash also at
    llama3.2-3b's other prompt lengths, at 4096 tokens and at a
@@ -76,7 +83,11 @@ Phases, each fatal on failure:
    the step ms and busy share of both are reported;
 5. float32 end to end: the same prefills on full-width stablelm-1.6b with
    float32 weights, activations and KV cache, kernel path against plain
-   path (same argmax, relative logits error <= E2E_F32_REL_TOL).  With no
+   path (same argmax, relative logits error <= E2E_F32_REL_TOL), one
+   flash launch a layer a prefill (counted; the gateway's llama3.2-3b
+   and phase 14's MoE checks count theirs too); one more float32 prefill
+   is profiled (stablelm-1.6b and llama3.2-3b): ``flash_sm90_f32`` must
+   run and ``flash_kernel`` must not.  With no
    bf16 rounding to amplify, this is the check that can tell a kernel
    fault from rounding;
 6. reduced configs (head size 16, float32): the serve CLI with
@@ -333,6 +344,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core rate
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3 bytes/s
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -518,7 +530,8 @@ def bound(flops: float, nbytes: float,
 
 
 #: the kernels ``ptxas_rows`` reports (demangled, shortened)
-PTXAS_KEEP = ("flash_sm90<", "flash_mma<", "flash_kernel<float",
+PTXAS_KEEP = ("flash_sm90<", "flash_sm90_f32<", "flash_mma<",
+              "flash_kernel<float",
               "split_mma<", "combine<",
               "split_simt<bf16, bf16, 64, 1>",
               "split_simt<bf16, bf16, 256, 1>",
@@ -556,20 +569,26 @@ def ptxas_rows(build, name: str) -> dict:
 
 
 def sm90_sass(build) -> dict:
-    """``flash_sm90``'s SASS in this run's build (``cuobjdump -sass``):
-    its HGMMA (``wgmma``), UTMALDG and UTMASTG (TMA load and store)
-    instructions by instantiation, and its spills (``ptxas -v``).  Fatal
-    unless every instantiation holds HGMMA and UTMALDG and spills
-    nothing."""
+    """The Hopper flash kernels' SASS in this run's build (``cuobjdump
+    -sass``): HGMMA (``wgmma``), UTMALDG and UTMASTG (TMA load and store)
+    instructions of ``flash_sm90`` and ``flash_sm90_f32`` by head size,
+    and their spills (``ptxas -v``).  Fatal unless every instantiation
+    holds HGMMA and spills nothing, and ``flash_sm90``'s hold UTMALDG
+    (``flash_sm90_f32`` loads its tiles through registers)."""
     lib = build.library_path("flash_attention")
     sass = subprocess.run(
         [str(Path(build.nvcc_path()).with_name("cuobjdump")), "-sass",
          str(lib)], capture_output=True, text=True, check=True).stdout
+
+    def key(name):
+        m = re.search(r"(flash_sm90(?:_f32)?)ILi(\d+)E", name)
+        return f"{m.group(1)} D={m.group(2)}" if m else None
+
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if "flash_sm90" in m.group(1) else None
+            fn = key(m.group(1))
             if fn:
                 counts[fn] = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG"),
                                            0)
@@ -577,16 +596,18 @@ def sm90_sass(build) -> dict:
             for op in counts[fn]:
                 if re.search(rf"\b{op}\b", line):
                     counts[fn][op] += 1
-    spills = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+    spills = {key(k): v.get("spill_stores", 0) + v.get("spill_loads", 0)
               for k, v in build.ptxas_report("flash_attention").items()
-              if "flash_sm90" in k}
-    require(len(counts) == 2 and all(c["HGMMA"] and c["UTMALDG"]
-                                     for c in counts.values()),
-            f"flash_sm90's SASS lacks wgmma or TMA: {counts}")
-    require(len(spills) == 2 and not any(spills.values()),
-            f"flash_sm90 spills: {spills}")
-    return {"D=" + re.search(r"ILi(\d+)E", k).group(1): dict(
-        c, spilled_bytes=spills[k]) for k, c in counts.items()}
+              if key(k)}
+    want = {f"{k} D={d}" for k in ("flash_sm90", "flash_sm90_f32")
+            for d in (64, 128)}
+    require(set(counts) == want and all(
+        c["HGMMA"] and (c["UTMALDG"] or "f32" in k)
+        for k, c in counts.items()),
+        f"the Hopper flash kernels' SASS lacks wgmma or TMA: {counts}")
+    require(set(spills) == want and not any(spills.values()),
+            f"the Hopper flash kernels spill: {spills}")
+    return {k: dict(c, spilled_bytes=spills[k]) for k, c in counts.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -621,6 +642,11 @@ def flash_checks(fa, gen, dev) -> int:
               (1, 513, 513, 24, 8, 128, True, None),     # GQA, D = 128
               (2, 300, 300, 8, 2, 64, True, 100),        # local window
               (1, 513, 513, 32, 32, 64, False, None),    # bidirectional
+              # long prefills, where O accumulated in place by the tensor
+              # cores would drift (flash_sm90_f32 adds each turn's P.V in
+              # f32)
+              (1, 2048, 2048, 48, 8, 128, True, None),
+              (1, 4096, 4096, 32, 32, 64, True, None),
               # recurrentgemma-9b's local layers: MQA, D = 256, past the
               # 2048 window, and an odd size
               (1, 2300, 2300, 16, 1, 256, True, None),
@@ -826,18 +852,51 @@ def time_split_pass(da, timer, gen, dev) -> list:
     return [partials, combine]
 
 
+def attention_f64(q, k, v, window=None):
+    """Causal attention in float64, a head at a time (GQA expanded): the
+    yardstick of the float32 rows' errors."""
+    B, S, Hq, D = q.shape
+    group = Hq // k.shape[2]
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for b in range(B):
+        for h in range(Hq):
+            s = (q[b, :, h].double() / math.sqrt(D)) @ k[b, :, h // group
+                                                          ].double().T
+            out[b, :, h] = (torch.softmax(s.masked_fill(~mask, -math.inf),
+                                          -1) @ v[b, :, h // group].double())
+    return out
+
+
 def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
                  dtype=torch.bfloat16) -> dict:
     """Time one causal prefill's attention, beside its plain version, its
-    bound and ``F.scaled_dot_product_attention`` (GQA expanded).  bf16
-    runs on the tensor cores (bound by their rate), float32 on the CUDA
-    cores (bound by the float32 rate)."""
+    bound and ``F.scaled_dot_product_attention`` (GQA expanded).
+    ``kernel`` names the kernel that served it (``fa.kernel_for``), and
+    ``bound_ms`` is held to that kernel's hardware path: bf16 to the
+    tensor cores' rate; float32 on ``flash_sm90_f32`` to three TF32
+    products on the tensor cores, with the CUDA cores' float32 rate
+    beside it as ``bound_cuda_cores_ms``; float32 on ``flash_kernel`` to
+    the CUDA cores' rate.  For float32 the kernel's and the plain
+    version's largest error against float64 (``attention_f64``) are
+    reported."""
     q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(dtype)
     k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
             .to(dtype) for _ in range(2))
-    err = compare(f"flash timed shape D{D} {str(dtype)[6:]}",
-                  fa.flash_attention(q, k, v, window=window),
-                  fa.attention_torch(q, k, v, window=window), dtype)
+    got = fa.flash_attention(q, k, v, window=window)
+    plain = fa.attention_torch(q, k, v, window=window)
+    err = compare(f"flash timed shape D{D} {str(dtype)[6:]}", got, plain,
+                  dtype)
+    f64 = {}
+    if dtype == torch.float32:
+        ref = attention_f64(q, k, v, window)
+        f64 = dict(f64_err=float((got.double() - ref).abs().max()),
+                   plain_f64_err=float((plain.double() - ref).abs().max()))
+        del ref
+    del got, plain
     qt = q.transpose(1, 2)
     kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
               for x in (k, v))
@@ -846,8 +905,13 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
     flops = 4 * B * Hq * D * pairs
     size = dtype.itemsize
     nbytes = 2 * B * S * (Hq + Hkv) * D * size     # q, k, v read; o written
+    kernel = fa.kernel_for(dtype, D)
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS
                        if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+    cores = {}
+    if kernel == "flash_sm90_f32":
+        cores = dict(bound_cuda_cores_ms=b_ms, bound_cuda_cores_by=b_by)
+        b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
     if window is None:
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
@@ -861,10 +925,11 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
     return dict(
         shape=f"B{B} S{S} H{Hq}/{Hkv} D{D} {str(dtype)[6:]} causal"
               + ("" if window is None else f" window {window}"),
-        max_abs_err=err,
+        kernel=kernel, max_abs_err=err,
         ms=timer(lambda: fa.flash_attention(q, k, v, window=window)),
         plain_ms=timer(lambda: fa.attention_torch(q, k, v, window=window)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=timer(library))
+        bound_ms=b_ms, bound_by=b_by, library_ms=timer(library), **cores,
+        **f64)
 
 
 #: the causal bf16 layers ``flash_sm90`` is timed at, (B, S, Hq, Hkv, D)
@@ -889,13 +954,10 @@ SM90_ROWS = {
 def time_flash(fa, timer, gen, dev) -> dict:
     """Slice shapes: SM90_ROWS; recurrentgemma-9b's local layer at its
     2300-token prompt (16 query heads and one kv head of 256, window
-    2048); the float32 kernel at the characterization's group shape
-    (batch 2, seq 256, 32 heads of 64).  ``kernel`` names the kernel
-    that served each row."""
+    2048).  ``kernel`` names the kernel that served each row."""
     def row(B, S, Hq, Hkv, D, window=None, dtype=torch.bfloat16):
-        return dict(flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D,
-                                 window, dtype),
-                    kernel=fa.kernel_for(dtype, D))
+        return flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
+                            dtype)
 
     rows = {k: row(*shape) for k, shape in SM90_ROWS.items()}
     return dict(
@@ -903,19 +965,46 @@ def time_flash(fa, timer, gen, dev) -> dict:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:113",
         **rows.pop(""),
-        at_d256=row(1, 2300, 16, 1, 256, 2048),
-        at_f32=row(2, 256, 32, 32, 64, None, torch.float32), **rows)
+        at_d256=row(1, 2300, 16, 1, 256, 2048), **rows)
 
 
-def decode_timing(da, timer, gen, dev, B, S, Hq, Hkv, D, lens) -> dict:
-    """Time one bf16 decode step's attention over a cache of S slots."""
-    q = torch.randn(B, 1, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+#: the causal float32 layers ``flash_sm90_f32`` is timed at, (B, S, Hq,
+#: Hkv, D) by row: the characterization's attention group (stablelm-1.6b,
+#: batch 2, seq 256; the kernel's own row), phase 5's stablelm-1.6b
+#: prefill at 1000 tokens, and dbrx-132b's 48 over 8 heads of 128 at
+#: phase 14's 513 and phase 17's 2048
+F32_ROWS = {
+    "": (2, 256, 32, 32, 64),
+    "at_f32_stablelm_1000": (1, 1000, 32, 32, 64),
+    "at_f32_dbrx_513": (1, 513, 48, 8, 128),
+    "at_f32_dbrx_2048": (1, 2048, 48, 8, 128)}
+
+
+def time_flash_f32(fa, timer, gen, dev) -> dict:
+    """The float32 flash kernel at F32_ROWS (an entry of its own in the
+    kernels line; its launches are the float32 paths')."""
+    rows = {k: flash_timing(fa, timer, gen, dev, *shape, None, torch.float32)
+            for k, shape in F32_ROWS.items()}
+    require(all(r["kernel"] == "flash_sm90_f32" for r in rows.values()),
+            f"float32 rows not on flash_sm90_f32: {rows}")
+    return dict(
+        name="flash_sm90_f32", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:113",
+        **rows.pop(""), **rows)
+
+
+def decode_timing(da, timer, gen, dev, B, S, Hq, Hkv, D, lens,
+                  dtype=torch.bfloat16) -> dict:
+    """Time one decode step's attention over a cache of S slots (bf16
+    unless ``dtype`` says otherwise)."""
+    q = torch.randn(B, 1, Hq, D, generator=gen, device=dev).to(dtype)
     k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
+            .to(dtype) for _ in range(2))
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    err = compare(f"decode timed shape D{D}",
+    err = compare(f"decode timed shape D{D} {str(dtype)[6:]}",
                   da.decode_attention(q, k, v, lengths),
-                  da.decode_attention_torch(q, k, v, lengths), torch.bfloat16)
+                  da.decode_attention_torch(q, k, v, lengths), dtype)
     qt = q.transpose(1, 2)
     kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
               for x in (k, v))
@@ -923,12 +1012,15 @@ def decode_timing(da, timer, gen, dev, B, S, Hq, Hkv, D, lens) -> dict:
     mask = mask[:, None, None, :]
     live = sum(min(n, S) for n in lens)
     flops = 4 * Hq * D * live
-    nbytes = 2 * live * Hkv * D * 2 + 2 * B * Hq * D * 2 + B * 4
-    b_ms, b_by = bound(flops, nbytes)
+    size = dtype.itemsize
+    nbytes = 2 * live * Hkv * D * size + 2 * B * Hq * D * size + B * 4
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS
+                       if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
     splits = da.decode_splits(B, Hkv, S, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     return dict(
-        shape=f"B{B} S{S} H{Hq}/{Hkv} D{D} bf16 lengths={list(lens)}",
+        shape=f"B{B} S{S} H{Hq}/{Hkv} D{D} {str(dtype)[6:]} "
+              f"lengths={list(lens)}",
         splits=splits, chunk=da.split_chunk(S, splits), max_abs_err=err,
         ms=timer(lambda: da.decode_attention(q, k, v, lengths)),
         plain_ms=timer(lambda: da.decode_attention_torch(q, k, v, lengths)),
@@ -945,7 +1037,9 @@ def time_decode(da, timer, gen, dev) -> dict:
     over 8 kv heads of 128 (groups of 3: the CUDA-core pass 1), and the
     MoE models' layers, dbrx-132b's 48 over 8 (groups of 6, the same
     pass) and qwen3-moe-235b-a22b's 64 over 4 (groups of 16, the
-    tensor-core pass), at the first shape's slots and lengths."""
+    tensor-core pass), at the first shape's slots and lengths; and the
+    characterization's float32 decode group (stablelm-1.6b, batch 2 over
+    256 slots, 32 heads of 64: the CUDA-core pass)."""
     return dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -959,7 +1053,9 @@ def time_decode(da, timer, gen, dev) -> dict:
         at_dbrx=decode_timing(da, timer, gen, dev, 4, 2048, 48, 8, 128,
                               (9, 200, 514, 2047)),
         at_qwen3_moe=decode_timing(da, timer, gen, dev, 4, 2048, 64, 4, 128,
-                                   (9, 200, 514, 2047)))
+                                   (9, 200, 514, 2047)),
+        at_f32_characterize=decode_timing(da, timer, gen, dev, 2, 256, 32,
+                                          32, 64, (256, 256), torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -1791,17 +1887,35 @@ def serve(fa, da, dev) -> dict:
                 eager=eager_comparison(model, prompts, 2048, graph_tokens))
 
 
-def e2e_f32(dev, arch: str = "stablelm-1.6b") -> list[float]:
+def f32_flash(cfg, before: int, prompts: int) -> dict:
+    """The flash kernel a float32 run of ``cfg`` took (by its head size:
+    ``kernel_for``) and its launches since the wrapper's count read
+    ``before``; fatal unless each of ``prompts`` kernel-path prefills
+    launched it once a layer of attention."""
+    from repro_torch.kernels import flash_attention as fa
+
+    layers = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+    got = dict(kernel=fa.kernel_for(torch.float32, cfg.d_head),
+               launches=fa.launches - before)
+    require(got["launches"] == prompts * layers,
+            f"f32 {cfg.name}: {got} != {prompts} prefills x {layers} "
+            f"attention layers")
+    print(f"  f32 {cfg.name}: {got['launches']} {got['kernel']} launches")
+    return got
+
+
+def e2e_f32(dev, arch: str = "stablelm-1.6b") -> dict:
     """Kernel path against plain path, float32 end to end.
 
     Full-width ``arch`` with float32 weights, activations and KV cache
     (TF32 off), one prefill per served prompt.  The two paths differ only
     in summation order, so their last-token logits agree far inside the
     bf16 check's limit; every reading is printed before the limit is
-    applied."""
+    applied.  The flash kernel's launches are counted (``f32_flash``)."""
     import dataclasses
 
     from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import build
 
     cfg = dataclasses.replace(configs.get(arch), dtype="float32",
@@ -1809,6 +1923,7 @@ def e2e_f32(dev, arch: str = "stablelm-1.6b") -> list[float]:
     model = build(cfg, backend="cuda", device=dev)
     model.init(torch.Generator(device=dev).manual_seed(0))
     rels, same = [], []
+    before = fa.launches
     for p in make_prompts(cfg.vocab):
         batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
         out = {}
@@ -1821,12 +1936,32 @@ def e2e_f32(dev, arch: str = "stablelm-1.6b") -> list[float]:
         same.append(int(g.argmax()) == int(w.argmax()))
         print(f"  f32 prefill S={len(p)}: kernel-vs-plain logits rel err "
               f"{rels[-1]:.3e}, same argmax {same[-1]}")
+    flash = f32_flash(cfg, before, len(rels))
+    model.backend = "cuda"
+    flash["profiled"] = f32_prefill_flash(model, batch)
     del model
     torch.cuda.empty_cache()
     require(all(same), "f32: argmax differs")
     require(max(rels) <= E2E_F32_REL_TOL,
             f"f32: rel err {max(rels)} > {E2E_F32_REL_TOL}")
-    return rels
+    return dict(logits_rel_err=rels, flash=flash)
+
+
+def f32_prefill_flash(model, batch) -> dict:
+    """One float32 prefill's device ms and its attention's, by the
+    profiler's kernel names.  Fatal if it ran ``flash_kernel`` or no
+    ``flash_sm90_f32`` (every served model's heads are of 64 or 128)."""
+    kernels = prefill_kernels(model, batch, None)
+    if not kernels:
+        return {"device_ms": "not measured", "attention_ms": "not measured"}
+    ms = {k: sum(v for n, v in kernels.items() if k in n)
+          for k in ("flash_sm90_f32", "flash_kernel")}
+    require(ms["flash_sm90_f32"] > 0 and ms["flash_kernel"] == 0,
+            f"the float32 prefill's attention kernels: {ms}")
+    print(f"  f32 {model.cfg.name} prefill profiled: flash_sm90_f32 "
+          f"{ms['flash_sm90_f32']:.3f} ms")
+    return {"device_ms": sum(kernels.values()),
+            "attention_ms": ms["flash_sm90_f32"]}
 
 
 def engine_tokens(eng) -> dict:
@@ -3207,7 +3342,7 @@ def gateway(fa, da, dev, bundle_path: Path) -> dict:
     torch.cuda.empty_cache()
 
     # 7. float32 end to end on llama3.2-3b
-    result["llama_e2e_f32_logits_rel_err"] = e2e_f32(dev, "llama3.2-3b")
+    result["llama_e2e_f32"] = e2e_f32(dev, "llama3.2-3b")
 
     # 8. the launcher: a saved plan boots with zero solves; the plan on
     # the characterization's measured bundle
@@ -3683,8 +3818,11 @@ def e2e_f32_moe(arch, dev) -> dict:
     ``arch`` cut to MOE_F32_LAYERS layers: each prompt's prefill logits
     (<= E2E_F32_REL_TOL, same argmax), with the router flips between the
     two paths and the smallest top-k margin reported."""
+    from repro_torch.kernels import flash_attention as fa
+
     model, reduced = build_moe(arch, MOE_F32_LAYERS, dev, "float32")
     rels, same, flips, margins = [], [], [], []
+    before = fa.launches
     for p in make_prompts(model.cfg.vocab):
         batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
         g, rg = moe_routes(model, lambda: last_logits(model, "cuda", batch,
@@ -3699,13 +3837,15 @@ def e2e_f32_moe(arch, dev) -> dict:
         print(f"  f32 {arch} prefill S={len(p)}: kernel-vs-plain logits rel "
               f"err {rels[-1]:.3e}, same argmax {same[-1]}, router flips "
               f"{flips[-1]}, smallest top-k margin {margins[-1]:.3e}")
+    flash = f32_flash(model.cfg, before, len(rels))
     del model
     free_card()
     require(all(same), f"f32 {arch}: argmax differs")
     require(max(rels) <= E2E_F32_REL_TOL,
             f"f32 {arch}: rel err {max(rels)} > {E2E_F32_REL_TOL}")
     return dict(reduced=reduced, prompt_lens=list(PROMPT_LENS),
-                logits_rel_err=rels, router_flips=flips, min_margin=margins)
+                logits_rel_err=rels, router_flips=flips, min_margin=margins,
+                flash=flash)
 
 
 # ---------------------------------------------------------------------------
@@ -5549,12 +5689,13 @@ def turn_prefills(arch: str, seed: int, dev) -> list:
 
 
 def flash_turn(args: list) -> int:
-    """One turn of a comparison call on the bf16 flash route at head sizes
-    64 and 128.  ``args``: ``[ROOT] [-DNAME=VALUE ...]``.  The package
-    under ``ROOT/src`` (this checkout's by default) builds its flash
-    source with those nvcc defines added, times its kernel at SM90_ROWS
-    beside the library call (``flash_timing``: L2 flushed, the median of
-    15), and prefills full-width stablelm-1.6b and llama3.2-3b with the
+    """One turn of a comparison call on the flash routes at head sizes 64
+    and 128.  ``args``: ``[ROOT] [-DNAME=VALUE ...]``.  The package under
+    ``ROOT/src`` (this checkout's by default) builds its flash source
+    with those nvcc defines added, times its kernels at SM90_ROWS (bf16)
+    and F32_ROWS (float32) beside the library call (``flash_timing``: L2
+    flushed, the median of 15; each row names the kernel that served it),
+    and prefills full-width stablelm-1.6b and llama3.2-3b with the
     weights of their served checks (phase 4's and the gateway's) at every
     served prompt (``turn_prefills``).  Prints the card's line and one
     ``{"flash_turn": ...}`` line.  Run each turn in a process of its own
@@ -5581,6 +5722,9 @@ def flash_turn(args: list) -> int:
     timer = Timer(dev)
     rows = {k or "stablelm": flash_timing(fa, timer, gen, dev, *shape, None)
             for k, shape in SM90_ROWS.items()}
+    rows.update({k or "f32": flash_timing(fa, timer, gen, dev, *shape, None,
+                                          torch.float32)
+                 for k, shape in F32_ROWS.items()})
     prefills = {arch: turn_prefills(arch, seed, dev)
                 for arch, seed in (("stablelm-1.6b", 0), ("llama3.2-3b", 1))}
     print(card_line())
@@ -5643,7 +5787,7 @@ def main() -> int:
         for kernel, line in rows.items():
             print(f"  ptxas {name}: {kernel}: {line}")
     sm90 = sm90_sass(_build)
-    print(f"  SASS flash_sm90: {sm90}")
+    print(f"  SASS flash_sm90 and flash_sm90_f32: {sm90}")
 
     mods = {"flash_attention": fa, "decode_attention": da,
             "rglru_scan": rg, "rwkv6_scan": rk}
@@ -5659,6 +5803,7 @@ def main() -> int:
     timer = Timer(dev)
     # the orin fixture's search: 4096 chains x 2 workloads x 32 groups
     kernels = [time_flash(fa, timer, gen, dev),
+               time_flash_f32(fa, timer, gen, dev),
                time_decode(da, timer, gen, dev),
                time_slowdown(sd, timer, gen, dev, n=4096 * 2),
                time_select(se, timer, gen, dev, P=4096, L=2 * 32),
@@ -5676,16 +5821,21 @@ def main() -> int:
             parent = ("" if "parent_ms" not in row
                       else f" [parent {row['parent_ms']:.4f} ms]")
             served = f" ({row['kernel']})" if "kernel" in row else ""
+            tf32 = ("" if "bound_cuda_cores_ms" not in row else
+                    f" at three TF32 products, CUDA cores' bound "
+                    f"{row['bound_cuda_cores_ms']:.4f} ms "
+                    f"({row['bound_cuda_cores_by']}); against float64 "
+                    f"{row['f64_err']:.3e}, plain {row['plain_f64_err']:.3e}")
             print(f"  {kr['name']} at {row['shape']}{served}: "
                   f"{row['ms']:.4f} ms{parent}, plain {row['plain_ms']:.4f} "
                   f"ms, library {lib}, bound {row['bound_ms']:.4f} ms "
-                  f"({row['bound_by']})")
+                  f"({row['bound_by']}){tf32}")
     print(f"  {n} comparisons passed")
 
     phase("serve full-width stablelm-1.6b (CUDA graph, then eager)")
     result = serve(fa, da, dev)
     phase("float32 end to end, kernel path vs plain path")
-    result["e2e_f32_logits_rel_err"] = e2e_f32(dev)
+    result["e2e_f32"] = e2e_f32(dev)
     phase("reduced configs on the card (head size 16, float32)")
     reduced = serve_reduced(mods, dev)
     phase("schedule search under PCCS on the golden fixtures")
@@ -5751,19 +5901,34 @@ def main() -> int:
                     rglru_scan=recurrent["recurrentgemma-9b"]["launches"][
                         "rglru_scan"],
                     rwkv6_scan=recurrent["rwkv6-7b"]["launches"][
-                        "rwkv6_scan"])
+                        "rwkv6_scan"],
+                    flash_sm90_f32=measured["launches"]["flash_attention"])
     for kr in kernels:
         kr["launches"] = launches[kr["name"]]
         if kr["name"] in ptxas:
             kr["ptxas"] = ptxas[kr["name"]]
     kernels[0]["sass_flash_sm90"] = sm90
+    # every float32 flash launch at head size 64 or 128 is flash_sm90_f32's
+    # (route by dtype and head size alone; phase 5's profile shows it):
+    # the characterization's (float32 operands, heads of 64), and the
+    # float32 end-to-end phases'
+    f32 = next(kr for kr in kernels if kr["name"] == "flash_sm90_f32")
+    f32["launches_by_path"] = {
+        "characterize": measured["launches"]["flash_attention"],
+        **{f"float32 end to end {name}": run["flash"]["launches"]
+           for name, run in (("stablelm-1.6b", result["e2e_f32"]),
+                             ("llama3.2-3b", served["llama_e2e_f32"]))},
+        **{f"float32 end to end {arch} ({r['e2e_f32']['reduced']['n_layers']}"
+           f" layers)": r["e2e_f32"]["flash"]["launches"]
+           for arch, r in moe_served.items()}}
     for name in ("flash_attention", "decode_attention"):
         row = next(kr for kr in kernels if kr["name"] == name)
         row["launches_by_path"] = {
             "serve stablelm-1.6b": result["launches"][name],
             "serve recurrentgemma-9b":
                 recurrent["recurrentgemma-9b"]["launches"][name],
-            "characterize": measured["launches"][name],
+            **({} if name == "flash_attention" else
+               {"characterize": measured["launches"][name]}),
             "characterize decode": measured["decode"]["launches"][name],
             "gateway stablelm-1.6b + llama3.2-3b":
                 served["launches"][name],

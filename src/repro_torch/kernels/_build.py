@@ -53,29 +53,31 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: tuple = ()) -> Path:
     """Where ``csrc/<name>.cu`` builds to, keyed by source, headers and
-    flags."""
+    flags (``defines``: nvcc ``-D`` flags added to :data:`NVCC_FLAGS`)."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed
+    (with the nvcc ``defines`` added, a library of its own: the tests
+    build variants of a kernel this way).
 
     ``nvcc`` writes to a temporary name that is renamed into place only
     when complete, so several sources may be built at once from threads
     (``nvcc`` runs outside the GIL)."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if not out.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)

@@ -14,7 +14,7 @@
 // L2, so the repeated tile reads of the q tiles need not reach HBM; what
 // decides the time is how fast the products run.
 //
-// Three kernels, chosen by the dtype and the head size alone (route()):
+// Four kernels, chosen by the dtype and the head size alone (route()):
 // * bfloat16 at D = 64 and 128 (every served transformer's heads):
 //   flash_sm90, the TMA ring and warp-specialised wgmma.  One block owns
 //   one (b, q-head, 128-query tile): two consumer warpgroups of 64 query
@@ -64,14 +64,63 @@
 //   Masks are evaluated only on tiles that cut the diagonal, the window
 //   edge or the kv tail.  Under a causal mask the q tiles with the most
 //   live kv tiles launch first (blockIdx.x reversed).
-// * float32: flash_kernel, the first version, left as it was: f32 math on
-//   the CUDA cores, so the f32 path meets the reference's 2e-5 tolerance.
-//   One block owns one (b, q-head, 64-query tile) and loops over kv tiles
-//   itself, with m, l and the 64 x D accumulator in registers.  128
-//   threads form a 16 x 8 grid: thread (ty, tx) holds query rows ty + 16i
-//   (i < 4), score columns tx + 8j (j < 8) and output columns tx + 8j
-//   (j < D/8), so each row's max and sum reduce over 8 neighbouring lanes
-//   with shuffles.  Q (scaled in f32), the K and V tiles, and the
+// * float32 at D = 64 and 128 (the characterization's groups, every
+//   float32 check of a served model): flash_sm90_f32, three TF32
+//   products on wgmma.  What bounds it: the CUDA cores give 67 TFLOP/s of
+//   float32, the tensor cores 495 of TF32, and float32 products come from
+//   them as a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (~2^-21 of |a||b|;
+//   a_hi.b_hi alone, ~2^-11, misses the reference's 2e-5 by ~50x).  At
+//   the characterization's B 2, S 256, 32/32 heads of 64 that is 0.0033
+//   ms of products against 0.0050 ms of q, k, v and o at 3.35 TB/s (the
+//   CUDA cores would need 0.0080), so the bound is the bytes.  The
+//   pieces: hi = x rounded to TF32 to nearest (two integer operations),
+//   lo = x - hi, exact, passed as it is: the tensor cores read a float32
+//   operand as its top 19 bits (a card test shows builds that clear the
+//   low 13 and that do not agree bit for bit), an error of either sign
+//   in lo.  Passing x itself as hi (read truncated, lo = x - trunc(x))
+//   was as fast but errs toward zero in every piece: 1.3-1.9x the error
+//   against a float64 reference.  tests/test_torch_flash_sm90_f32.py
+//   repeats the served arithmetic in plain PyTorch.  TF32
+//   wgmma takes both operands K-major only (the transpose bits are for
+//   16-bit types), so V is staged transposed, keys contiguous, and in
+//   each 8-key group in the order 0, 2, 4, 6, 1, 3, 5, 7: a thread's
+//   score accumulator holds columns 2t and 2t + 1 of each 8-key block
+//   where the TF32 A fragment wants k indices t and t + 4, so P goes from
+//   the accumulator to the A operand without a shuffle (a build in plain
+//   order, -DFLASH_SM90_F32_PLAIN_V=1, fails its check).  One block owns
+//   one (b, q-head, 128-query tile): two consumer warpgroups of 64 rows
+//   and a producer warpgroup (setmaxnreg 136 or 128 / 184).  The producer
+//   loads each K and V tile with 16-byte loads into registers (rows past
+//   Skv zeros), makes the lo pieces and stores K's hi and lo as they are
+//   and V's transposed, both in the 128-byte swizzle the descriptors name
+//   (32 floats a row), on full and empty mbarriers: no TMA, since every
+//   tile passes through registers for its lo piece and V's transpose,
+//   and a TMA landing would add a shared-memory round trip.  Each
+//   consumer warpgroup scales its own Q rows once and stores them with
+//   their lo pieces.  Tiles within the 227 KB: 64 keys at D = 64 (two K
+//   and two V stages, 192 KB), 32 keys at D = 128 (Q's hi and lo take
+//   128 KB; two K stages and one V stage, 224 KB); K runs a tile ahead of
+//   V, as a turn issues tile t's S with tile t - 1's P.V and then waits.
+//   S = Q.K^T is wgmma m64nBKk8 from shared memory (three products a k
+//   step), the online softmax in f32 registers (ex2.approx), P and its lo
+//   piece as TF32 A fragments in registers.  P.V runs as m64n64k8
+//   products (three a k step) into a fresh accumulator, 64 columns of O
+//   at a time, each added to O in f32 registers: the tensor cores' adds
+//   do not round to nearest, and O accumulated in place drifted with the
+//   prefill's length, past the reference's 2e-5 at 2048-4096 tokens.  O
+//   is stored straight to global memory.  The warpgroups take turns at
+//   the tensor cores as in flash_sm90, and the first and last turns are
+//   peeled.  What holds it back: a turn holds the softmax and a wait for
+//   the producer beside its products, and the S = Q.K^T products from
+//   shared memory at n = 64 or 32 read 3-4 KB a wgmma, about what the
+//   shared-memory port gives at the TF32 rate.
+// * float32 at the other head sizes (16, 32, 80, 256): flash_kernel, the
+//   first version, on the CUDA cores.  One block owns one (b, q-head,
+//   64-query tile) and loops over kv tiles itself, with m, l and the
+//   64 x D accumulator in registers.  128 threads form a 16 x 8 grid:
+//   thread (ty, tx) holds query rows ty + 16i (i < 4), score columns
+//   tx + 8j (j < 8) and output columns tx + 8j (j < D/8), so each row's
+//   max and sum reduce over 8 neighbouring lanes with shuffles.  Q (scaled in f32), the K and V tiles, and the
 //   probabilities live in shared memory as f32, padded so no warp reads
 //   two rows in one bank.  At D = 256 the accumulator is 4 x 32 floats a
 //   thread and the block takes 215.6 KB of shared memory.
@@ -856,12 +905,522 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32 at D = 64 and 128: three TF32 products on wgmma
+// ---------------------------------------------------------------------------
+// The keys of each 8-key group of a transposed V tile: 0 (served) in the
+// order 0, 2, 4, 6, 1, 3, 5, 7 that P's A fragments take (sm90_tiles.cuh,
+// the TF32 wgmma note); 1 in plain order, which must fail its check (a
+// card test builds it)
+#ifndef FLASH_SM90_F32_PLAIN_V
+#define FLASH_SM90_F32_PLAIN_V 0
+#endif
+// The TF32 pieces of every operand (served): hi = x rounded to TF32 to
+// nearest (ties away, as cvt.rna.tf32.f32 rounds, in two integer
+// operations), lo = x - hi as it is (exact; the tensor cores read it as
+// its top 19 bits, dropping its low 13, an error of either sign); three
+// products a_lo.b_hi + a_hi.b_lo + a_hi.b_hi.  FLASH_SM90_F32_ONE_PRODUCT
+// builds one product of hi alone instead, for card tests: 1 with hi = x
+// as it is, 2 with hi = x with its low 13 bits cleared (the two agree
+// bit for bit exactly when the tensor cores drop those bits)
+#ifndef FLASH_SM90_F32_ONE_PRODUCT
+#define FLASH_SM90_F32_ONE_PRODUCT 0
+#endif
+static_assert(FLASH_SM90_F32_ONE_PRODUCT >= 0 &&
+                  FLASH_SM90_F32_ONE_PRODUCT <= 2,
+              "FLASH_SM90_F32_ONE_PRODUCT must be 0-2");
+constexpr bool THREE_TF32 = FLASH_SM90_F32_ONE_PRODUCT == 0;
+
+__device__ __forceinline__ void tf32_pieces(float x, float& hi, float& lo) {
+#if FLASH_SM90_F32_ONE_PRODUCT == 0
+  hi = sm90::tf32_round(x);
+  lo = x - hi;
+#else
+  hi = FLASH_SM90_F32_ONE_PRODUCT == 2 ? sm90::tf32_trunc(x) : x;
+  lo = 0.f;
+#endif
+}
+
+// four floats as TF32 hi and lo pieces, stored at byte `off` of each
+__device__ __forceinline__ void store_pieces(unsigned char* hi_base,
+                                             unsigned char* lo_base, int off,
+                                             float4 x) {
+  float4 h, l;
+  tf32_pieces(x.x, h.x, l.x);
+  tf32_pieces(x.y, h.y, l.y);
+  tf32_pieces(x.z, h.z, l.z);
+  tf32_pieces(x.w, h.w, l.w);
+  *reinterpret_cast<float4*>(hi_base + off) = h;
+  *reinterpret_cast<float4*>(lo_base + off) = l;
+}
+
+// byte offset of 16-byte chunk c (floats 4c .. 4c + 3) of row r in a
+// K-major tile of `rows` rows under the 128-byte swizzle: boxes of 32
+// floats a row, one after another
+__device__ __forceinline__ int sw128(int r, int c, int rows) {
+  return (c / 8) * rows * 128 + r * 128 + (((c % 8) ^ (r % 8)) * 16);
+}
+
+// x, as a value the compiler cannot compute ahead (it keeps what is
+// derived from it where it is used)
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+
+__device__ __forceinline__ float part(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+__device__ __forceinline__ float4 load4(const float* p, bool ok) {
+  return ok ? __ldg(reinterpret_cast<const float4*>(p))
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+template <int D>
+struct Sm90F32 {
+  static constexpr int BQ = 128;                  // query rows a block
+  static constexpr int WQ = 64;                   // rows a consumer warpgroup
+  static constexpr int BK = D == 64 ? 64 : 32;    // keys a kv tile
+  static constexpr int KS = 2;                    // K ring stages
+  static constexpr int VS = D == 64 ? 2 : 1;      // V^T ring stages
+  static constexpr int THREADS = 3 * 128;         // 2 consumer warpgroups
+                                                  // and the producer's
+  // after setmaxnreg, within the 384 x 168 the block is launched with
+  // (64,512): 128 x 136 + 256 x 184 at D = 64, 128 x 128 + 256 x 184 at
+  // D = 128 (a producer of 104 spilled at both sizes, of 120 at D = 128)
+  static constexpr int PRODUCER_REGS = D == 64 ? 136 : 128;
+  static constexpr int CONSUMER_REGS = 184;
+  static constexpr int Q_PIECE = WQ * D * 4;      // a warpgroup's Q hi or lo
+  static constexpr int KV_PIECE = BK * D * 4;     // a K or V^T tile's hi or lo
+  static constexpr int KG = BK / 8;               // 8-key groups a tile
+  // one (8-key group, 4-column chunk) of V a producer thread
+  static_assert(KG * (D / 4) == 128, "V's groups x chunks != 128");
+  static constexpr int KCH = BK * D / 4 / 128;    // K's chunks a thread
+  // + 1024: the dynamic base is rounded up to the swizzle atom's boundary
+  static constexpr int SMEM = 1024 + 4 * Q_PIECE
+                              + 2 * (KS + VS) * KV_PIECE + 16 * (KS + VS);
+};
+
+template <int D>
+__global__ void __launch_bounds__(Sm90F32<D>::THREADS, 1)
+flash_sm90_f32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o, int Sq,
+               int Skv, int Hq, int Hkv, int causal, int window,
+               float scale) {
+  using P = Sm90F32<D>;
+  constexpr int BK = P::BK, KS = P::KS, VS = P::VS;
+  extern __shared__ __align__(1024) unsigned char raw_f32[];
+  // [hi, lo][warpgroup][D / 32 boxes][64 rows][128 B]
+  unsigned char* Qs =
+      raw_f32 + ((1024 - (sm90::smem_addr(raw_f32) & 1023)) & 1023);
+  // K: [KS][hi, lo][D / 32 boxes][BK keys][128 B]; V^T: [VS][hi, lo]
+  // [BK / 32 boxes][D rows][128 B]
+  unsigned char* Ks = Qs + 4 * P::Q_PIECE;
+  unsigned char* Vs = Ks + 2 * KS * P::KV_PIECE;
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(Vs + 2 * VS * P::KV_PIECE);
+  uint64_t* k_empty = k_full + KS;
+  uint64_t* v_full = k_empty + KS;
+  uint64_t* v_empty = v_full + VS;
+
+  // the q tile is the slowest grid index, so under a causal mask every
+  // head's heaviest tile is handed out first (longest first)
+  const int iq = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const int q0 = iq * P::BQ, off = Skv - Sq;
+  // live kv range, as flash_kernel's (flash_attention.py:71)
+  const int first_q = q0 + off;
+  const int last_q = min(q0 + P::BQ, Sq) - 1 + off;
+  const int kv_end = causal ? min(Skv, last_q + 1) : Skv;
+  const int kv_begin =
+      window > 0 ? max(0, first_q - window + 1) / BK * BK : 0;
+  const int nt = (kv_end - kv_begin + BK - 1) / BK;
+  const int tid = threadIdx.x;
+  // a tile of at most 64 query rows runs on consumer warpgroup 0 alone
+  const bool solo = Sq - q0 <= P::WQ;
+  const int consumers = solo ? 1 : 2;
+  const size_t q_stride = (size_t)Hq * D, kv_stride = (size_t)Hkv * D;
+
+  if (tid == 0) {
+    for (int s = 0; s < KS; ++s) {
+      sm90::bar_init(&k_full[s], 128);              // every producer thread
+      sm90::bar_init(&k_empty[s], consumers * 128); // every consumer thread
+    }
+    for (int s = 0; s < VS; ++s) {
+      sm90::bar_init(&v_full[s], 128);
+      sm90::bar_init(&v_empty[s], consumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 2 * 128) {
+    sm90::regs_dec<P::PRODUCER_REGS>();
+    // The producer warpgroup loads each K and V tile into registers,
+    // makes its TF32 lo piece, and stores both pieces in the layout
+    // wgmma reads: K as it is (keys by rows, D contiguous), V transposed
+    // (D by rows, keys contiguous, each 8-key group in P's fragment
+    // order).  Rows past Skv are zeros.  K runs one tile ahead of V, as
+    // the consumers' turns take tile t's K beside tile t - 1's V.
+    const int pt = tid - 2 * 128, lane = pt % 32;
+    const int rest = (lane >> 3) | ((pt / 32) << 2);        // 0 .. 15
+    // this thread's V: keys 8 kg .. 8 kg + 7, columns 4 dc .. 4 dc + 3;
+    // the 8 lanes of a store phase take 4 groups x 2 chunks
+    const int kg = (lane & 3) + 4 * (rest % (P::KG / 4));
+    const int dc = ((lane >> 2) & 1) + 2 * (rest / (P::KG / 4));
+    const float* kb = k + (size_t)b * Skv * kv_stride + (size_t)hk * D;
+    const float* vb = v + (size_t)b * Skv * kv_stride + (size_t)hk * D;
+    float4 kr[P::KCH], vr[8];
+    auto load_k = [&](int t) {
+      const int k0 = kv_begin + t * BK;
+#pragma unroll
+      for (int j = 0; j < P::KCH; ++j) {
+        const int i = pt + 128 * j, r = i / (D / 4), c = i % (D / 4);
+        kr[j] = load4(kb + (size_t)(k0 + r) * kv_stride + 4 * c,
+                      k0 + r < Skv);
+      }
+    };
+    auto load_v = [&](int t) {
+      const int k0 = kv_begin + t * BK + 8 * kg;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        vr[j] = load4(vb + (size_t)(k0 + j) * kv_stride + 4 * dc,
+                      k0 + j < Skv);
+    };
+    auto put_k = [&](int t) {
+      const int s = t % KS;
+      if (t >= KS) sm90::bar_wait(&k_empty[s], ((t / KS) & 1) ^ 1);
+      unsigned char* kh = Ks + s * 2 * P::KV_PIECE;
+#pragma unroll
+      for (int j = 0; j < P::KCH; ++j) {
+        const int i = pt + 128 * j;
+        store_pieces(kh, kh + P::KV_PIECE, sw128(i / (D / 4), i % (D / 4),
+                                                 BK), kr[j]);
+      }
+      sm90::fence_async_shared();     // visible to wgmma (the async proxy)
+      sm90::bar_arrive(&k_full[s]);
+    };
+    auto put_v = [&](int t) {
+      const int s = t % VS;
+      if (t >= VS) sm90::bar_wait(&v_empty[s], ((t / VS) & 1) ^ 1);
+      unsigned char* vh = Vs + s * 2 * P::KV_PIECE;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 4 * dc + e;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          // chunk `half` of the group: its keys 0, 2, 4, 6 or 1, 3, 5, 7
+          const int a = FLASH_SM90_F32_PLAIN_V ? 4 * half : half;
+          const int st = FLASH_SM90_F32_PLAIN_V ? 1 : 2;
+          const float4 x = make_float4(
+              part(vr[a], e), part(vr[a + st], e), part(vr[a + 2 * st], e),
+              part(vr[a + 3 * st], e));
+          store_pieces(vh, vh + P::KV_PIECE,
+                       (kg / 4) * D * 128 + d * 128
+                           + (((2 * (kg % 4) + half) ^ (d % 8)) * 16),
+                       x);
+        }
+      }
+      sm90::fence_async_shared();
+      sm90::bar_arrive(&v_full[s]);
+    };
+    load_k(0);
+    put_k(0);
+    if (nt > 1) load_k(1);
+    load_v(0);
+    for (int t = 0; t < nt; ++t) {
+      if (t + 1 < nt) put_k(t + 1);
+      put_v(t);
+      // the next tiles' loads in flight while this thread waits for slots
+      if (t + 2 < nt) load_k(t + 2);
+      if (t + 1 < nt) load_v(t + 1);
+    }
+    return;
+  }
+
+  // A consumer warpgroup: 64 query rows, warp `warp` rows 16 warp + g and
+  // + 8 of them (g = lane / 4), the layout of every accumulator below.
+  const int wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
+  if (wg >= consumers) return;
+  sm90::regs_inc<P::CONSUMER_REGS>();
+  const int wq0 = q0 + wg * P::WQ;
+  const int w_first = wq0 + off;                    // its positions
+  const int w_last = min(wq0 + P::WQ, Sq) - 1 + off;
+  const int qp0 = w_first + warp * 16 + lane / 4;   // row g's position
+
+  // Q: the warpgroup's rows scaled in f32 (flash_attention.py:44), stored
+  // with their TF32 lo pieces; rows past Sq are zeros
+  unsigned char* qh = Qs + wg * P::Q_PIECE;
+  unsigned char* ql = Qs + (2 + wg) * P::Q_PIECE;
+  const float* qb = q + (size_t)b * Sq * q_stride + (size_t)h * D;
+#pragma unroll
+  for (int i = wt; i < P::WQ * D / 4; i += 128) {
+    const int r = i / (D / 4), c = i % (D / 4), s = wq0 + r;
+    float4 x = load4(qb + (size_t)s * q_stride + 4 * c, s < Sq);
+    x.x *= scale;
+    x.y *= scale;
+    x.z *= scale;
+    x.w *= scale;
+    store_pieces(qh, ql, sw128(r, c, P::WQ), x);
+  }
+  sm90::fence_async_shared();
+  sm90::named_sync(1 + wg, 128);
+
+  const uint32_t k_addr = sm90::smem_addr(Ks), v_addr = sm90::smem_addr(Vs);
+  // O in f32 registers.  Each turn's P.V lands in pv first, 64 columns
+  // at a time, then is added to O in f32: accumulated in place by the
+  // tensor cores, whose adds do not round to nearest, O drifted with the
+  // prefill's length
+  float o_acc[D / 2], pv[32], sc[BK / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+  float m[2] = {M_INIT, M_INIT}, l[2] = {0.f, 0.f};  // rows g, g + 8
+  // P of the last tile as TF32 A fragments, hi and lo (lo unused with one
+  // piece): k step kk is keys 8 kk .. 8 kk + 7
+  uint32_t ph[BK / 8][4], pl[THREE_TF32 ? BK / 8 : 1][4];
+
+  // Descriptors of a piece's first k step; a k step adds its byte offset
+  // / 16 to the start-address field (shared addresses stay below 256 KB,
+  // so the field never carries)
+  auto desc = [](uint32_t addr) { return sm90::desc_sw128(addr, 16, 1024); };
+  const uint64_t dqh = desc(sm90::smem_addr(qh));
+  const uint64_t dql = desc(sm90::smem_addr(ql));
+  // S = Q.K^T for the K tile in slot s: D / 8 steps of m64nBKk8, three
+  // products each (the small ones first), both operands K-major
+  auto gemm_s = [&](int s) {
+    // Q's descriptors anew in each turn: hoisted out of the loop, each k
+    // step's would hold two registers for the whole kernel
+    const uint64_t qh_d = opaque(dqh), ql_d = opaque(dql);
+    const uint64_t dkh = desc(k_addr + s * 2 * P::KV_PIECE);
+    const uint64_t dkl = dkh + P::KV_PIECE / 16;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t oq = ((kk / 4) * P::WQ * 128 + (kk % 4) * 32) / 16;
+      const uint32_t ok = ((kk / 4) * BK * 128 + (kk % 4) * 32) / 16;
+      auto mma = [&](uint64_t a, uint64_t bb, int acc) {
+        if constexpr (BK == 64)
+          sm90::wgmma_tf32_ss_n64(sc, a, bb, acc);
+        else
+          sm90::wgmma_tf32_ss_n32(sc, a, bb, acc);
+      };
+      if constexpr (THREE_TF32) {
+        mma(ql_d + oq, dkh + ok, kk > 0);
+        mma(qh_d + oq, dkl + ok, 1);
+        mma(qh_d + oq, dkh + ok, 1);
+      } else {
+        mma(qh_d + oq, dkh + ok, kk > 0);
+      }
+    }
+  };
+  // pv = P.V for columns 64 h .. 64 h + 63 of the V^T tile in slot s:
+  // BK / 8 steps of m64n64k8, three products each, P from registers, V^T
+  // K-major (its rows are O's columns)
+  auto gemm_pv = [&](int s, int h) {
+    const uint64_t dvh = desc(v_addr + s * 2 * P::KV_PIECE) + h * 64 * 8;
+    const uint64_t dvl = dvh + P::KV_PIECE / 16;
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const uint32_t ov = ((kk / 4) * D * 128 + (kk % 4) * 32) / 16;
+      if constexpr (THREE_TF32) {
+        sm90::wgmma_tf32_rs_n64(pv, pl[kk], dvh + ov, kk > 0);
+        sm90::wgmma_tf32_rs_n64(pv, ph[kk], dvl + ov, 1);
+        sm90::wgmma_tf32_rs_n64(pv, ph[kk], dvh + ov, 1);
+      } else {
+        sm90::wgmma_tf32_rs_n64(pv, ph[kk], dvh + ov, kk > 0);
+      }
+    }
+  };
+  // O's columns 64 h .. 64 h + 63 += pv, in f32
+  auto add_pv = [&](int h) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o_acc[32 * h + i] += pv[i];
+  };
+  // The online softmax of tile t's scores in sc (scaled already: the
+  // scale went into Q), O rescaled, and P as TF32 A fragments: the
+  // accumulator's {4j, 4j + 2, 4j + 1, 4j + 3} for k step j
+  auto softmax = [&](int t) {
+    // masks only where this tile cuts the kv tail, the diagonal or the
+    // window's edge for this warpgroup's rows (flash_attention.py:58-59)
+    const int k0 = kv_begin + t * BK;
+    if (k0 + BK > Skv || (causal && k0 + BK - 1 > w_first)
+        || (window > 0 && k0 <= w_last - window)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qp = qp0 + 8 * (i / 2);
+          const int kp = k0 + j * 8 + 2 * (lane % 4) + i % 2;
+          bool live = kp < Skv;
+          if (causal) live = live && kp <= qp;
+          if (window > 0) live = live && kp > qp - window;
+          if (!live) sc[4 * j + i] = -CUDART_INF_F;
+        }
+    }
+    float mx[2][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mx[i / 2][i % 2] = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mx[i / 2][j % 2] = fmaxf(mx[i / 2][j % 2], sc[4 * j + i]);
+    float m_new[2], al[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float x = fmaxf(mx[rr][0], mx[rr][1]);
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      // in the exp2 domain; m stays finite (>= M_INIT), so masked
+      // scores give exp2(-inf) = 0
+      m_new[rr] = fmaxf(m[rr], x * LOG2E);
+      al[rr] = exp2_approx(m[rr] - m_new[rr]);
+      m[rr] = m_new[rr];
+    }
+    float sum[2][2] = {};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p =
+            exp2_approx(fmaf(sc[4 * j + i], LOG2E, -m_new[i / 2]));
+        sc[4 * j + i] = p;
+        sum[i / 2][j % 2] += p;
+      }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)    // this thread's columns; quad sum at end
+      l[rr] = l[rr] * al[rr] + (sum[rr][0] + sum[rr][1]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o_acc[4 * n + i] *= al[i / 2];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float hi, lo;
+        tf32_pieces(sc[4 * kk + (i % 2) * 2 + i / 2], hi, lo);
+        ph[kk][i] = __float_as_uint(hi);
+        if constexpr (THREE_TF32) pl[kk][i] = __float_as_uint(lo);
+      }
+  };
+
+  // Ping-pong, as in flash_sm90: the warpgroups take turns at the tensor
+  // cores (named barriers TURN + wg), so one's softmax runs while the
+  // other's products do.  A turn issues tile t's S = Q.K^T and tile
+  // t - 1's O += P.V together, then waits; the softmax of tile t follows
+  // outside the turn.  Warpgroup 0 goes first; warpgroup 1 skips the
+  // hand-over after its last turn; a warpgroup alone takes no turns.  The
+  // first and last turns are peeled off, so every wgmma is issued on a
+  // path the whole warpgroup takes.
+  constexpr int TURN = 3;
+  const int mine = TURN + wg, other = TURN + 1 - wg;
+  auto take_turn = [&] { if (!solo) sm90::named_sync(mine, 256); };
+  auto pass_turn = [&] { if (!solo) sm90::named_arrive(other, 256); };
+  // O's second 64 columns (D = 128) take a product of their own after
+  // the turn's wait, into the same pv
+  auto rest_pv = [&](int sp) {
+    if constexpr (D == 128) {
+      sm90::wgmma_fence();
+      gemm_pv(sp, 1);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(pv);
+      add_pv(1);
+    }
+  };
+  if (wg == 1) sm90::named_arrive(TURN, 256);
+  sm90::bar_wait(&k_full[0], 0);
+  take_turn();
+  sm90::wgmma_fence();
+  gemm_s(0);
+  sm90::wgmma_commit();
+  pass_turn();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sc);
+  sm90::bar_arrive(&k_empty[0]);
+  softmax(0);
+  for (int t = 1; t < nt; ++t) {
+    const int s = t % KS, sp = (t - 1) % VS;
+    sm90::bar_wait(&k_full[s], (t / KS) & 1);
+    sm90::bar_wait(&v_full[sp], ((t - 1) / VS) & 1);
+    take_turn();
+    sm90::wgmma_fence();
+    gemm_s(s);
+    gemm_pv(sp, 0);
+    sm90::wgmma_commit();
+    pass_turn();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(pv);
+    add_pv(0);
+    sm90::bar_arrive(&k_empty[s]);    // this thread is done with K
+    rest_pv(sp);
+    sm90::fence_regs(ph);
+    sm90::fence_regs(pl);
+    sm90::bar_arrive(&v_empty[sp]);   // and with V
+    softmax(t);
+  }
+  const int sp = (nt - 1) % VS;
+  sm90::bar_wait(&v_full[sp], ((nt - 1) / VS) & 1);
+  take_turn();
+  sm90::wgmma_fence();
+  gemm_pv(sp, 0);
+  sm90::wgmma_commit();
+  if (wg == 0) pass_turn();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(pv);
+  add_pv(0);
+  rest_pv(sp);
+  sm90::fence_regs(ph);
+  sm90::fence_regs(pl);
+
+  // out = acc / max(l, 1e-30) (flash_attention.py:88); rows past Sq are
+  // not written
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    l[rr] = fmaxf(l[rr], 1e-30f);
+  }
+  float* ob = o + (size_t)b * Sq * q_stride + (size_t)h * D
+              + 2 * (lane % 4);
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int s = wq0 + warp * 16 + lane / 4 + 8 * rr;
+    if (s >= Sq) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(ob + (size_t)s * q_stride + 8 * n) =
+          make_float2(o_acc[4 * n + 2 * rr] / l[rr],
+                      o_acc[4 * n + 2 * rr + 1] / l[rr]);
+  }
+}
+
+template <int D>
+int launch_sm90_f32(const void* q, const void* k, const void* v, void* o,
+                    int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+                    int window, float scale, cudaStream_t stream) {
+  using P = Sm90F32<D>;
+  static unsigned done = 0;
+  cudaError_t err = sm90::set_smem_once(flash_sm90_f32<D>, P::SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(Hq, B, (Sq + P::BQ - 1) / P::BQ);
+  flash_sm90_f32<D><<<grid, P::THREADS, P::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, Hq,
+      Hkv, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 // The kernel a call takes, by dtype code and head size alone
 // (kernels/flash_attention.py::kernel_for names the same).
-enum Route { FLASH_KERNEL = 0, FLASH_MMA = 1, FLASH_SM90 = 2 };
+enum Route {
+  FLASH_KERNEL = 0, FLASH_MMA = 1, FLASH_SM90 = 2, FLASH_SM90_F32 = 3
+};
 constexpr int route(int dtype, int D) {
-  return dtype == 0 ? FLASH_KERNEL
-                    : (D == 64 || D == 128 ? FLASH_SM90 : FLASH_MMA);
+  return D == 64 || D == 128 ? (dtype == 0 ? FLASH_SM90_F32 : FLASH_SM90)
+                             : (dtype == 0 ? FLASH_KERNEL : FLASH_MMA);
 }
 
 template <typename T, int D>
@@ -869,7 +1428,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int Hq, int Hkv, int causal, int window,
            float scale, cudaStream_t stream) {
   constexpr int r = route(std::is_same<T, float>::value ? 0 : 1, D);
-  if constexpr (r == FLASH_SM90) {
+  if constexpr (r == FLASH_SM90_F32) {
+    return launch_sm90_f32<D>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal,
+                              window, scale, stream);
+  } else if constexpr (r == FLASH_SM90) {
     return launch_sm90<D>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window,
                           scale, stream);
   } else if constexpr (r == FLASH_MMA) {
@@ -941,7 +1503,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // The kernel flash_attention_fwd takes for (dtype, D): 0 flash_kernel,
-// 1 flash_mma, 2 flash_sm90; -1 for a pair it does not take.
+// 1 flash_mma, 2 flash_sm90, 3 flash_sm90_f32; -1 for a pair it does not
+// take.
 int flash_attention_route(int dtype, int D) {
   if ((dtype != 0 && dtype != 1)
       || (D != 16 && D != 32 && D != 64 && D != 80 && D != 128 && D != 256))

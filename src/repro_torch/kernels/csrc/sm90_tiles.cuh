@@ -2,8 +2,9 @@
 // cp.async with zero-fill, ldmatrix, mma.sync.m16n8k16 bf16 -> f32, a
 // once-per-device cudaFuncSetAttribute; the tensor memory accelerator
 // (TMA: tensor maps, box loads and stores, mbarriers) and warpgroup
-// matrix multiplies (wgmma: shared-memory descriptors, m64nNk16 with A
-// from shared memory or registers).
+// matrix multiplies (wgmma: shared-memory descriptors, bf16 m64nNk16 and
+// TF32 m64nNk8 with A from shared memory or registers; float32 as TF32
+// hi and lo pieces for products in three TF32 terms).
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -85,6 +86,22 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// TF32 pieces of a float32 for products in three TF32 terms, a.b ~
+// a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (~2^-21 of |a||b|, where a_hi.b_hi
+// alone carries ~2^-11).  The tensor cores read a float32 operand of a
+// TF32 product as its top 19 bits, its low 13 dropped (a card test in
+// tests/test_torch_flash_sm90_f32.py shows it): so hi = tf32_round(x)
+// is read whole, and lo = x - hi (exact) may be passed as it is.
+// x rounded to TF32 to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds, in two integer operations
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+// x as the tensor cores read it: its low 13 bits dropped
+__device__ __forceinline__ float tf32_trunc(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
 }
 
 // Raise a kernel's dynamic shared-memory limit once per device, not on
@@ -361,6 +378,83 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// TF32 (PTX ISA: wgmma with .tf32 operands, k = 8): both operands
+// K-major only (the transpose bits exist for 16-bit types alone), so a
+// row of the 128-byte swizzle holds 32 floats and a k step of 8 floats
+// adds 32 bytes to the start address, as a bf16 k16 step does.  The
+// accumulator layout is the bf16 one above.  The A fragment of the
+// register form is the mma.m16n8k8 TF32 one: with g = lane / 4 and
+// t = lane % 4, a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4) of the warp's 16 rows; an accumulator's 8-column block holds
+// columns 2t and 2t + 1 instead, so {d[4j], d[4j + 2], d[4j + 1],
+// d[4j + 3]} is the A of a k step whose k index t is column 2t and
+// t + 4 is 2t + 1: B's 8 rows of that step must come in the order
+// 0, 2, 4, 6, 1, 3, 5, 7.
+
+// d (+)= A . B, m64n32k8 TF32, A and B from shared memory
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A . B, m64n64k8 TF32, A and B from shared memory
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A . B, m64n64k8 TF32, A from registers (the fragment above)
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 

@@ -1,4 +1,6 @@
-"""The bf16 flash-attention route at head sizes 64 and 128: ``flash_sm90``.
+"""The flash-attention routes at head sizes 64 and 128: ``flash_sm90``
+(bf16; the float32 one, ``flash_sm90_f32``, has its card tests in
+``tests/test_torch_flash_sm90_f32.py``).
 
 On the CPU: which kernel a (dtype, head size) call takes
 (``kernel_for``, which the wrapper and ``chip_smoke.py`` share), what
@@ -45,9 +47,17 @@ def test_kernel_for_bf16(D, want):
                                       in tfa.SM90_HEAD_DIMS)
 
 
-@pytest.mark.parametrize("D", (1, 16, 32, 40, 64, 80, 128, 256))
-def test_kernel_for_float32(D):
-    assert tfa.kernel_for(torch.float32, D) == "flash_kernel"
+@pytest.mark.parametrize("D,want", [
+    (64, "flash_sm90_f32"), (128, "flash_sm90_f32"),
+    (40, "flash_sm90_f32"), (33, "flash_sm90_f32"), (100, "flash_sm90_f32"),
+    (1, "flash_kernel"), (16, "flash_kernel"), (32, "flash_kernel"),
+    (80, "flash_kernel"), (129, "flash_kernel"), (256, "flash_kernel")])
+def test_kernel_for_float32(D, want):
+    """float32 takes flash_sm90_f32 exactly where the padded head size is
+    64 or 128, flash_kernel at every other size."""
+    assert tfa.kernel_for(torch.float32, D) == want
+    assert (want == "flash_sm90_f32") == (tfa.padded_head_dim(D)
+                                          in tfa.SM90_HEAD_DIMS)
 
 
 def test_kernel_for_names_only_built_kernels():
@@ -237,6 +247,8 @@ def test_route_agrees_with_kernel_for(cuda_device):
         for D in tfa.HEAD_DIMS:
             assert tfa.KERNELS[lib.flash_attention_route(code, D)] == \
                 tfa.kernel_for(dtype, D)
+    assert lib.flash_attention_route(0, 64) == \
+        tfa.KERNELS.index("flash_sm90_f32")
     assert lib.flash_attention_route(1, 48) == -1
     assert lib.flash_attention_route(2, 64) == -1
 
