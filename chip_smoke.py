@@ -9,7 +9,10 @@ head sizes 64 and 128, bf16 and float32 (``flash_turn``), for the
 package under ``ROOT/src`` (a ``git archive`` of another commit; this
 checkout by default), its flash source built with the nvcc defines
 given.
-Phases, each fatal on failure:
+Phases, each fatal on failure, run in the order 1, 2 (the builds
+started), 16 (it trains while they build: it needs none of them), 2
+(joined), 3-14, 20, 15, 17-19; the CPU-only work of phases 7 and 15 runs
+beside them from the start in a process of its own (``host_work``):
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: all seven CUDA kernels from ``src/repro_torch/kernels/csrc/``
@@ -59,7 +62,9 @@ Phases, each fatal on failure:
    reference), decode in
    float32 at the characterization's decode group,
    both attention kernels also at llama3.2-3b's 24/8 heads of 128,
-   dbrx-132b's 48/8 and qwen3-moe-235b-a22b's 64/4 (flash also at
+   dbrx-132b's 48/8, qwen3-moe-235b-a22b's 64/4 and qwen1.5-32b's
+   40/40 (flash also at internvl2-2b's 16/8 over 1100 tokens, at
+   hubert-xlarge's 16 heads of 80 over 1000 frames, bidirectional, at
    llama3.2-3b's other prompt lengths, at 4096 tokens and at a
    tensor-parallel rank's 12/4 heads; each flash row names the kernel
    that served it), the
@@ -132,8 +137,9 @@ Phases, each fatal on failure:
    with ``--kind decode``: the groups a decode step through the decode
    kernel (exact launches, no flash launch), a bundle that round-trips
    and a solve from it no worse than greedy;
-9. serve the recurrent families: full-width rwkv6-7b (4 prompts) and
-   recurrentgemma-9b (5, one of 2300 tokens past its 2048 window), seeded
+9. serve the recurrent families: full-width rwkv6-7b (4 prompts; 16 of
+   its 32 layers, SERVED_RECURRENT_LAYERS) and recurrentgemma-9b (5, one
+   of 2300 tokens past its 2048 window; all 38 layers), seeded
    random weights with the PERTURBED parameters filled, through
    ``ServingEngine`` with graph steps; every request gets its 16 tokens,
    every kernel of the path launches exactly layers x prefills or steps
@@ -150,7 +156,9 @@ Phases, each fatal on failure:
    engine must give the same tokens; each prefill's device ms (all
    kernels and the scan's, by the profiler) and each verdict's spread,
    margins and limits are reported;
-10. float32 end to end on both recurrent models: kernel path against
+10. float32 end to end on both recurrent models at full width, cut to
+   F32_RECURRENT_LAYERS (8 of rwkv6-7b's 32 layers, 9 of
+   recurrentgemma-9b's 38: its pattern three times): kernel path against
    plain path, and prefill(n) plus one decode step against prefill(n +
    1), each within E2E_F32_REL_TOL with the same argmax;
 11. gateway: full-width stablelm-1.6b and llama3.2-3b served together
@@ -226,9 +234,10 @@ Phases, each fatal on failure:
    d. full-width dbrx-132b at the dry run's training depth, Adafactor,
    16 microbatches of one 256-token sequence, 3 steps: finite losses, the
    MoE losses in them; e. ``python -m repro_torch.launch.train --arch
-   stablelm-1.6b --steps 20`` exits 0;
+   stablelm-1.6b --steps 20`` (started beside a-d) exits 0;
 17. several ranks sharing the card (``torch.distributed`` over ``gloo``,
-   helper ranks of ``repro_torch.ranks.RankPool``): a. phase 7's
+   helper ranks of ``repro_torch.ranks.RankPool``; the pool of 2 ranks
+   that 17a starts last serves 17b-d and phases 18 and 19): a. phase 7's
    orin fixture in float64 at MD_POPULATION chains and SEARCH_STEPS steps
    with the ring on 1, 2 and 4 ranks, and on one rank on the CPU (a
    subprocess run alongside): assignment, objective and chain equal bit
@@ -303,6 +312,36 @@ Phases, each fatal on failure:
    during the save, and of each rank during the restore, within 2 x
    the largest whole array + MT_HOST_SLACK (the writer's save growth
    reported: it keeps its host copies).
+20. (run after phase 14, before the dry run) the configurations no
+   earlier phase ran, at published widths and the dry run's deepest
+   depth for 4 slots of 2048 (each model's own), seeded weights:
+   qwen1.5-32b (64 layers, int8 KV cache, QKV bias, 40/40 heads of 128),
+   nemotron-4-15b (squared ReLU, 48/8 of 128, a 256,000-token
+   vocabulary) and internvl2-2b (16/8 of 128) served through
+   ``ServingEngine`` with graph steps as phase 4 serves stablelm-1.6b:
+   every request its 16 tokens, flash launches layers x prefills, decode
+   launches layers x steps, each run's peak against the dry run's, each
+   prompt's bf16 prefill through the kernels against the plain path in
+   the engine's slot-0 cache views (<= E2E_REL_TOL, same argmax; where
+   rounding through the layers carries the oracle path as far from the
+   plain path, phase 9's ``argmax_verdict`` with the oracle its correct
+   path); qwen1.5-32b's int8 cache after a 1000-token prefill within
+   |x|max / 254 a row plus the bf16 rounding of the prompt's unquantized
+   k and v, and its dequantization's device ms in a decode step;
+   internvl2-2b's 1100-token prefill with 1024 seeded patch embeddings
+   (held as a prompt is; ``mm_proj`` zeroed moves the logits by
+   FAULT_MIN_REL or more); an eager engine's tokens (not qwen1.5-32b's:
+   a second cache does not fit beside the first); each model at 2 layers
+   in float32 with a float32 cache, kernel path against plain path (the
+   prefix prefill too) and prefill(n) + decode against prefill(n + 1)
+   (E2E_F32_REL_TOL, same argmax); hubert-xlarge's 48-layer encoder over
+   1000 seeded frames: 48 ``flash_mma`` launches (head size 80), the
+   whole output within
+   E2E_REL_TOL of the plain path (the share of frames whose argmax
+   differs reported), float32 at 2 layers within E2E_F32_REL_TOL with
+   every frame's argmax the same; the serve CLI: ``--arch
+   hubert-xlarge`` exits 1 with the reference's message, ``--arch
+   internvl2-2b --requests 4`` serves at full width and exits 0.
 
 Each phase prints its seconds.  The last line is the contract line
 ``{"ok": true, "device": {...}}``; before it come the ``{"phase_s": ...}``,
@@ -310,7 +349,8 @@ Each phase prints its seconds.  The last line is the contract line
 ``{"search": ...}``,
 ``{"characterize": ...}``, ``{"serve_recurrent": ...}``,
 ``{"gateway": ...}``, ``{"fleet": ...}``, ``{"serve_moe": ...}``,
-``{"dryrun": ...}``, ``{"train": ...}``, ``{"multidevice": ...}``,
+``{"serve_slice": ...}``, ``{"dryrun": ...}``, ``{"train": ...}``,
+``{"multidevice": ...}``,
 ``{"tensor_parallel": ...}``, ``{"mesh_train": ...}`` and
 ``{"memory": ...}`` lines,
 one
@@ -410,7 +450,7 @@ FIT_GATE = 0.05
 #: one process with the antagonist on each share of the SMs
 SPREAD_SHARES = (0.25, 0.5)
 SPREAD_REPEATS = 3
-PHASES = 19
+PHASES = 20
 #: phase 16a: full-width stablelm-1.6b training
 TRAIN_ARCH = "stablelm-1.6b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 1024, 8, 10, 3e-4
@@ -872,8 +912,9 @@ def attention_f64(q, k, v, window=None):
 
 
 def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
-                 dtype=torch.bfloat16) -> dict:
-    """Time one causal prefill's attention, beside its plain version, its
+                 dtype=torch.bfloat16, causal=True) -> dict:
+    """Time one prefill's attention (causal unless ``causal`` is False:
+    an encoder's), beside its plain version, its
     bound and ``F.scaled_dot_product_attention`` (GQA expanded).
     ``kernel`` names the kernel that served it (``fa.kernel_for``), and
     ``bound_ms`` is held to that kernel's hardware path: bf16 to the
@@ -886,8 +927,8 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
     q = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(dtype)
     k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
             .to(dtype) for _ in range(2))
-    got = fa.flash_attention(q, k, v, window=window)
-    plain = fa.attention_torch(q, k, v, window=window)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    plain = fa.attention_torch(q, k, v, causal=causal, window=window)
     err = compare(f"flash timed shape D{D} {str(dtype)[6:]}", got, plain,
                   dtype)
     f64 = {}
@@ -901,7 +942,8 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
     kt, vt = (x.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
               for x in (k, v))
     w = S if window is None else window
-    pairs = sum(min(i + 1, w) for i in range(S))        # live (q, k) pairs
+    pairs = (sum(min(i + 1, w) for i in range(S)) if causal
+             else S * S)                                # live (q, k) pairs
     flops = 4 * B * Hq * D * pairs
     size = dtype.itemsize
     nbytes = 2 * B * S * (Hq + Hkv) * D * size     # q, k, v read; o written
@@ -914,7 +956,8 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
         b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
     if window is None:
         def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
     else:
         pos = torch.arange(S, device=dev)
         mask = ((pos[None, :] <= pos[:, None])
@@ -923,11 +966,14 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     return dict(
-        shape=f"B{B} S{S} H{Hq}/{Hkv} D{D} {str(dtype)[6:]} causal"
+        shape=f"B{B} S{S} H{Hq}/{Hkv} D{D} {str(dtype)[6:]} "
+              + ("causal" if causal else "bidirectional")
               + ("" if window is None else f" window {window}"),
         kernel=kernel, max_abs_err=err,
-        ms=timer(lambda: fa.flash_attention(q, k, v, window=window)),
-        plain_ms=timer(lambda: fa.attention_torch(q, k, v, window=window)),
+        ms=timer(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                            window=window)),
+        plain_ms=timer(lambda: fa.attention_torch(q, k, v, causal=causal,
+                                                  window=window)),
         bound_ms=b_ms, bound_by=b_by, library_ms=timer(library), **cores,
         **f64)
 
@@ -938,7 +984,10 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
 #: gateway's second tenant) at 1024 tokens, at the other served prompt
 #: lengths, at 4096 (where attention's share of a prefill grows) and on
 #: a tensor-parallel rank of 2 (12/4 heads); the MoE models' layers at
-#: 1024 tokens: dbrx-132b's 48 over 8 and qwen3-moe-235b-a22b's 64 over 4
+#: 1024 tokens: dbrx-132b's 48 over 8 and qwen3-moe-235b-a22b's 64 over 4;
+#: phase 20's models: qwen1.5-32b's 40 over 40 (groups of 1) at its
+#: 1000-token prompt, internvl2-2b's 16 over 8 at its 1100-token prefix
+#: prefill (nemotron-4-15b's 48 over 8 is dbrx-132b's layout)
 SM90_ROWS = {
     "": (1, 1024, 32, 32, 64),
     "at_llama": (1, 1024, 24, 8, 128),
@@ -948,13 +997,17 @@ SM90_ROWS = {
     "at_llama_4096": (1, 4096, 24, 8, 128),
     "at_llama_rank": (1, 1024, 12, 4, 128),
     "at_dbrx": (1, 1024, 48, 8, 128),
-    "at_qwen3_moe": (1, 1024, 64, 4, 128)}
+    "at_qwen3_moe": (1, 1024, 64, 4, 128),
+    "at_qwen1_5": (1, 1000, 40, 40, 128),
+    "at_internvl2": (1, 1100, 16, 8, 128)}
 
 
 def time_flash(fa, timer, gen, dev) -> dict:
     """Slice shapes: SM90_ROWS; recurrentgemma-9b's local layer at its
     2300-token prompt (16 query heads and one kv head of 256, window
-    2048).  ``kernel`` names the kernel that served each row."""
+    2048); hubert-xlarge's encoder layer, 16 heads of 80 over its 1000
+    frames, bidirectional (``flash_mma``).  ``kernel`` names the kernel
+    that served each row."""
     def row(B, S, Hq, Hkv, D, window=None, dtype=torch.bfloat16):
         return flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
                             dtype)
@@ -965,7 +1018,9 @@ def time_flash(fa, timer, gen, dev) -> dict:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:113",
         **rows.pop(""),
-        at_d256=row(1, 2300, 16, 1, 256, 2048), **rows)
+        at_d256=row(1, 2300, 16, 1, 256, 2048),
+        at_hubert=flash_timing(fa, timer, gen, dev, 1, ENCODER_FRAMES, 16,
+                               16, 80, None, causal=False), **rows)
 
 
 #: the causal float32 layers ``flash_sm90_f32`` is timed at, (B, S, Hq,
@@ -1037,7 +1092,8 @@ def time_decode(da, timer, gen, dev) -> dict:
     over 8 kv heads of 128 (groups of 3: the CUDA-core pass 1), and the
     MoE models' layers, dbrx-132b's 48 over 8 (groups of 6, the same
     pass) and qwen3-moe-235b-a22b's 64 over 4 (groups of 16, the
-    tensor-core pass), at the first shape's slots and lengths; and the
+    tensor-core pass), and qwen1.5-32b's 40 over 40 (groups of 1, the
+    CUDA-core pass), at the first shape's slots and lengths; and the
     characterization's float32 decode group (stablelm-1.6b, batch 2 over
     256 slots, 32 heads of 64: the CUDA-core pass)."""
     return dict(
@@ -1054,6 +1110,8 @@ def time_decode(da, timer, gen, dev) -> dict:
                               (9, 200, 514, 2047)),
         at_qwen3_moe=decode_timing(da, timer, gen, dev, 4, 2048, 64, 4, 128,
                                    (9, 200, 514, 2047)),
+        at_qwen1_5=decode_timing(da, timer, gen, dev, 4, 2048, 40, 40, 128,
+                                 (9, 200, 514, 2047)),
         at_f32_characterize=decode_timing(da, timer, gen, dev, 2, 256, 32,
                                           32, 64, (256, 256), torch.float32))
 
@@ -2237,6 +2295,16 @@ def rwkv_fault(model, rk, batch, views, plain, correct, n) -> dict:
     return v
 
 
+#: phase 9's depths: each rwkv6-7b layer runs the same scan, and its plain
+#: path (the verdict's yardstick, a 0.2 ms step a token a layer) set most
+#: of the phase's time at 32 layers.  recurrentgemma-9b keeps all 38: at
+#: 20 the verdict refused its 8-token prompt (kernel path 2.346e-2 from
+#: the plain path, the oracle 1.718e-2, limit 2.148e-2), where at 38 the
+#: kernel path sits at 0.84 of its limit; the float32 check of its layers
+#: (phase 10) passes
+SERVED_RECURRENT_LAYERS = {"rwkv6-7b": 16, "recurrentgemma-9b": 38}
+
+
 def serve_recurrent(arch, mods, dev) -> dict:
     """Serve ``arch`` at full width through ``ServingEngine``: every
     request its MAX_NEW tokens, the exact launch count of each kernel on
@@ -2254,7 +2322,8 @@ def serve_recurrent(arch, mods, dev) -> dict:
 
     rg, rk = mods["rglru_scan"], mods["rwkv6_scan"]
     free_card()             # what earlier phases left stays out of the peak
-    cfg = configs.get(arch)
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, n_layers=SERVED_RECURRENT_LAYERS[arch])
     lens, capacity = ((RG_PROMPT_LENS, RG_CAPACITY) if "rglru" in
                       cfg.layer_kinds else (PROMPT_LENS, 2048))
     model = build_recurrent(cfg, "auto", dev)
@@ -2274,7 +2343,8 @@ def serve_recurrent(arch, mods, dev) -> dict:
     wall = time.perf_counter() - t0
     launches = {name: m.launches for name, m in mods.items()}
     peak = torch.cuda.max_memory_allocated()
-    memory_row(f"serve {arch}", serve_peak(cfg, 4, capacity, lens), peak)
+    memory_row(f"serve {arch} ({cfg.n_layers} layers)",
+               serve_peak(cfg, 4, capacity, lens), peak)
 
     require(len(done) == len(prompts), f"served {len(done)}/{len(prompts)}")
     for r in done:
@@ -2332,7 +2402,8 @@ def serve_recurrent(arch, mods, dev) -> dict:
             faults.append(rwkv_fault(model, rk, batch, views, w, correct,
                                      len(p)))
 
-    out = dict(arch=cfg.name, requests=len(done), max_new=MAX_NEW,
+    out = dict(arch=cfg.name, n_layers=f"{cfg.n_layers} of {full.n_layers}",
+               requests=len(done), max_new=MAX_NEW,
                prompt_lens=list(lens), capacity=capacity, launches=launches,
                prefills=m["admitted"], decode_steps=m["steps"],
                tokens_out=m["tokens_out"], wall_s=wall,
@@ -2503,17 +2574,23 @@ def planted_fault(model, rg, prompt, dev, views) -> float:
     return rel
 
 
+#: phase 10's depths: every layer kind of each model (recurrentgemma-9b's
+#: pattern three times over), every prompt through each
+F32_RECURRENT_LAYERS = {"rwkv6-7b": 8, "recurrentgemma-9b": 9}
+
+
 def e2e_f32_recurrent(arch, dev) -> dict:
     """Kernel path against plain path, float32 end to end, on ``arch`` at
-    full width (float32 weights, activations and caches; TF32 off): each
-    prompt's prefill logits, and prefill(n + 1) against prefill(n) and
-    one decode step through the kernels."""
-    import dataclasses
-
+    full width cut to F32_RECURRENT_LAYERS (float32 weights, activations
+    and caches; TF32 off): each prompt's prefill logits, and prefill(n +
+    1) against prefill(n) and one decode step through the kernels."""
     from repro_torch import configs
 
-    cfg = dataclasses.replace(configs.get(arch), dtype="float32",
-                              kv_cache_dtype="float32")
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, dtype="float32",
+                              kv_cache_dtype="float32",
+                              n_layers=F32_RECURRENT_LAYERS[arch])
+    print(f"  f32 {arch}: {cfg.n_layers} of {full.n_layers} layers")
     lens = RG_PROMPT_LENS if "rglru" in cfg.layer_kinds else PROMPT_LENS
     model = build_recurrent(cfg, "cuda", dev)
     rels, same, step_rels = [], [], []
@@ -2549,7 +2626,8 @@ def e2e_f32_recurrent(arch, dev) -> dict:
     require(max(step_rels) <= E2E_F32_REL_TOL,
             f"f32 {arch}: prefill+decode rel err {max(step_rels)} > "
             f"{E2E_F32_REL_TOL}")
-    return dict(prompt_lens=list(lens), logits_rel_err=rels,
+    return dict(n_layers=f"{cfg.n_layers} of {full.n_layers}",
+                prompt_lens=list(lens), logits_rel_err=rels,
                 prefill_decode_rel_err=step_rels)
 
 
@@ -2651,13 +2729,15 @@ def solve(sd, se, req, model, device, **knobs) -> tuple:
     return plan, row
 
 
-def card_vs_cpu(sd, se, req, model, dev, population, label) -> tuple:
+def card_vs_cpu(sd, se, req, model, dev, population, label, host
+                ) -> tuple:
     """The float64 anneal solve of ``req`` under ``model`` at
     ``population`` chains, on the card (as graphs, both search kernels
     launched, the select kernel once a step plus its warm-ups) and on the
-    CPU (no kernel launched): the card's device objective must be the
-    CPU's to 1e-9.  Returns the card's plan, both rows, whether the
-    assignments are the same and the relative difference."""
+    CPU (no kernel launched; solved by the host-work process,
+    CPU_SOLVES): the card's device objective must be the CPU's to 1e-9.
+    Returns the card's plan, both rows, whether the assignments are the
+    same and the relative difference."""
     knobs = dict(solver="anneal", precision="x64", population=population,
                  steps=SEARCH_STEPS, seed=0)
     gpu_plan, gpu = solve(sd, se, req, model, dev, **knobs)
@@ -2667,13 +2747,17 @@ def card_vs_cpu(sd, se, req, model, dev, population, label) -> tuple:
             and gpu["launches"]["anneal_select"]
             == SEARCH_STEPS + gpu["select_warmups"],
             f"{label}: search kernels did not launch: {gpu['launches']}")
-    cpu_plan, cpu = solve(sd, se, req, model, torch.device("cpu"), **knobs)
+    done = host.result("cpu_solves")[label]
+    cpu = done["row"]
+    require(all(cpu[k] == v for k, v in knobs.items() if k in cpu)
+            and cpu["population"] == population,
+            f"{label}: the host solved {cpu}, not {knobs}")
     require(cpu["launches"] == {"piecewise_slowdown": 0,
                                 "anneal_select": 0},
             f"{label}: a kernel launched for CPU tensors")
     d_gpu, d_cpu = gpu["device_objective"], cpu["device_objective"]
     rel = abs(d_gpu - d_cpu) / abs(d_cpu)
-    same = gpu_plan.assignments == cpu_plan.assignments
+    same = [list(a) for a in gpu_plan.assignments] == done["assignments"]
     print(f"  {label} cuda vs cpu: chain {gpu['chain']} vs {cpu['chain']}, "
           f"same assignment {same}, device objective {d_gpu!r} vs "
           f"{d_cpu!r} (rel {rel:.2e})")
@@ -2685,11 +2769,11 @@ def card_vs_cpu(sd, se, req, model, dev, population, label) -> tuple:
     return gpu_plan, gpu, cpu, same, rel
 
 
-def search(sd, se, dev) -> dict:
+def search(sd, se, dev, host) -> dict:
     reqs = fixture_requests()
     req, model = reqs[ORIN]
     gpu_plan, gpu, cpu_row, same, rel = card_vs_cpu(
-        sd, se, req, model, dev, 4096, "orin x64")
+        sd, se, req, model, dev, 4096, "orin x64", host)
     d_gpu = gpu["device_objective"]
     resim = abs(gpu_plan.objective - d_gpu) / abs(gpu_plan.objective)
     print(f"  device objective vs scalar re-simulation: rel {resim:.2e}")
@@ -2714,7 +2798,7 @@ def search(sd, se, dev) -> dict:
     _, f32 = solve(sd, se, req, model, dev, solver="anneal",
                    precision="float32", population=4096,
                    steps=SEARCH_STEPS, seed=0)
-    scaled = scaled_search(sd, se, req, model, dev)
+    scaled = scaled_search(sd, se, req, model, dev, host)
     prof = profile_search(req, model, dev, sd, se)
     return dict(model="PCCS 5x5 (repro/profiling/virtual.py:42-50)",
                 steps=SEARCH_STEPS, fixture_steps=FIXTURE_STEPS,
@@ -2724,13 +2808,119 @@ def search(sd, se, dev) -> dict:
                 scaled=scaled, profile=prof)
 
 
+# ---------------------------------------------------------------------------
+# host work: what phases 7 and 15 compute without the card
+# ---------------------------------------------------------------------------
 #: the §4.4 severity the scaled solve prices contention at, and the
 #: observed slowdown the rescheduled plan is made from (quantized 1.625)
 SCALED_FACTOR = 1.5
 OBSERVED_FACTOR = 1.6
+#: phase 7's float64 CPU solves of the orin fixture, (label, the PCCS
+#: surface scaled by this factor or None, chains); the card's solves of
+#: the same knobs must give their incumbents (``card_vs_cpu``)
+CPU_SOLVES = (("orin x64", None, 4096),
+              (f"scaled x{SCALED_FACTOR} x64", SCALED_FACTOR, 1024))
+#: torch's CPU threads in the host-work process: the card's phases keep
+#: the host's other cores
+HOST_THREADS = 4
+#: the longest the script waits for one of the host work's results
+HOST_TIMEOUT_S = 600
 
 
-def scaled_search(sd, se, req, pccs, dev) -> dict:
+def host_work(out: str) -> int:
+    """``--host-work OUT``: the work of phases 7 and 15 that needs no card,
+    in a process of its own (no CUDA device visible to it) that ``main``
+    starts before the build, so that it runs beside the card's phases:
+    the float64 anneal solves CPU_SOLVES on the CPU, then the dry run over
+    every architecture and shape (``launch.dryrun``) and the MoE depths
+    it gives 4 slots of 1040.  Each result is written as JSON to
+    ``OUT.<name>.json`` as soon as it is done."""
+    from repro_torch import configs
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.dynamic import ScaledContentionModel
+    from repro_torch.kernels import search as se
+    from repro_torch.kernels import slowdown as sd
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(HOST_THREADS)
+
+    def write(name, value):
+        tmp = Path(f"{out}.{name}.tmp")
+        tmp.write_text(json.dumps(value))
+        tmp.rename(f"{out}.{name}.json")
+
+    req, pccs = fixture_requests()[ORIN]
+    solves = {}
+    for label, factor, population in CPU_SOLVES:
+        model = pccs if factor is None else ScaledContentionModel(pccs,
+                                                                  factor)
+        plan, row = solve(sd, se, req, model, torch.device("cpu"),
+                          solver="anneal", precision="x64",
+                          population=population, steps=SEARCH_STEPS, seed=0)
+        solves[label] = dict(row=row, assignments=[
+            list(a) for a in plan.assignments])
+    write("cpu_solves", solves)
+    t0 = time.perf_counter()
+    recs = dryrun.run(list(configs.ARCHS), list(SHAPES), log=lambda _: None)
+    write("dryrun", dict(records=recs, seconds=time.perf_counter() - t0,
+                         moe_layers_at_1040=moe_layers(1040)))
+    return 0
+
+
+class HostWork:
+    """The ``--host-work`` process (``host_work``), started at once; its
+    output is printed, indented, when its first result is taken, and it
+    is killed by ``close`` if it is still running."""
+
+    def __init__(self):
+        self.dir = tempfile.TemporaryDirectory()
+        self.out = Path(self.dir.name) / "host"
+        self.log = Path(self.dir.name) / "host.log"
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--host-work", str(self.out)], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT,
+                env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        self.done, self.printed = {}, 0
+
+    def result(self, name: str) -> dict:
+        """Result ``name``, waiting for it; fatal if the process ended
+        without it."""
+        path = Path(f"{self.out}.{name}.json")
+        t0 = time.perf_counter()
+        if name in self.done:
+            return self.done[name]
+        while name not in self.done:
+            if path.exists():
+                self.done[name] = json.loads(path.read_text())
+                self.done[name]["ready_after_s"] = time.perf_counter() - (
+                    self.t0)
+                self.done[name]["waited_s"] = time.perf_counter() - t0
+                break
+            rc = self.proc.poll()
+            require(rc is None and time.perf_counter() - t0 < HOST_TIMEOUT_S,
+                    f"the host-work process gave no {name} (exit {rc}):\n"
+                    + self.log.read_text()[-4000:])
+            time.sleep(0.1)
+        lines = self.log.read_text().splitlines()
+        for line in lines[self.printed:]:
+            print(f"    [host work] {line}")
+        self.printed = len(lines)
+        got = self.done[name]
+        print(f"  host work: {name} ready {got['ready_after_s']:.1f} s "
+              f"after the script started it, waited {got['waited_s']:.1f} s")
+        return got
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.dir.cleanup()
+
+
+def scaled_search(sd, se, req, pccs, dev, host) -> dict:
     """§4.4 on the card: the orin fixture under ``ScaledContentionModel(
     pccs, 1.5)`` (the scaled surface through the slowdown kernel, then
     the select kernel in every step), float64 at 1024 chains, must give
@@ -2744,7 +2934,7 @@ def scaled_search(sd, se, req, pccs, dev) -> dict:
 
     _, gpu, cpu, same, rel = card_vs_cpu(
         sd, se, req, ScaledContentionModel(pccs, SCALED_FACTOR), dev, 1024,
-        f"scaled x{SCALED_FACTOR} x64")
+        f"scaled x{SCALED_FACTOR} x64", host)
     sched = Scheduler(req.platform, model=pccs, device=dev)
     plan = reschedule_plan(sched, list(req.graphs), OBSERVED_FACTOR,
                            objective=req.objective,
@@ -3849,27 +4039,560 @@ def e2e_f32_moe(arch, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the dry run and training
+# the four configurations no earlier phase ran: qwen1.5-32b (int8 KV
+# cache), nemotron-4-15b, internvl2-2b served; hubert-xlarge's encoder
 # ---------------------------------------------------------------------------
-def dryrun_phase() -> dict:
-    """``launch.dryrun`` over every architecture and shape, and the MoE
-    depths it gives phase 13's load beside PR 21's."""
-    from repro_torch import configs
-    from repro_torch.analysis import report
-    from repro_torch.configs.base import SHAPES
+#: the decoder models phase 20 serves at published widths
+SLICE_ARCHS = ("qwen1.5-32b", "nemotron-4-15b", "internvl2-2b")
+ENCODER_ARCH = "hubert-xlarge"
+#: the float32 end-to-end cuts' depth
+SLICE_F32_LAYERS = 2
+#: internvl2-2b's prefix prefill: text positions follow the 1024 patches
+VLM_PROMPT = 1100
+#: hubert-xlarge's frames (B 1)
+ENCODER_FRAMES = 1000
+
+
+def slice_depth(cfg, slots=4, capacity=2048, lens=PROMPT_LENS) -> int:
+    """The deepest depth of ``cfg`` whose serving peak the dry run puts
+    within one card at phase 20's load, at most its own depth."""
     from repro_torch.launch import dryrun
 
+    return min(cfg.n_layers, dryrun.deepest_depth(
+        cfg, lambda c: serve_peak(c, slots, capacity, lens)["peak_bytes"]))
+
+
+def build_dense(cfg, dev, backend="auto"):
+    """``cfg`` with seeded random weights on the card, each weight drawn
+    in float32 one at a time and stored in the dtype it is used in (no
+    whole-model float32 copy)."""
+    from repro_torch.models import build
+
     t0 = time.perf_counter()
-    recs = dryrun.run(list(configs.ARCHS), list(SHAPES), log=lambda _: None)
-    took = time.perf_counter() - t0
+    model = build(cfg, backend=backend, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"  built {cfg.name} ({cfg.dtype}, {cfg.kv_cache_dtype} cache): "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.d_head}, {cfg.act}, "
+          f"{sum(p.numel() for p in model.parameters()):,} parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def served_verdict(label, g, w, r) -> dict:
+    """One bf16 prefill's kernel-path logits ``g`` against the plain
+    path's ``w``: E2E_REL_TOL and the same argmax; where that fails and
+    the oracle ``r`` errs as much against the plain path (rounding
+    through the layers, not a kernel), phase 9's ``argmax_verdict`` with
+    the oracle as the correct path.  Fatal unless one of them passes."""
+    require(bool(torch.isfinite(g).all()), f"{label}: non-finite logits")
+    rel, floor = rel_err(g, w), rel_err(r, w)
+    same = int(g.argmax()) == int(w.argmax())
+    v = argmax_verdict(g, w, {"oracle": r})
+    strict = same and rel <= E2E_REL_TOL
+    row = dict(rel_err=rel, oracle_vs_plain_rel_err=floor,
+               argmax=[int(g.argmax()), int(w.argmax()), int(r.argmax())],
+               strict_ok=strict,
+               judged_by="E2E_REL_TOL" if strict else "argmax_verdict",
+               verdict=v)
+    print(f"  {label}: kernel-vs-plain logits rel err {rel:.3e} "
+          f"(oracle-vs-plain {floor:.3e}), argmax {row['argmax'][0]} vs "
+          f"{row['argmax'][1]} (oracle {row['argmax'][2]}): "
+          + ("ok" if strict else
+             f"past {E2E_REL_TOL:g} or argmax, so phase 9's verdict: "
+             f"{verdict_line(v)}"))
+    require(strict or v["ok"], f"{label}: kernel path refused ({rel})")
+    return row
+
+
+def int8_cache_check(model, batch, views) -> dict:
+    """After a prefill into the int8 cache ``views``, each layer's
+    dequantized k and v rows against the prompt's unquantized k and v
+    (the attention block's own output, caught by a hook and compared
+    once the layer's cache is written): within the quantization's bound,
+    |x|max / 254 per row (x / scale rounds to the nearest of 255 levels
+    of step |x|max / 127), plus the bf16 rounding of the dequantized
+    value (2^-8 of it: bf16 keeps 8 significant bits).  Fatal."""
+    from repro_torch.models import kvcache
+
+    held, worst, n = {}, [], len(model.layers)
+
+    def grab(i):
+        def hook(mod, args, out):
+            held[i] = out[1]
+        return hook
+
+    def check(i):
+        k, v = held.pop(i)
+        for name, x in (("k", k), ("v", v)):
+            S = x.shape[1]
+            lay = views[i][name]
+            got = kvcache.dequant({"data": lay["data"][:, :S],
+                                   "scale": lay["scale"][:, :S]}).float()
+            xf = x.float()
+            limit = (xf.abs().amax(-1, keepdim=True) / 254 * (1 + 1e-4)
+                     + got.abs() * 2.0 ** -8 * (1 + 2.0 ** -7))
+            over = float(((got - xf).abs() / limit).max())
+            worst.append(over)
+
+    hooks = [layer.t.register_forward_hook(grab(i))
+             for i, layer in enumerate(model.layers)]
+    hooks += [model.layers[i].register_forward_pre_hook(
+        lambda mod, args, i=i: check(i - 1)) for i in range(1, n)]
+    try:
+        model.prefill(batch, cache_out=views)
+        check(n - 1)
+    finally:
+        for h in hooks:
+            h.remove()
+    got = dict(layers=n, tokens=int(batch["token_ids"].shape[1]),
+               worst_err_over_bound=max(worst))
+    print(f"  int8 cache after a {got['tokens']}-token prefill, {n} layers "
+          f"x k, v: largest |dequantized - unquantized| is "
+          f"{got['worst_err_over_bound']:.4f} of its bound (|x|max / 254 "
+          f"per row + the bf16 rounding)")
+    require(got["worst_err_over_bound"] <= 1.0,
+            f"the int8 cache is off its quantization bound: {got}")
+    return got
+
+
+def dequant_ms(model, eng) -> dict:
+    """The int8 cache's dequantization in one decode step, stepped eagerly
+    over the engine's caches (slots as they stand) under the profiler
+    with ``kvcache.dequant`` in a ``kv_dequant`` range: the device ms of
+    the kernels under that range beside the step's.  A finding, not a
+    check."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import kvcache
+
+    plain = kvcache.dequant
+    calls = []
+
+    def ranged(layer):
+        calls.append(1)
+        with record_function("kv_dequant"):
+            return plain(layer)
+
+    batch = {"token_ids": torch.as_tensor(eng.last_tok[:, None],
+                                          device=eng.device),
+             "lengths": torch.as_tensor(eng.lengths, device=eng.device)}
+    with swapped(kvcache, "dequant", ranged):
+        model.decode_step(eng.caches, batch)             # warm
+        torch.cuda.synchronize()
+        calls.clear()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.decode_step(eng.caches, batch)
+            torch.cuda.synchronize()
+    ms = sum(getattr(e, "device_time_total", 0) for e in prof.events()
+             if e.name == "kv_dequant" and e.device_type.name == "CPU") / 1e3
+    kernels, _ = device_ms_by_kernel(prof)
+    out = dict(calls=len(calls), dequant_ms=ms if ms > 0 else "not measured",
+               eager_step_device_ms=sum(kernels.values()))
+    print(f"  int8 dequantization in one eager decode step: {len(calls)} "
+          f"calls, {out['dequant_ms'] if ms == 0 else f'{ms:.3f} ms'} of "
+          f"device time (the profiler's kv_dequant range), of the step's "
+          f"{out['eager_step_device_ms']:.3f} device ms")
+    return out
+
+
+def vlm_batch(cfg, dev, dtype=torch.bfloat16) -> dict:
+    """internvl2-2b's prefix prefill: VLM_PROMPT seeded tokens and seeded
+    ``mm_embeds`` (1 x mm_prefix x mm_embed_dim) for its first positions."""
+    import numpy as np
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ids = np.random.default_rng(5).integers(0, cfg.vocab, VLM_PROMPT)
+    return {"token_ids": torch.as_tensor(ids[None], device=dev),
+            "mm_embeds": torch.randn(1, cfg.mm_prefix, cfg.mm_embed_dim,
+                                     generator=gen, device=dev).to(dtype)}
+
+
+def vlm_prefix(model, views, dev) -> dict:
+    """internvl2-2b's patch prefix: one VLM_PROMPT-token prefill with
+    ``vlm_batch``'s patch embeddings through the kernels against the
+    plain path (``served_verdict``: E2E_REL_TOL and the same argmax, or
+    phase 9's verdict where the oracle path errs as far; one flash launch
+    a layer), then with ``mm_proj`` zeroed the logits must move by
+    FAULT_MIN_REL or more (the prefix reaches the output).  The float32
+    cut holds the same prefill to E2E_F32_REL_TOL (``e2e_f32_dense``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = model.cfg
+    batch = vlm_batch(cfg, dev)
+    before = fa.launches
+    g = last_logits(model, "cuda", batch, views)
+    launches = fa.launches - before
+    w = last_logits(model, "torch", batch, views)
+    r = last_logits(model, "ref", batch, views)
+    row = served_verdict(f"prefix prefill S={VLM_PROMPT} (mm_embeds 1 x "
+                         f"{cfg.mm_prefix} x {cfg.mm_embed_dim} in the "
+                         f"first {cfg.mm_prefix} positions)", g, w, r)
+    saved = model.emb.mm_proj.detach().clone()
+    with torch.no_grad():
+        model.emb.mm_proj.zero_()
+    try:
+        zeroed = last_logits(model, "cuda", batch, views)
+    finally:
+        with torch.no_grad():
+            model.emb.mm_proj.copy_(saved)
+    moved = rel_err(zeroed, g)
+    out = dict(prompt_len=VLM_PROMPT, mm_prefix=cfg.mm_prefix, **row,
+               flash_launches=launches, zeroed_mm_proj_rel=moved)
+    print(f"  prefix prefill: {launches} flash launches; mm_proj zeroed "
+          f"moves the logits by rel {moved:.3e} (must be >= "
+          f"{FAULT_MIN_REL:g})")
+    require(launches == cfg.n_layers, f"prefix prefill: {launches} flash "
+            f"launches, not {cfg.n_layers}")
+    require(moved >= FAULT_MIN_REL, f"zeroing mm_proj moved the logits by "
+            f"only {moved}: the prefix does not reach the output")
+    return out
+
+
+def serve_dense(arch, mods, dev) -> dict:
+    """Serve full-width ``arch`` (at the dry run's deepest depth for 4
+    slots of 2048, its own unless that does not fit) through
+    ``ServingEngine`` with graph steps, as phase 4 serves stablelm-1.6b:
+    every request its MAX_NEW tokens, exact flash and decode launches,
+    the run's peak against the dry run's, each prompt's bf16 prefill
+    through the kernels against the plain path in the engine's slot-0
+    cache views (``served_verdict``), the 1000-token prefill's device ms,
+    the graph step's ms and busy share; qwen1.5-32b's int8 cache held to
+    its quantization bound and its dequantization's ms a step;
+    internvl2-2b's patch prefix (``vlm_prefix``); an eager engine's tokens
+    where a second engine fits beside the first (not qwen1.5-32b's)."""
+    from repro_torch import configs
+    from repro_torch.kernels.graph import Graph
+    from repro_torch.models import kvcache
+    from repro_torch.serve.engine import ServingEngine
+
+    fa, da = mods["flash_attention"], mods["decode_attention"]
+    free_card()             # what earlier phases left stays out of the peak
+    full = configs.get(arch)
+    depth = slice_depth(full)
+    require(depth >= 1, f"{arch}: the dry run fits no layer")
+    cfg = dataclasses.replace(full, n_layers=depth)
+    held = torch.cuda.memory_allocated()
+    print(f"  {arch}: the dry run's deepest depth for 4 slots of 2048 is "
+          f"{depth} of {full.n_layers} layers; this process holds "
+          f"{held / 1e9:.3f} GB before the build (in the peak below)")
+    model = build_dense(cfg, dev)
+    eng = ServingEngine(model, max_slots=4, capacity=2048)
+    require(isinstance(eng.graph.graph, Graph),
+            "the engine did not capture its step")
+    prompts = make_prompts(cfg.vocab)
+    for p in prompts:
+        eng.submit(p, max_new=MAX_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches,
+                "decode_attention": da.launches}
+    peak = torch.cuda.max_memory_allocated()
+    mem = memory_row(f"serve {arch} ({depth} layers)",
+                     serve_peak(cfg, 4, 2048, PROMPT_LENS), peak)
+    require(len(done) == len(prompts), f"served {len(done)}/{len(prompts)}")
+    for r in done:
+        require(len(r.tokens) == MAX_NEW,
+                f"request {r.rid} got {len(r.tokens)} tokens, not {MAX_NEW}")
+    m = eng.metrics()
+    want = {"flash_attention": depth * m["admitted"],
+            "decode_attention": depth * m["steps"]}
+    print(f"  served {len(done)} requests, {m['tokens_out']} tokens, "
+          f"{m['admitted']} prefills, {m['steps']} decode steps in "
+          f"{wall:.3f} s, mean step {m['mean_step_ms']:.3f} ms (CUDA graph, "
+          f"launches per replay {eng.graph.graph.launches}); launches "
+          f"{launches}")
+    require(launches == want, f"launches {launches} != {want} ({depth} "
+            f"layers x prefills/steps)")
+    graph_tokens = engine_tokens(eng)
+
+    views = [kvcache.select(c, 0) for c in eng.caches]
+    rows, prefill_ms = [], []
+    for p in prompts:
+        batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
+        out = {b: last_logits(model, b, batch, views)
+               for b in ("cuda", "torch", "ref")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(batch, cache_out=views)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(served_verdict(f"prefill S={len(p)}", out["cuda"],
+                                   out["torch"], out["ref"]))
+    flash_e2e = prefill_flash(model, batch, views)
+    print(f"  prefill S={len(prompts[-1])}: {prefill_ms[-1]:.2f} ms wall, "
+          f"device ms {flash_e2e}")
+    result = dict(arch=arch, n_layers=f"{depth} of {full.n_layers}",
+                  kv_cache_dtype=cfg.kv_cache_dtype, requests=len(done),
+                  max_new=MAX_NEW, prompt_lens=list(PROMPT_LENS),
+                  capacity=2048, launches=launches, prefills=m["admitted"],
+                  decode_steps=m["steps"], tokens_out=m["tokens_out"],
+                  wall_s=wall, mean_decode_step_ms=m["mean_step_ms"],
+                  prefill_ms=prefill_ms, prompts=rows,
+                  prefill_flash=flash_e2e, memory=mem,
+                  held_before_build=held,
+                  graph_launches_per_replay=eng.graph.graph.launches)
+    if cfg.kv_cache_dtype == "int8":
+        result["int8_cache"] = int8_cache_check(model, batch, views)
+    if cfg.mm_prefix:
+        result["prefix"] = vlm_prefix(model, views, dev)
+    result["profile"] = profile_decode(eng, prompts)
+    if cfg.kv_cache_dtype == "int8":
+        result["int8_cache"]["dequant"] = dequant_ms(model, eng)
+    del eng, views
+    free_card()
+    if cfg.kv_cache_dtype == "int8":
+        result["eager"] = ("not run: a second engine's cache does not fit "
+                           "beside the first")
+        print(f"  eager engine: {result['eager']}")
+    else:
+        result["eager"] = eager_comparison(model, prompts, 2048,
+                                           graph_tokens)
+    del model
+    free_card()
+    return result
+
+
+def e2e_f32_dense(arch, dev) -> dict:
+    """Kernel path against plain path, float32 end to end, on full-width
+    ``arch`` cut to SLICE_F32_LAYERS layers with a float32 KV cache (for
+    qwen1.5-32b in place of its int8 one, whose rounding is not a
+    kernel's): each prompt's prefill logits (and internvl2-2b's prefix
+    prefill, ``vlm_batch``), and prefill(n) plus one decode step through
+    the kernels against prefill(n + 1), each within E2E_F32_REL_TOL with
+    the same argmax; one flash launch a layer a kernel-path prefill."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, n_layers=SLICE_F32_LAYERS,
+                              dtype="float32", kv_cache_dtype="float32")
+    if full.kv_cache_dtype != "float32":
+        print(f"  f32 {arch}: the cut's KV cache is float32 (the served "
+              f"model's is {full.kv_cache_dtype})")
+    model = build_dense(cfg, dev, backend="cuda")
+    rels, same, step_rels, step_same = [], [], [], []
+    prompts = make_prompts(cfg.vocab)
+    before = fa.launches
+    for p in prompts:
+        batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
+        g = last_logits(model, "cuda", batch, None)
+        w = last_logits(model, "torch", batch, None)
+        require(bool(torch.isfinite(g).all()), "non-finite f32 logits")
+        rels.append(rel_err(g, w))
+        same.append(int(g.argmax()) == int(w.argmax()))
+        print(f"  f32 {arch} ({SLICE_F32_LAYERS} layers) prefill S={len(p)}: "
+              f"kernel-vs-plain logits rel err {rels[-1]:.3e}, same argmax "
+              f"{same[-1]}")
+    flash = f32_flash(cfg, before, len(prompts))
+    prefix = None
+    if cfg.mm_prefix:
+        batch = vlm_batch(cfg, dev, torch.float32)
+        launched = fa.launches
+        g = last_logits(model, "cuda", batch, None)
+        launched = fa.launches - launched
+        w = last_logits(model, "torch", batch, None)
+        prefix = dict(rel_err=rel_err(g, w),
+                      same_argmax=int(g.argmax()) == int(w.argmax()),
+                      flash_launches=launched)
+        require(launched == cfg.n_layers, f"f32 prefix prefill: {launched} "
+                f"flash launches, not {cfg.n_layers}")
+        rels.append(prefix["rel_err"])
+        same.append(prefix["same_argmax"])
+        print(f"  f32 {arch} ({SLICE_F32_LAYERS} layers) prefix prefill "
+              f"S={VLM_PROMPT}: kernel-vs-plain logits rel err "
+              f"{prefix['rel_err']:.3e}, same argmax {prefix['same_argmax']}")
+    model.backend = "cuda"
+    for p in prompts:
+        n = len(p) - 1
+        want = model.prefill({"token_ids": torch.as_tensor(
+            p[None], device=dev)})[0][0, -1]
+        _, caches = model.prefill(
+            {"token_ids": torch.as_tensor(p[None, :n], device=dev)},
+            capacity=len(p) + 8)
+        step, _ = model.decode_step(caches, {
+            "token_ids": torch.as_tensor(p[None, n:], device=dev),
+            "lengths": torch.tensor([n], dtype=torch.int32, device=dev)})
+        step_rels.append(rel_err(step[0, -1], want))
+        step_same.append(int(step[0, -1].argmax()) == int(want.argmax()))
+        print(f"  f32 {arch} prefill({n}) + decode vs prefill({n + 1}): rel "
+              f"err {step_rels[-1]:.3e}, same argmax {step_same[-1]}")
+    del model, caches
+    free_card()
+    require(all(same) and all(step_same), f"f32 {arch}: argmax differs")
+    require(max(rels) <= E2E_F32_REL_TOL,
+            f"f32 {arch}: rel err {max(rels)} > {E2E_F32_REL_TOL}")
+    require(max(step_rels) <= E2E_F32_REL_TOL,
+            f"f32 {arch}: prefill+decode rel err {max(step_rels)} > "
+            f"{E2E_F32_REL_TOL}")
+    return dict(n_layers=f"{SLICE_F32_LAYERS} of {full.n_layers}",
+                kv_cache_dtype="float32", prompt_lens=list(PROMPT_LENS),
+                logits_rel_err=rels, prefill_decode_rel_err=step_rels,
+                flash=flash, prefix=prefix)
+
+
+def encoder(mods, dev) -> dict:
+    """hubert-xlarge's encoder at full width and depth on seeded frame
+    embeddings (B 1, ENCODER_FRAMES frames), bidirectional: one flash
+    launch a layer on the kernel path (``flash_mma`` at head size 80, by
+    the profiler), the whole output against the plain path within
+    E2E_REL_TOL (the share of frames whose argmax differs reported), the
+    run's peak against the dry run's; then float32 at SLICE_F32_LAYERS
+    layers within E2E_F32_REL_TOL with every frame's argmax the same."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+
+    fa = mods["flash_attention"]
+    free_card()
+    cfg = configs.get(ENCODER_ARCH)
+    depth = slice_depth(cfg, 1, ENCODER_FRAMES, (ENCODER_FRAMES,))
+    require(depth == cfg.n_layers, f"{ENCODER_ARCH}: the dry run fits "
+            f"{depth} of {cfg.n_layers} layers")
+    held = torch.cuda.memory_allocated()
+    print(f"  {ENCODER_ARCH}: this process holds {held / 1e9:.3f} GB before "
+          f"the build (in the peak below)")
+    model = build_dense(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    batch = {"embeds": torch.randn(1, ENCODER_FRAMES, cfg.d_model,
+                                   generator=gen, device=dev
+                                   ).to(torch.bfloat16)}
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    g = model(batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    mem = memory_row(f"encode {ENCODER_ARCH} (B 1 x {ENCODER_FRAMES})",
+                     serve_peak(cfg, 1, ENCODER_FRAMES, (ENCODER_FRAMES,)),
+                     peak)
+    require(launches == cfg.n_layers, f"encoder: {launches} flash launches, "
+            f"not {cfg.n_layers}")
+    model.backend = "torch"
+    w = model(batch)
+    model.backend = "auto"
+    require(tuple(g.shape) == (1, ENCODER_FRAMES, cfg.vocab)
+            and bool(torch.isfinite(g).all()),
+            f"encoder output {tuple(g.shape)}, finite "
+            f"{bool(torch.isfinite(g).all())}")
+    rel = rel_err(g, w)
+    flipped = float((g.argmax(-1) != w.argmax(-1)).float().mean())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model(batch)
+        torch.cuda.synchronize()
+    kernels, _ = device_ms_by_kernel(prof)
+    ms = {k: sum(v for n, v in kernels.items() if k in n)
+          for k in ("flash_mma", "flash_sm90")}
+    if kernels:
+        require(ms["flash_mma"] > 0 and ms["flash_sm90"] == 0,
+                f"the encoder's attention kernels: {ms}")
+    device = ({"device_ms": sum(kernels.values()),
+               "attention_ms": ms["flash_mma"]} if kernels else
+              {"device_ms": "not measured", "attention_ms": "not measured"})
+    print(f"  encoder bf16, {cfg.n_layers} layers, {launches} flash "
+          f"launches ({fa.kernel_for(torch.bfloat16, cfg.d_head)} at head "
+          f"size {cfg.d_head}): kernel-vs-plain output rel err {rel:.3e} "
+          f"(limit {E2E_REL_TOL:g}), frames whose argmax differs "
+          f"{flipped:.4f}; forward {wall_ms:.2f} ms wall, device ms "
+          f"{device}")
+    require(rel <= E2E_REL_TOL, f"encoder: rel err {rel} > {E2E_REL_TOL}")
+    del model, g, w
+    free_card()
+
+    f32 = dataclasses.replace(cfg, n_layers=SLICE_F32_LAYERS,
+                              dtype="float32", kv_cache_dtype="float32")
+    model = build_dense(f32, dev, backend="cuda")
+    batch = {"embeds": batch["embeds"].float()}
+    before = fa.launches
+    g32 = model(batch)
+    f32_launches = fa.launches - before
+    model.backend = "torch"
+    w32 = model(batch)
+    rel32 = rel_err(g32, w32)
+    same = bool((g32.argmax(-1) == w32.argmax(-1)).all())
+    print(f"  encoder f32 ({SLICE_F32_LAYERS} layers, "
+          f"{fa.kernel_for(torch.float32, cfg.d_head)}, {f32_launches} "
+          f"launches): kernel-vs-plain rel err {rel32:.3e}, every frame's "
+          f"argmax the same {same}")
+    del model
+    free_card()
+    require(f32_launches == SLICE_F32_LAYERS,
+            f"encoder f32: {f32_launches} flash launches")
+    require(same, "encoder f32: a frame's argmax differs")
+    require(rel32 <= E2E_F32_REL_TOL,
+            f"encoder f32: rel err {rel32} > {E2E_F32_REL_TOL}")
+    return dict(arch=ENCODER_ARCH, n_layers=cfg.n_layers,
+                frames=ENCODER_FRAMES, launches=launches, rel_err=rel,
+                argmax_differs_share=flipped, wall_ms=wall_ms,
+                device=device, memory=mem, held_before_build=held,
+                f32=dict(n_layers=f"{SLICE_F32_LAYERS} of {cfg.n_layers}",
+                         launches=f32_launches, rel_err=rel32,
+                         same_argmax=same))
+
+
+def slice_cli() -> dict:
+    """The serve CLI on the card: ``--arch hubert-xlarge`` must exit 1 with
+    the reference's message, and ``--arch internvl2-2b --requests 4``
+    (full width) must serve its 4 requests and exit 0."""
+    from repro_torch.launch.serve import main as serve_main
+
+    rc, out, _ = run_cli(serve_main, ["--arch", ENCODER_ARCH])
+    message = f"{ENCODER_ARCH} is encoder-only: no decode service"
+    require(rc == 1 and message in out,
+            f"serve --arch {ENCODER_ARCH}: exit {rc}, {out!r}")
+    rc2, out2, s = run_cli(serve_main, ["--arch", "internvl2-2b",
+                                        "--requests", "4"])
+    require(rc2 == 0 and "served 4 requests" in out2,
+            f"serve --arch internvl2-2b: exit {rc2}")
+    free_card()
+    return dict(encoder_exit=rc, encoder_message=message, serve_exit=rc2,
+                serve_s=s)
+
+
+def card_slice(mods, dev) -> dict:
+    """Phase 20: SLICE_ARCHS served (``serve_dense``) and each in float32
+    at a cut (``e2e_f32_dense``), hubert-xlarge's encoder (``encoder``),
+    the serve CLI (``slice_cli``)."""
+    out = {}
+    for arch in SLICE_ARCHS:
+        out[arch] = serve_dense(arch, mods, dev)
+        out[arch]["e2e_f32"] = e2e_f32_dense(arch, dev)
+    out[ENCODER_ARCH] = encoder(mods, dev)
+    out["cli"] = slice_cli()
+    free_card()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the dry run and training
+# ---------------------------------------------------------------------------
+def dryrun_phase(host) -> dict:
+    """``launch.dryrun`` over every architecture and shape (run by the
+    host-work process, ``host_work``), and the MoE depths it gives phase
+    13's load beside the ones first cut by hand (MOE_LAYERS_PR21)."""
+    from repro_torch.analysis import report
+
+    done = host.result("dryrun")
+    recs, took, at_1040 = (done["records"], done["seconds"],
+                           done["moe_layers_at_1040"])
     failed = [r for r in recs if r["status"] == "fail"]
     require(not failed, "dry run cells failed:\n"
             + "\n".join(r["error"] for r in failed))
     by_cell = {(r["arch"], r["shape"]): r for r in recs}
     print("  " + report.dryrun_table(by_cell).replace("\n", "\n  "))
-    at_1040 = moe_layers(1040)
-    print(f"  {len(recs)} cells in {took:.1f} s; MoE serving depth for 4 "
-          f"slots of {MOE_CAPACITY} (phase 13): {MOE_LAYERS}, of 1040: "
+    print(f"  {len(recs)} cells in {took:.1f} s (the host-work process); "
+          f"MoE serving depth for 4 slots of {MOE_CAPACITY} (phase 13): {MOE_LAYERS}, of 1040: "
           f"{at_1040}; PR 21's by hand: {MOE_LAYERS_PR21}")
     require(all(MOE_LAYERS[a] >= 1 for a in MOE_LAYERS),
             f"the dry run fits no MoE layer: {MOE_LAYERS}")
@@ -4187,30 +4910,50 @@ def train_moe(dev) -> dict:
                 predicted={k: v for k, v in predicted.items()})
 
 
-def train_cli() -> dict:
-    """16e: the training launcher as a user runs it."""
+def start_train_cli() -> tuple:
+    """16e, started: the training launcher as a user runs it, in a
+    process of its own beside 16a-d (the reduced config: its card
+    memory is small)."""
     argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
             TRAIN_ARCH, "--steps", "20"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=300)
+    return subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE), time.perf_counter()
+
+
+def train_cli(started) -> dict:
+    """16e: the launcher started by ``start_train_cli`` must exit 0."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     took = time.perf_counter() - t0
-    tail = proc.stdout.strip().splitlines()[-3:]
+    tail = stdout.strip().splitlines()[-3:]
     print(f"  python -m repro_torch.launch.train --arch {TRAIN_ARCH} "
-          f"--steps 20: exit {proc.returncode} in {took:.1f} s; {tail}")
+          f"--steps 20 (beside 16a-d): exit {proc.returncode}, joined "
+          f"{took:.1f} s after its start; {tail}")
     require(proc.returncode == 0, f"the launcher exited {proc.returncode}: "
-            f"{proc.stderr[-2000:]}")
+            f"{stderr[-2000:]}")
     return dict(rc=proc.returncode, seconds=took, tail=tail)
 
 
 def train(fa, da, dev) -> dict:
     free_card()
-    out = {"full": train_full(fa, da, dev),
-           "card_vs_cpu": train_card_vs_cpu(dev),
-           "restart": train_restart(dev),
-           "moe": train_moe(dev),
-           "cli": train_cli()}
+    cli = start_train_cli()
+    try:
+        out = {"full": train_full(fa, da, dev),
+               "card_vs_cpu": train_card_vs_cpu(dev),
+               "restart": train_restart(dev),
+               "moe": train_moe(dev)}
+    except BaseException:
+        cli[0].kill()
+        cli[0].wait()
+        raise
+    out["cli"] = train_cli(cli)
     return out
 
 
@@ -4268,7 +5011,9 @@ def ring_search(sd, se, dev) -> dict:
         stdout=subprocess.PIPE, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     rank_lib.share_devices(max(MD_DEVICES))
     rows = {}
-    for devices in (1,) + MD_DEVICES:
+    # the largest pool first: the last, of 2 ranks, stays open for 17b-d
+    # and phases 18 and 19 (a pool takes ~8-20 s to start)
+    for devices in (1,) + tuple(sorted(MD_DEVICES, reverse=True)):
         pool_s = 0.0
         if devices > 1:
             t0 = time.perf_counter()
@@ -4308,7 +5053,6 @@ def ring_search(sd, se, dev) -> dict:
                  if first else "local")
               + f", select launches by rank "
               f"{[r['launches']['search'] for r in ranks]}")
-    rank_lib.close_pool()
     out, _ = cpu.communicate(timeout=600)
     require(cpu.returncode == 0, f"the CPU's ring search exited "
             f"{cpu.returncode}")
@@ -4636,10 +5380,11 @@ def multidevice(fa, sd, se, dev) -> dict:
         # the CLI runs in processes of its own beside 17d
         started = start_serve_cli(Path(work.name))
         out["checkpoint"] = ckpt_on_mesh(dev, Path(work.name))
-        rank_lib.close_pool()
         out["serve_cli"] = serve_cli_devices(Path(work.name), started)
-    finally:
+    except BaseException:
         rank_lib.close_pool()
+        raise
+    finally:
         for p in (started[0].values() if started else ()):
             if p.poll() is None:
                 p.kill()
@@ -4663,8 +5408,9 @@ TP_RG_LENS, TP_RG_CAPACITY = (8, 100, 513, 2300), RG_CAPACITY
 #: (recurrentgemma-9b's rglru, rglru, local)
 TP_F32_LAYERS = {"llama3.2-3b": 2, "recurrentgemma-9b": 3, "rwkv6-7b": 3}
 #: the bf16 models' depths, cut from the full ones to keep the run within
-#: its time (recurrentgemma-9b keeps 4 of its local layers)
-TP_DEPTHS = {"llama3.2-3b": 8, "recurrentgemma-9b": 12, "rwkv6-7b": 8}
+#: its time (recurrentgemma-9b keeps 2 of its local layers; each layer of
+#: a kind splits and gathers as the others do)
+TP_DEPTHS = {"llama3.2-3b": 4, "recurrentgemma-9b": 6, "rwkv6-7b": 4}
 #: prefill(n) + one decode step against prefill(n + 1): the step's token
 #: lands on slot 520, the first of rank 1's chunk of 1040
 TP_STEP_N = 520
@@ -4988,11 +5734,13 @@ def tensor_parallel(dev) -> dict:
     print(f"  depths: {plan} ({TP_MOE_ARCH}'s the mesh dry run's deepest "
           f"whose per-rank peak fits {TP_CARD_SHARE:.2f} of the card)")
     rank_lib.share_devices(TP_SIZES[1])
-    try:
+    try:           # phase 17's pool of 2 ranks, kept open for phase 19
         ranks = rank_lib.rank_pool(TP_SIZES[1], dev).run("chip_smoke:tp_rank",
                                                          dev.type, plan)
-    finally:
+    except BaseException:
         rank_lib.close_pool()
+        raise
+    finally:
         free_card()
     for key in ("llama", "rgemma", "rwkv", "dbrx"):
         rs = [r[key] for r in ranks]
@@ -5088,8 +5836,9 @@ def tensor_parallel(dev) -> dict:
 #: gloo)
 MT_STEPS = 1
 #: 19a's depth: every layer gathers and reduce-scatters the same way, and
-#: at 24 layers its two steps took ~50 s of the script's time limit
-MT_DEPTH = 4
+#: at 24 layers its two steps took ~50 s of the script's time limit (at 4,
+#: ~30 s; at 2, 22-57 s by the host)
+MT_DEPTH = 1
 #: 19d: full-width dbrx-132b steps
 MT_MOE_STEPS = 2
 #: 19b and 19d's float32 checks start from a moment of some steps (seeded,
@@ -5576,7 +6325,7 @@ def mesh_train(dev) -> dict:
           f"dry run's deepest whose per-rank peak fits {TP_CARD_SHARE:.2f} "
           f"of the card: {depth})")
     rank_lib.share_devices(TP_SIZES[1])
-    try:
+    try:           # the pool of phases 17-18
         ranks = rank_lib.rank_pool(TP_SIZES[1], dev).run("chip_smoke:mt_rank",
                                                          dev.type, plan)
     finally:
@@ -5738,6 +6487,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
+    host = HostWork()
+    try:
+        return run_phases(host)
+    finally:
+        host.close()
+
+
+def run_phases(host) -> int:
+    """``main``'s phases, ``host`` the host-work process beside them."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -5753,7 +6511,9 @@ def main() -> int:
     phase_s = {}
     t_phase = time.perf_counter()
 
-    def phase(name):
+    def phase(name, number=None):
+        """Close the running phase (its seconds) and start ``name``, the
+        docstring's phase ``number`` (phase 20 runs after phase 14)."""
         nonlocal t_phase
         now = time.perf_counter()
         if phase_s:
@@ -5763,20 +6523,40 @@ def main() -> int:
         t_phase = now
         if name is not None:
             phase_s[name] = None
-            print(f"[{len(phase_s)}/{PHASES}] {name}")
+            print(f"[{number}/{PHASES}] {name}")
 
-    phase("environment")
+    phase("environment", 1)
     print(f"  card: {card_line()}")
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    phase("build")
+    phase("build: one nvcc per source started, all at once", 2)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor() as pool:      # one nvcc per source, at once
-        list(pool.map(_build.load, KERNEL_SOURCES))
-    build_s = time.perf_counter() - t0
+    built = {}
+
+    def build(name):
+        _build.load(name)
+        built[name] = time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(len(KERNEL_SOURCES))
+    builds = [pool.submit(build, name) for name in KERNEL_SOURCES]
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}: {len(KERNEL_SOURCES)} "
-          f"kernels built in {build_s:.1f} s")
+          f"sources; phase 16 trains on the card while they build (it "
+          f"launches no kernel of these)")
+    # phase 16 needs no kernel of these (it trains on the torch backend)
+    phase("train: stablelm-1.6b (AdamW) and dbrx-132b (Adafactor)", 16)
+    trained = train(fa, da, dev)
+    free_card()
+    phase("build: the seven kernels joined", 2)
+    t1 = time.perf_counter()
+    for f in builds:
+        f.result()
+    pool.shutdown()
+    build_s = max(built.values())
+    print(f"  {len(KERNEL_SOURCES)} kernels built in {build_s:.1f} s "
+          f"(each source's seconds: "
+          f"{ {k: round(v, 1) for k, v in built.items()} }), "
+          f"{time.perf_counter() - t1:.1f} s of them after phase 16")
     ptxas = {row: ptxas_rows(_build, name)
              for row, name in (("flash_attention", "flash_attention"),
                                ("decode_attention", "decode_attention"),
@@ -5792,7 +6572,7 @@ def main() -> int:
     mods = {"flash_attention": fa, "decode_attention": da,
             "rglru_scan": rg, "rwkv6_scan": rk}
 
-    phase("kernels vs plain versions")
+    phase("kernels vs plain versions", 3)
     gen = torch.Generator(device=dev).manual_seed(0)
     n = flash_checks(fa, gen, dev) + decode_checks(da, gen, dev)
     n += split_pass_checks(da, gen, dev)
@@ -5832,16 +6612,16 @@ def main() -> int:
                   f"({row['bound_by']}){tf32}")
     print(f"  {n} comparisons passed")
 
-    phase("serve full-width stablelm-1.6b (CUDA graph, then eager)")
+    phase("serve full-width stablelm-1.6b (CUDA graph, then eager)", 4)
     result = serve(fa, da, dev)
-    phase("float32 end to end, kernel path vs plain path")
+    phase("float32 end to end, kernel path vs plain path", 5)
     result["e2e_f32"] = e2e_f32(dev)
-    phase("reduced configs on the card (head size 16, float32)")
+    phase("reduced configs on the card (head size 16, float32)", 6)
     reduced = serve_reduced(mods, dev)
-    phase("schedule search under PCCS on the golden fixtures")
-    found = search(sd, se, dev)
+    phase("schedule search under PCCS on the golden fixtures", 7)
+    found = search(sd, se, dev, host)
     phase("characterize full-width stablelm-1.6b (prefill, decode), "
-          "calibrate, solve")
+          "calibrate, solve", 8)
     work = tempfile.TemporaryDirectory()
     bundle_path = Path(work.name) / "stablelm-1.6b.json"
     measured = characterize(fa, da, sd, se, st, bundle_path)
@@ -5849,45 +6629,45 @@ def main() -> int:
         fa, da, sd, se, st, Path(work.name) / "stablelm-1.6b-decode.json",
         kind="decode")
     torch.cuda.empty_cache()
-    phase("serve full-width rwkv6-7b and recurrentgemma-9b")
+    phase("serve full-width rwkv6-7b and recurrentgemma-9b", 9)
     recurrent = {}
     for arch in ("rwkv6-7b", "recurrentgemma-9b"):
         recurrent[arch] = serve_recurrent(arch, mods, dev)
         torch.cuda.empty_cache()
-    phase("float32 end to end on both recurrent models")
+    phase("float32 end to end on both recurrent models", 10)
     for arch in ("rwkv6-7b", "recurrentgemma-9b"):
         recurrent[arch]["e2e_f32"] = e2e_f32_recurrent(arch, dev)
     torch.cuda.empty_cache()
-    phase("gateway: full-width stablelm-1.6b + llama3.2-3b on one card")
+    phase("gateway: full-width stablelm-1.6b + llama3.2-3b on one card", 11)
     served = gateway(fa, da, dev, bundle_path)
-    phase("fleet: pool solved on the card, trace replayed")
+    phase("fleet: pool solved on the card, trace replayed", 12)
     replayed = fleet(sd, se, bundle_path)
     work.cleanup()
     free_card()
     phase("serve full-width dbrx-132b and qwen3-moe-235b-a22b, depth cut "
-          "to the dry run's")
+          "to the dry run's", 13)
     MOE_LAYERS.update(moe_layers())
     print(f"  depths, the dry run's for 4 slots of {MOE_CAPACITY}: "
           f"{MOE_LAYERS} (PR 21's by hand: {MOE_LAYERS_PR21})")
     moe_served = {arch: serve_moe(arch, mods, dev) for arch in MOE_LAYERS}
     phase("MoE in float32: the block against a per-expert oracle, and "
-          "end to end")
+          "end to end", 14)
     for arch in MOE_LAYERS:
         moe_served[arch]["block_oracle"] = moe_block_oracle(arch, dev)
         moe_served[arch]["e2e_f32"] = e2e_f32_moe(arch, dev)
-    phase("dry run: every architecture and shape on one card")
-    planned = dryrun_phase()
-    phase("train: stablelm-1.6b (AdamW) and dbrx-132b (Adafactor)")
-    trained = train(fa, da, dev)
-    free_card()
+    phase("serve qwen1.5-32b, nemotron-4-15b, internvl2-2b; "
+          "hubert-xlarge's encoder", 20)
+    sliced = card_slice(mods, dev)
+    phase("dry run: every architecture and shape on one card", 15)
+    planned = dryrun_phase(host)
     phase("several ranks on the card: the ring search, the expert-parallel "
-          "MoE block, --devices 2, a checkpoint on a mesh")
+          "MoE block, --devices 2, a checkpoint on a mesh", 17)
     ranks = multidevice(fa, sd, se, dev)
     phase("tensor-parallel serving on 2 ranks sharing the card: "
-          "llama3.2-3b, recurrentgemma-9b, rwkv6-7b, dbrx-132b")
+          "llama3.2-3b, recurrentgemma-9b, rwkv6-7b, dbrx-132b", 18)
     tp = tensor_parallel(dev)
     phase("training on 2 ranks sharing the card: ZeRO-3 stablelm-1.6b, "
-          "FSDP-TP dbrx-132b, a checkpoint, a preemption")
+          "FSDP-TP dbrx-132b, a checkpoint, a preemption", 19)
     mt = mesh_train(dev)
     phase(None)
 
@@ -5920,7 +6700,10 @@ def main() -> int:
                              ("llama3.2-3b", served["llama_e2e_f32"]))},
         **{f"float32 end to end {arch} ({r['e2e_f32']['reduced']['n_layers']}"
            f" layers)": r["e2e_f32"]["flash"]["launches"]
-           for arch, r in moe_served.items()}}
+           for arch, r in moe_served.items()},
+        **{f"float32 end to end {arch} ({sliced[arch]['e2e_f32']['n_layers']}"
+           f" layers)": sliced[arch]["e2e_f32"]["flash"]["launches"]
+           for arch in SLICE_ARCHS}}
     for name in ("flash_attention", "decode_attention"):
         row = next(kr for kr in kernels if kr["name"] == name)
         row["launches_by_path"] = {
@@ -5933,12 +6716,22 @@ def main() -> int:
             "gateway stablelm-1.6b + llama3.2-3b":
                 served["launches"][name],
             **{f"serve {arch} ({r['reduced']['n_layers']} layers)":
-               r["launches"][name] for arch, r in moe_served.items()}}
+               r["launches"][name] for arch, r in moe_served.items()},
+            **{f"serve {arch} ({sliced[arch]['n_layers']} layers)":
+               sliced[arch]["launches"][name] for arch in SLICE_ARCHS}}
         if name == "flash_attention":
+            enc = sliced[ENCODER_ARCH]
             row["launches_by_path"].update({
                 f"expert-parallel {EP_ARCH} prefill, rank {r['rank']}":
                 r["prefill_flash_launches"]
                 for r in ranks["expert_parallel"]["ranks"]})
+            row["launches_by_path"].update({
+                "internvl2-2b prefix prefill":
+                    sliced["internvl2-2b"]["prefix"]["flash_launches"],
+                f"encode {ENCODER_ARCH} ({enc['n_layers']} layers)":
+                    enc["launches"],
+                f"float32 encode {ENCODER_ARCH} ({enc['f32']['n_layers']} "
+                f"layers, flash_kernel)": enc["f32"]["launches"]})
     for name in ("flash_attention", "decode_attention_partials",
                  "decode_attention_combine", "rglru_scan", "rwkv6_scan"):
         row = next(kr for kr in kernels if kr["name"] == name)
@@ -5978,6 +6771,7 @@ def main() -> int:
     print(json.dumps({"gateway": served}))
     print(json.dumps({"fleet": replayed}))
     print(json.dumps({"serve_moe": moe_served}))
+    print(json.dumps({"serve_slice": sliced}))
     print(json.dumps({"dryrun": planned}))
     print(json.dumps({"train": trained}))
     print(json.dumps({"multidevice": ranks}))
@@ -5993,5 +6787,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(flash_turn(sys.argv[2:]) if sys.argv[1:2] == ["--flash-turn"]
-             else main())
+    if sys.argv[1:2] == ["--flash-turn"]:
+        sys.exit(flash_turn(sys.argv[2:]))
+    if sys.argv[1:2] == ["--host-work"]:
+        sys.exit(host_work(sys.argv[2]))
+    sys.exit(main())
