@@ -2,13 +2,17 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --flash-turn [ROOT] [-DNAME=VALUE ...]
+    python3 chip_smoke.py --s1
 
 Run from the repository root (``src/`` is put on ``sys.path`` here).
-The second form is one turn of a comparison call on the flash routes at
-head sizes 64 and 128, bf16 and float32 (``flash_turn``), for the
-package under ``ROOT/src`` (a ``git archive`` of another commit; this
-checkout by default), its flash source built with the nvcc defines
-given.
+The second form is one turn of a comparison call on the flash routes,
+bf16 and float32 (``flash_turn``), for the package under ``ROOT/src`` (a
+``git archive`` of another commit; this checkout by default), its flash
+source built with the nvcc defines given.  The third tells a kernel
+fault from rounding in recurrentgemma-9b's served error at 20 of its 38
+layers (``s1_check``: the residual stream layer by layer on the kernel,
+oracle and plain paths and with the local layers' attention on its
+plain version, and in float32).
 Phases, each fatal on failure, run in the order 1, 2 (the builds
 started), 16 (it trains while they build: it needs none of them), 2
 (joined), 3-14, 20, 15, 17-19; the CPU-only work of phases 7 and 15 runs
@@ -18,9 +22,10 @@ beside them from the start in a process of its own (``host_work``):
 2. build: all seven CUDA kernels from ``src/repro_torch/kernels/csrc/``
    for ``sm_90a``, one ``nvcc`` per source, started together; ``ptxas``'s
    registers and spills of the attention and RWKV-6 kernels are reported;
-   the flash kernels at head sizes 64 and 128 (``flash_sm90``, bf16, and
-   ``flash_sm90_f32``, float32) must hold ``wgmma`` (HGMMA) instructions
-   in their SASS and spill nothing, and ``flash_sm90`` TMA (UTMALDG) ones;
+   the Hopper flash kernels (``flash_sm90``, bf16, at head sizes 64, 80,
+   128 and 256, and ``flash_sm90_f32``, float32, at 64 and 128) must hold
+   ``wgmma`` (HGMMA) instructions in their SASS and spill nothing, and
+   ``flash_sm90`` TMA (UTMALDG) ones;
 3. kernels: each kernel against its plain PyTorch version on the card
    (attention: float32 at atol = rtol = 2e-5, bfloat16 at 2e-2, the
    tolerances of ``tests/test_kernels.py``; PCCS slowdown: float64 at
@@ -335,7 +340,7 @@ beside them from the start in a process of its own (``host_work``):
    in float32 with a float32 cache, kernel path against plain path (the
    prefix prefill too) and prefill(n) + decode against prefill(n + 1)
    (E2E_F32_REL_TOL, same argmax); hubert-xlarge's 48-layer encoder over
-   1000 seeded frames: 48 ``flash_mma`` launches (head size 80), the
+   1000 seeded frames: 48 ``flash_sm90`` launches (head size 80), the
    whole output within
    E2E_REL_TOL of the plain path (the share of frames whose argmax
    differs reported), float32 at 2 layers within E2E_F32_REL_TOL with
@@ -639,8 +644,8 @@ def sm90_sass(build) -> dict:
     spills = {key(k): v.get("spill_stores", 0) + v.get("spill_loads", 0)
               for k, v in build.ptxas_report("flash_attention").items()
               if key(k)}
-    want = {f"{k} D={d}" for k in ("flash_sm90", "flash_sm90_f32")
-            for d in (64, 128)}
+    want = ({f"flash_sm90 D={d}" for d in (64, 80, 128, 256)}
+            | {f"flash_sm90_f32 D={d}" for d in (64, 128)})
     require(set(counts) == want and all(
         c["HGMMA"] and (c["UTMALDG"] or "f32" in k)
         for k, c in counts.items()),
@@ -692,8 +697,10 @@ def flash_checks(fa, gen, dev) -> int:
               (1, 2300, 2300, 16, 1, 256, True, None),
               (1, 2300, 2300, 16, 1, 256, True, 2048),
               (2, 77, 77, 16, 1, 256, True, 48),
+              (2, 8, 8, 16, 1, 256, True, 2048),         # its 8-token prompt
               # hubert-xlarge's encoder: 16 heads of 80, bidirectional
               (1, 500, 500, 16, 16, 80, False, None),
+              (1, 1000, 1000, 16, 16, 80, False, None),
               # a reduced config's layers: 4/2 and 4/1 heads of 16
               (2, 100, 100, 4, 2, 16, True, None),
               (1, 100, 100, 4, 1, 16, True, 32)]
@@ -892,13 +899,14 @@ def time_split_pass(da, timer, gen, dev) -> list:
     return [partials, combine]
 
 
-def attention_f64(q, k, v, window=None):
-    """Causal attention in float64, a head at a time (GQA expanded): the
-    yardstick of the float32 rows' errors."""
+def attention_f64(q, k, v, window=None, causal=True):
+    """Attention in float64 (causal unless ``causal`` is False), a head
+    at a time (GQA expanded): the yardstick of the float32 rows' errors."""
     B, S, Hq, D = q.shape
     group = Hq // k.shape[2]
     pos = torch.arange(S, device=q.device)
-    mask = pos[None, :] <= pos[:, None]
+    mask = (pos[None, :] <= pos[:, None] if causal
+            else torch.ones(S, S, dtype=torch.bool, device=q.device))
     if window is not None:
         mask &= pos[None, :] > pos[:, None] - window
     out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
@@ -911,7 +919,7 @@ def attention_f64(q, k, v, window=None):
     return out
 
 
-def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
+def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window=None,
                  dtype=torch.bfloat16, causal=True) -> dict:
     """Time one prefill's attention (causal unless ``causal`` is False:
     an encoder's), beside its plain version, its
@@ -933,7 +941,7 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
                   dtype)
     f64 = {}
     if dtype == torch.float32:
-        ref = attention_f64(q, k, v, window)
+        ref = attention_f64(q, k, v, window, causal)
         f64 = dict(f64_err=float((got.double() - ref).abs().max()),
                    plain_f64_err=float((plain.double() - ref).abs().max()))
         del ref
@@ -951,8 +959,9 @@ def flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS
                        if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
     cores = {}
-    if kernel == "flash_sm90_f32":
+    if dtype == torch.float32:
         cores = dict(bound_cuda_cores_ms=b_ms, bound_cuda_cores_by=b_by)
+    if kernel == "flash_sm90_f32":
         b_ms, b_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
     if window is None:
         def library():
@@ -1000,45 +1009,57 @@ SM90_ROWS = {
     "at_qwen3_moe": (1, 1024, 64, 4, 128),
     "at_qwen1_5": (1, 1000, 40, 40, 128),
     "at_internvl2": (1, 1100, 16, 8, 128)}
+#: the bf16 layers at the other head sizes ``flash_sm90`` serves, (B, S,
+#: Hq, Hkv, D, window): recurrentgemma-9b's local layer at its 2300-token
+#: prompt (16 query heads and one kv head of 256, window 2048), and
+#: hubert-xlarge's encoder layer (16 heads of 80 over its 1000 frames,
+#: bidirectional, ``causal`` False)
+WIDE_ROWS = {
+    "at_d256": (1, 2300, 16, 1, 256, 2048),
+    "at_hubert": (1, 1000, 16, 16, 80, None, torch.bfloat16, False)}
+#: the float32 layers ``flash_kernel`` (the CUDA cores) serves, timed in
+#: the ``flash_attention`` entry, whose launches count it: the float32
+#: cuts of hubert-xlarge (16 heads of 80 over 1000 frames, bidirectional)
+#: and of recurrentgemma-9b's local layer (16 over 1 of 256 at 2300
+#: tokens, window 2048)
+CUDA_CORE_ROWS = {
+    "at_f32_hubert": (1, 1000, 16, 16, 80, None, torch.float32, False),
+    "at_f32_d256": (1, 2300, 16, 1, 256, 2048, torch.float32)}
 
 
 def time_flash(fa, timer, gen, dev) -> dict:
-    """Slice shapes: SM90_ROWS; recurrentgemma-9b's local layer at its
-    2300-token prompt (16 query heads and one kv head of 256, window
-    2048); hubert-xlarge's encoder layer, 16 heads of 80 over its 1000
-    frames, bidirectional (``flash_mma``).  ``kernel`` names the kernel
-    that served each row."""
-    def row(B, S, Hq, Hkv, D, window=None, dtype=torch.bfloat16):
-        return flash_timing(fa, timer, gen, dev, B, S, Hq, Hkv, D, window,
-                            dtype)
-
-    rows = {k: row(*shape) for k, shape in SM90_ROWS.items()}
+    """Slice shapes: SM90_ROWS and WIDE_ROWS (bf16, on ``flash_sm90``)
+    and CUDA_CORE_ROWS (float32, on ``flash_kernel``).  ``kernel`` names
+    the kernel that served each row."""
+    rows = {k: flash_timing(fa, timer, gen, dev, *shape)
+            for k, shape in {**SM90_ROWS, **WIDE_ROWS,
+                             **CUDA_CORE_ROWS}.items()}
+    require(all(r["kernel"] == ("flash_kernel" if k in CUDA_CORE_ROWS
+                                else "flash_sm90") for k, r in rows.items()),
+            f"flash rows not on their kernels: {rows}")
     return dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:113",
-        **rows.pop(""),
-        at_d256=row(1, 2300, 16, 1, 256, 2048),
-        at_hubert=flash_timing(fa, timer, gen, dev, 1, ENCODER_FRAMES, 16,
-                               16, 80, None, causal=False), **rows)
+        **rows.pop(""), **rows)
 
 
 #: the causal float32 layers ``flash_sm90_f32`` is timed at, (B, S, Hq,
-#: Hkv, D) by row: the characterization's attention group (stablelm-1.6b,
-#: batch 2, seq 256; the kernel's own row), phase 5's stablelm-1.6b
-#: prefill at 1000 tokens, and dbrx-132b's 48 over 8 heads of 128 at
-#: phase 14's 513 and phase 17's 2048
+#: Hkv, D, window, dtype) by row: the characterization's attention group
+#: (stablelm-1.6b, batch 2, seq 256; the kernel's own row), phase 5's
+#: stablelm-1.6b prefill at 1000 tokens, and dbrx-132b's 48 over 8 heads
+#: of 128 at phase 14's 513 and phase 17's 2048
 F32_ROWS = {
-    "": (2, 256, 32, 32, 64),
-    "at_f32_stablelm_1000": (1, 1000, 32, 32, 64),
-    "at_f32_dbrx_513": (1, 513, 48, 8, 128),
-    "at_f32_dbrx_2048": (1, 2048, 48, 8, 128)}
+    "": (2, 256, 32, 32, 64, None, torch.float32),
+    "at_f32_stablelm_1000": (1, 1000, 32, 32, 64, None, torch.float32),
+    "at_f32_dbrx_513": (1, 513, 48, 8, 128, None, torch.float32),
+    "at_f32_dbrx_2048": (1, 2048, 48, 8, 128, None, torch.float32)}
 
 
 def time_flash_f32(fa, timer, gen, dev) -> dict:
     """The float32 flash kernel at F32_ROWS (an entry of its own in the
     kernels line; its launches are the float32 paths')."""
-    rows = {k: flash_timing(fa, timer, gen, dev, *shape, None, torch.float32)
+    rows = {k: flash_timing(fa, timer, gen, dev, *shape)
             for k, shape in F32_ROWS.items()}
     require(all(r["kernel"] == "flash_sm90_f32" for r in rows.values()),
             f"float32 rows not on flash_sm90_f32: {rows}")
@@ -4442,7 +4463,7 @@ def e2e_f32_dense(arch, dev) -> dict:
 def encoder(mods, dev) -> dict:
     """hubert-xlarge's encoder at full width and depth on seeded frame
     embeddings (B 1, ENCODER_FRAMES frames), bidirectional: one flash
-    launch a layer on the kernel path (``flash_mma`` at head size 80, by
+    launch a layer on the kernel path (``flash_sm90`` at head size 80, by
     the profiler), the whole output against the plain path within
     E2E_REL_TOL (the share of frames whose argmax differs reported), the
     run's peak against the dry run's; then float32 at SLICE_F32_LAYERS
@@ -4495,10 +4516,10 @@ def encoder(mods, dev) -> dict:
     ms = {k: sum(v for n, v in kernels.items() if k in n)
           for k in ("flash_mma", "flash_sm90")}
     if kernels:
-        require(ms["flash_mma"] > 0 and ms["flash_sm90"] == 0,
+        require(ms["flash_sm90"] > 0 and ms["flash_mma"] == 0,
                 f"the encoder's attention kernels: {ms}")
     device = ({"device_ms": sum(kernels.values()),
-               "attention_ms": ms["flash_mma"]} if kernels else
+               "attention_ms": ms["flash_sm90"]} if kernels else
               {"device_ms": "not measured", "attention_ms": "not measured"})
     print(f"  encoder bf16, {cfg.n_layers} layers, {launches} flash "
           f"launches ({fa.kernel_for(torch.bfloat16, cfg.d_head)} at head "
@@ -6438,15 +6459,16 @@ def turn_prefills(arch: str, seed: int, dev) -> list:
 
 
 def flash_turn(args: list) -> int:
-    """One turn of a comparison call on the flash routes at head sizes 64
-    and 128.  ``args``: ``[ROOT] [-DNAME=VALUE ...]``.  The package under
-    ``ROOT/src`` (this checkout's by default) builds its flash source
-    with those nvcc defines added, times its kernels at SM90_ROWS (bf16)
-    and F32_ROWS (float32) beside the library call (``flash_timing``: L2
-    flushed, the median of 15; each row names the kernel that served it),
-    and prefills full-width stablelm-1.6b and llama3.2-3b with the
-    weights of their served checks (phase 4's and the gateway's) at every
-    served prompt (``turn_prefills``).  Prints the card's line and one
+    """One turn of a comparison call on the flash routes.  ``args``:
+    ``[ROOT] [-DNAME=VALUE ...]``.  The package under ``ROOT/src`` (this
+    checkout's by default) builds its flash source with those nvcc
+    defines added, times its kernels at SM90_ROWS and WIDE_ROWS (bf16),
+    F32_ROWS and CUDA_CORE_ROWS (float32) beside the library call
+    (``flash_timing``: L2 flushed, the median of 15; each row names the
+    kernel that served it), and prefills full-width stablelm-1.6b and
+    llama3.2-3b with the weights of their served checks (phase 4's and
+    the gateway's) at every served prompt (``turn_prefills``).  Prints
+    the card's line and one
     ``{"flash_turn": ...}`` line.  Run each turn in a process of its own
     (parent, change, change, parent): the package is imported once."""
     if not torch.cuda.is_available():
@@ -6469,17 +6491,177 @@ def flash_turn(args: list) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     timer = Timer(dev)
-    rows = {k or "stablelm": flash_timing(fa, timer, gen, dev, *shape, None)
-            for k, shape in SM90_ROWS.items()}
-    rows.update({k or "f32": flash_timing(fa, timer, gen, dev, *shape, None,
-                                          torch.float32)
-                 for k, shape in F32_ROWS.items()})
+    rows = {k or "stablelm": flash_timing(fa, timer, gen, dev, *shape)
+            for k, shape in {**SM90_ROWS, **WIDE_ROWS}.items()}
+    rows.update({k or "f32": flash_timing(fa, timer, gen, dev, *shape)
+                 for k, shape in {**F32_ROWS, **CUDA_CORE_ROWS}.items()})
     prefills = {arch: turn_prefills(arch, seed, dev)
                 for arch, seed in (("stablelm-1.6b", 0), ("llama3.2-3b", 1))}
     print(card_line())
     print(json.dumps({"flash_turn": dict(
         root=str(root), defines=defines, build_s=build_s, rows=rows,
         prefills=prefills)}))
+    return 0
+
+
+#: ``--s1``'s depth: recurrentgemma-9b at 20 of its 38 layers, where phase
+#: 9's verdict refused the 8-token prompt (PERF.md §6) while all 38 pass
+S1_LAYERS = 20
+
+
+def s1_paths(model, fa, batch) -> dict:
+    """One prefill of ``batch`` on each path, as ``(last-position logits,
+    [every block's output])``, all float32: ``cuda`` (the kernels),
+    ``torch`` (the plain path), ``ref`` (the oracle) and ``mixed`` (the
+    kernels, with the flash kernel, the local layers' attention, replaced
+    by its plain version).  ``calls`` holds the plain path's attention
+    inputs, one entry a local layer."""
+    plain_attn = fa.attention_torch
+    hidden, calls = [], []
+    hooks = [layer.register_forward_hook(
+        lambda _m, _i, out: hidden.append(out[0].float().clone()))
+        for layer in model.layers]
+
+    def recording(q, k, v, *, causal=True, window=None, block_kv=1024):
+        calls.append((q.clone(), k.clone(), v.clone(), causal, window))
+        return plain_attn(q, k, v, causal=causal, window=window,
+                          block_kv=block_kv)
+
+    def plain_for_kernel(q, k, v, *, causal=True, window=None):
+        return plain_attn(q, k, v, causal=causal, window=window)
+
+    out = {}
+    try:
+        for name in ("cuda", "torch", "ref", "mixed"):
+            hidden.clear()
+            before = fa.launches
+            if name == "mixed":
+                with swapped(fa, "flash_attention", plain_for_kernel):
+                    logits = last_logits(model, "cuda", batch, None)
+            elif name == "torch":
+                with swapped(fa, "attention_torch", recording):
+                    logits = last_logits(model, "torch", batch, None)
+            else:
+                logits = last_logits(model, name, batch, None)
+            torch.cuda.synchronize()
+            out[name] = dict(logits=logits.float(), hidden=list(hidden),
+                             flash_launches=fa.launches - before)
+    finally:
+        for h in hooks:
+            h.remove()
+    out["calls"] = calls
+    return out
+
+
+def s1_check(args: list) -> int:
+    """recurrentgemma-9b at full width, S1_LAYERS layers, phase 9's seeded
+    weights (``build_recurrent``: PERTURBED filled) and its 8-token
+    prompt.  bf16: every block's output (the residual stream) on the
+    kernel, oracle and mixed paths (``s1_paths``) against the plain path,
+    relative error layer by layer, and phase 9's verdict on the logits;
+    each local layer's attention on the plain path's own inputs, the
+    kernel's and the plain version's output against float64.  float32:
+    the same depth, kernel path against plain path at every served
+    recurrentgemma-9b prompt (E2E_F32_REL_TOL, same argmax: fatal), and
+    layer by layer at 8 tokens.  Prints the card's line and one ``{"s1":
+    ...}`` line."""
+    require(not args, f"--s1 takes no arguments, got {args}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    full = configs.get("recurrentgemma-9b")
+    prompts = make_prompts(full.vocab, RG_PROMPT_LENS)
+    batch = {"token_ids": torch.as_tensor(prompts[0][None], device=dev)}
+    result = {"n_layers": f"{S1_LAYERS} of {full.n_layers}",
+              "S": len(prompts[0])}
+
+    cfg = dataclasses.replace(full, n_layers=S1_LAYERS)
+    model = build_recurrent(cfg, "auto", dev)
+    paths = s1_paths(model, fa, batch)
+    plain = paths["torch"]
+    layers = []
+    for i, kind in enumerate(cfg.layer_kinds):
+        row = {"layer": i, "kind": kind}
+        for name in ("cuda", "ref", "mixed"):
+            row[name] = rel_err(paths[name]["hidden"][i], plain["hidden"][i])
+        layers.append(row)
+        print(f"  bf16 layer {i:2d} ({kind:5s}): residual stream rel err vs "
+              f"plain: kernel {row['cuda']:.3e}, oracle {row['ref']:.3e}, "
+              f"mixed {row['mixed']:.3e}")
+    logits = {name: rel_err(paths[name]["logits"], plain["logits"])
+              for name in ("cuda", "ref", "mixed")}
+    v = argmax_verdict(paths["cuda"]["logits"], plain["logits"],
+                       {"oracle": paths["ref"]["logits"]})
+    launched = {n: paths[n]["flash_launches"] for n in ("cuda", "mixed")}
+    print(f"  bf16 logits rel err vs plain: kernel {logits['cuda']:.3e}, "
+          f"oracle {logits['ref']:.3e}, mixed {logits['mixed']:.3e}; "
+          f"flash launches {launched}; verdict: {verdict_line(v)}")
+    attention = []
+    for i, (q, k, v_, causal, window) in enumerate(paths["calls"]):
+        ref = attention_f64(q, k, v_, window, causal)
+        got = fa.flash_attention(q, k, v_, causal=causal, window=window)
+        want = fa.attention_torch(q, k, v_, causal=causal, window=window)
+        torch.cuda.synchronize()
+        row = dict(call=i, kernel=fa.kernel_for(q.dtype, q.shape[-1]),
+                   kernel_f64=rel_err(got.double(), ref),
+                   plain_f64=rel_err(want.double(), ref),
+                   kernel_plain_max_abs=float((got.float() - want.float())
+                                              .abs().max()),
+                   kernel_plain_differ=float((got != want).float().mean()))
+        attention.append(row)
+        print(f"  local attention {i:2d} on the plain path's inputs "
+              f"({row['kernel']}): rel err vs float64 kernel "
+              f"{row['kernel_f64']:.3e}, plain {row['plain_f64']:.3e}; "
+              f"kernel vs plain max |Δ| {row['kernel_plain_max_abs']:.3e}, "
+              f"elements that differ {row['kernel_plain_differ']:.4f}")
+    result["bf16"] = dict(layers=layers, logits_rel_err=logits,
+                          verdict=v, attention=attention,
+                          flash_launches=launched)
+    del model, paths, plain
+    free_card()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                kv_cache_dtype="float32")
+    model = build_recurrent(cfg32, "cuda", dev)
+    rels, same = [], []
+    for p in prompts:
+        b = {"token_ids": torch.as_tensor(p[None], device=dev)}
+        g = last_logits(model, "cuda", b, None)
+        w = last_logits(model, "torch", b, None)
+        rels.append(rel_err(g, w))
+        same.append(int(g.argmax()) == int(w.argmax()))
+        print(f"  f32 S={len(p)}: kernel-vs-plain logits rel err "
+              f"{rels[-1]:.3e}, same argmax {same[-1]}")
+    hidden = {}
+    for name in ("cuda", "torch"):
+        got = []
+        hooks = [layer.register_forward_hook(
+            lambda _m, _i, out: got.append(out[0].clone()))
+            for layer in model.layers]
+        try:
+            last_logits(model, name, batch, None)
+        finally:
+            for h in hooks:
+                h.remove()
+        hidden[name] = got
+    f32_layers = [rel_err(a, b) for a, b in zip(hidden["cuda"],
+                                                hidden["torch"])]
+    print(f"  f32 residual stream rel err by layer, kernel vs plain, S=8: "
+          + ", ".join(f"{e:.2e}" for e in f32_layers))
+    result["f32"] = dict(prompt_lens=list(RG_PROMPT_LENS),
+                         logits_rel_err=rels, same_argmax=same,
+                         layers=f32_layers)
+    del model, hidden
+    free_card()
+    print(card_line())
+    print(json.dumps({"s1": result}))
+    require(all(same), "f32: the kernel path's argmax differs")
+    require(max(rels) <= E2E_F32_REL_TOL,
+            f"f32: rel err {max(rels)} > {E2E_F32_REL_TOL}")
     return 0
 
 
@@ -6602,10 +6784,12 @@ def run_phases(host) -> int:
                       else f" [parent {row['parent_ms']:.4f} ms]")
             served = f" ({row['kernel']})" if "kernel" in row else ""
             tf32 = ("" if "bound_cuda_cores_ms" not in row else
-                    f" at three TF32 products, CUDA cores' bound "
-                    f"{row['bound_cuda_cores_ms']:.4f} ms "
-                    f"({row['bound_cuda_cores_by']}); against float64 "
-                    f"{row['f64_err']:.3e}, plain {row['plain_f64_err']:.3e}")
+                    (" at three TF32 products, CUDA cores' bound "
+                     f"{row['bound_cuda_cores_ms']:.4f} ms "
+                     f"({row['bound_cuda_cores_by']})"
+                     if row["kernel"] == "flash_sm90_f32" else "")
+                    + f"; against float64 {row['f64_err']:.3e}, plain "
+                    f"{row['plain_f64_err']:.3e}")
             print(f"  {kr['name']} at {row['shape']}{served}: "
                   f"{row['ms']:.4f} ms{parent}, plain {row['plain_ms']:.4f} "
                   f"ms, library {lib}, bound {row['bound_ms']:.4f} ms "
@@ -6789,6 +6973,8 @@ def run_phases(host) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--flash-turn"]:
         sys.exit(flash_turn(sys.argv[2:]))
+    if sys.argv[1:2] == ["--s1"]:
+        sys.exit(s1_check(sys.argv[2:]))
     if sys.argv[1:2] == ["--host-work"]:
         sys.exit(host_work(sys.argv[2]))
     sys.exit(main())

@@ -15,55 +15,83 @@
 // decides the time is how fast the products run.
 //
 // Four kernels, chosen by the dtype and the head size alone (route()):
-// * bfloat16 at D = 64 and 128 (every served transformer's heads):
-//   flash_sm90, the TMA ring and warp-specialised wgmma.  One block owns
-//   one (b, q-head, 128-query tile): two consumer warpgroups of 64 query
-//   rows and a producer warpgroup (setmaxnreg: 24 registers a producer
-//   thread, 240 a consumer one).  One producer thread keeps a ring of 128-
-//   key K and V tiles (3 stages at D = 128, 4 at D = 64) full with TMA
-//   boxes of 64 columns (the 128-byte swizzle's width), each tile on a
-//   full mbarrier of its own, each stage freed by an empty mbarrier every
-//   consumer thread arrives on; q, k, v and o are 4-D tensor maps
-//   (D, H, S, B), so rows past a sequence read zeros and stores past it
-//   write nothing.  S = Q.K^T is wgmma m64n128k16 from shared memory
-//   (both operands K-major), the scale and the online softmax in f32
-//   registers (four partial maxima and sums a row, quads reduced with
-//   shuffles, ex2.approx), P split in registers into bf16 hi and lo, the
-//   A operands of two wgmma m64nDk16 for O += P.V (V read MN-major), O in
-//   f32 registers.  Building with -DFLASH_SM90_P_PIECES=1 keeps one bf16
-//   P and one P.V product a tile, as FA3 and the library call do; it is
-//   faster but brings llama3.2-3b's served logits close to their 2e-2
-//   limit, so the served build keeps two pieces (PERF.md, PR 28).
-//   A warpgroup issues tile t's S and tile t - 1's P.V together; the two
-//   warpgroups take turns to issue (named barriers), so one's softmax
-//   runs under the other's products.  A tile of at most 64 query rows
-//   (a prompt that short, or a prompt's last tile) runs on one warpgroup.  The output leaves through the
+// * bfloat16 at D = 64, 80, 128 and 256 (every served model's heads:
+//   the transformers' 64 and 128, hubert-xlarge's 80, recurrentgemma-9b's
+//   local layers' 256): flash_sm90, the TMA ring and warp-specialised
+//   wgmma.  One block owns one (b, q-head, 128-query tile): two consumer
+//   warpgroups of 64 query rows and a producer warpgroup (setmaxnreg: 24
+//   registers a producer thread, 240 a consumer one).  One producer
+//   thread keeps a ring of K and V tiles full with TMA boxes, each tile
+//   on a full mbarrier of its own, each stage freed by an empty mbarrier
+//   every consumer thread arrives on; q, k, v and o are 4-D tensor maps
+//   (D, H, S, B), so rows past a sequence, and columns past D, read zeros
+//   and stores past them write nothing.  S = Q.K^T is wgmma m64nBKk16
+//   from shared memory (both operands K-major), the scale and the online
+//   softmax in f32 registers (partial maxima and sums a row, quads
+//   reduced with shuffles, ex2.approx), P split in registers into bf16
+//   hi and lo, the A operands of two wgmma for O += P.V (V read
+//   MN-major), O in f32 registers.  Building with
+//   -DFLASH_SM90_P_PIECES=1 keeps one bf16 P and one P.V product a tile,
+//   as FA3 and the library call do; it is faster but brings llama3.2-3b's
+//   served logits close to their 2e-2 limit, so the served build keeps
+//   two pieces (PERF.md §6).  A warpgroup issues tile t's S and tile
+//   t - 1's P.V together; the two warpgroups take turns to issue (named
+//   barriers), so one's softmax runs under the other's products.  A tile
+//   of at most 64 query rows (a prompt that short, or a prompt's last
+//   tile) runs on one warpgroup.  The output leaves through the
 //   warpgroup's Q rows as a TMA store.  The q tile is the slowest grid
 //   index, so causal prefills hand out every head's heaviest tile first.
+//   The tiles by head size (Sm90<D>):
+//   - D = 64 and 128: 128-key tiles (4 and 3 stages) in boxes of 64
+//     columns under the 128-byte swizzle; S at n = 128, P.V at n = D.
+//   - D = 80: a row is 160 bytes, past the 128-byte swizzle's 64
+//     columns, so the boxes are 32 columns under the 64-byte swizzle,
+//     three of them, the third reading columns 64-95 with TMA's zeros
+//     past 80: the kernel reads the (B, S, H, 80) tensors where they
+//     are, with no padding copy.  Q.K^T stops at k = 80 (its fifth k
+//     step reads the first half of the third box's rows); P.V runs as
+//     m64n80k16, reading that box in part (at n = 96, the whole box, it
+//     would run 1.2x the products).
+//     128-key tiles, 4 stages (216 KB).  hubert-xlarge's 16 heads x 8 q
+//     tiles are 128 blocks, one wave of 8 kv tiles each.
+//   - D = 256: O alone takes 128 registers a consumer thread, so the kv
+//     tile is 64 keys (S 32 registers, P's two pieces 32 more, and the
+//     softmax keeps two partial maxima and sums a row, not four); Q
+//     takes 64 KB, a K or V tile 32 KB, so the ring has 2 stages (192
+//     KB).  S is m64n64k16 (its operands read at the shared-memory
+//     port's 128 bytes a clock), P.V two m64n128k16 a piece into O's
+//     halves.  The descriptors of Q, K and V are taken anew in each turn
+//     (opaque) and stepped by adding to their start-address field:
+//     hoisted out of the loop they held registers enough to spill.
 //   What bounds it: at S 1024 the causal tail of a 1.5-4 wave grid; at
 //   S 4096 the tensor cores (P.V twice over, for P's two halves) and the
 //   softmax's exponentials (16 a clock an SM: a 128 x 128 tile's take
-//   about half as long as its products at D = 128).
-// * bfloat16 at the other head sizes (16, 32, 80, 256): flash_mma, FA2-
-//   style mma.sync.  One block
-//   owns one (b, q-head, 64-query tile) and 4 warps, each warp 16 query
-//   rows.  Q comes in once (A fragments kept in registers up to D = 128,
-//   re-read from shared memory by ldmatrix at D = 256); K/V tiles arrive
-//   in shared memory as bf16 through a two-stage ring of 16-byte cp.async
-//   copies (kv rows past Skv zero-filled, never loaded), rows padded by 8
-//   elements so ldmatrix has no bank conflicts.  S = Q.K^T runs as
-//   mma.sync.m16n8k16 into f32 registers, the scale is applied to S in
-//   f32, the online softmax stays in registers (each row's max and sum
-//   reduced across its quad with shuffles), P is split in registers into
-//   bf16 hi = bf16(p) and lo = bf16(p - hi), A fragments of two mma for
-//   O += P.V (V by ldmatrix.trans), O in f32 registers.  One bf16 P
-//   moved served bf16 logits past the reference's argmax check on
-//   recurrentgemma-9b; hi + lo keeps ~16 mantissa bits for one more mma
-//   per product.  The kv tile is 64 keys, 32 at D = 256 so the 16 x 256
-//   f32 accumulator (128 registers a thread) fits beside the scores.
-//   Masks are evaluated only on tiles that cut the diagonal, the window
-//   edge or the kv tail.  Under a causal mask the q tiles with the most
-//   live kv tiles launch first (blockIdx.x reversed).
+//   about half as long as its products at D = 128).  At D = 256 under
+//   recurrentgemma-9b's MQA every block streams its whole kv range of the
+//   one kv head from L2 (~348 MB of tiles at 2300 tokens for 16 q heads):
+//   a copy of this kernel with both products taken out (the ring and the
+//   softmax alone; its output is wrong, it was timed once, PERF.md §6)
+//   takes about half the served time, so L2 serves the shared head but
+//   its stream, not the tensor cores, sets the floor;
+//   two q heads of the kv head sharing each tile by TMA multicast in a
+//   2-block cluster was tried and ran slower (the pair's stages refill
+//   in lockstep).  At D = 80 the same copy takes over four fifths of
+//   the served time: a one-wave grid's ring fill, softmax and launch.
+// * bfloat16 at D = 16 and 32 (the reduced configs): flash_mma, FA2-
+//   style mma.sync.  One block owns one (b, q-head, 64-query tile) and 4
+//   warps, each warp 16 query rows.  Q comes in once (A fragments kept
+//   in registers); K/V tiles arrive in shared memory as bf16 through a
+//   two-stage ring of 16-byte cp.async copies (kv rows past Skv
+//   zero-filled, never loaded), rows padded by 8 elements so ldmatrix
+//   has no bank conflicts.  S = Q.K^T runs as mma.sync.m16n8k16 into f32
+//   registers, the scale is applied to S in f32, the online softmax
+//   stays in registers (each row's max and sum reduced across its quad
+//   with shuffles), P is split in registers into bf16 hi = bf16(p) and
+//   lo = bf16(p - hi), A fragments of two mma for O += P.V (V by
+//   ldmatrix.trans), O in f32 registers; the kv tile is 64 keys.  Masks
+//   are evaluated only on tiles that cut the diagonal, the window edge
+//   or the kv tail.  Under a causal mask the q tiles with the most live
+//   kv tiles launch first (blockIdx.x reversed).
 // * float32 at D = 64 and 128 (the characterization's groups, every
 //   float32 check of a served model): flash_sm90_f32, three TF32
 //   products on wgmma.  What bounds it: the CUDA cores give 67 TFLOP/s of
@@ -126,8 +154,9 @@
 //   thread and the block takes 215.6 KB of shared memory.
 // Head sizes 16 (every reduced config), 32, 64, 80 (hubert-xlarge), 128
 // and 256 (recurrentgemma-9b's local layers): multiples of 16, so the
-// kernels' tilings hold (the mma k-step and the 16-column ldmatrix.trans
-// of V).  The wrapper zero-pads any other head size up to the next one.
+// kernels' tilings hold (the k16 step of mma and wgmma, the 16-column
+// ldmatrix.trans of V).  The wrapper zero-pads any other head size up
+// to the next one.
 #include <type_traits>
 
 #include <cuda.h>
@@ -313,11 +342,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Mma {
-  static constexpr int BKV = D == 256 ? 32 : 64;
+  static_assert(D == 16 || D == 32, "flash_mma serves head sizes 16, 32");
+  static constexpr int BKV = 64;
   static constexpr int LD = D + 8;                    // padded row
   static constexpr int CH = D / 8;                    // 16 B chunks a row
   static constexpr int NS = BKV / 8;                  // score n-tiles
-  static constexpr bool Q_REGS = D <= 128;
   static constexpr int SMEM = (BQ + 2 * 2 * BKV) * LD * 2;
 };
 
@@ -377,7 +406,7 @@ flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
   float m[2] = {M_INIT, M_INIT}, l[2] = {0.f, 0.f};   // rows lane/4, +8
-  uint32_t qa[P::Q_REGS ? D / 16 : 1][4];
+  uint32_t qa[D / 16][4];
   const float sl2 = scale * LOG2E;                    // exp2 domain
   const int qp0 = q0 + wr + lane / 4 + off;           // row lane/4's position
 
@@ -389,9 +418,9 @@ flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sm90::cp_async_commit();
     sm90::cp_async_wait<1>();
     __syncthreads();
-    if (P::Q_REGS && t == 0) {
+    if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < (P::Q_REGS ? D / 16 : 1); ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
         sm90::ldmatrix_x4(qa[kk], Qw + (lane & 15) * LD + kk * 16
                                       + (lane >> 4) * 8);
     }
@@ -406,21 +435,13 @@ flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      if constexpr (P::Q_REGS) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qa[kk][i];
-      } else {
-        sm90::ldmatrix_x4(a, Qw + (lane & 15) * LD + kk * 16
-                                 + (lane >> 4) * 8);
-      }
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t kf[4];
         sm90::ldmatrix_x4(kf, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8)
                                   * LD + kk * 16 + ((lane >> 3) & 1) * 8);
-        sm90::mma_bf16(s[2 * np], a, kf[0], kf[1]);
-        sm90::mma_bf16(s[2 * np + 1], a, kf[2], kf[3]);
+        sm90::mma_bf16(s[2 * np], qa[kk], kf[0], kf[1]);
+        sm90::mma_bf16(s[2 * np + 1], qa[kk], kf[2], kf[3]);
       }
     }
 
@@ -538,30 +559,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 at D = 64 and 128: TMA ring, warp-specialised wgmma
+// bfloat16 at D = 64, 80, 128 and 256: TMA ring, warp-specialised wgmma
 // ---------------------------------------------------------------------------
-template <int D>
-struct Sm90 {
-  static constexpr int BQ = 128;                  // query rows a block
-  static constexpr int WQ = 64;                   // rows a consumer warpgroup
-  static constexpr int BK = 128;                  // keys a kv tile
-  static constexpr int STAGES = D == 64 ? 4 : 3;  // K/V ring depth
-  static constexpr int THREADS = 3 * 128;         // 2 consumer warpgroups
-                                                  // and the producer's
-  // registers a thread after setmaxnreg, within the 384 x 168 the block
-  // is launched with: 128 x 24 + 256 x 240 = 64,512
-  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-  static constexpr int BOXES = D / 64;            // 128-byte boxes a row
-  static constexpr int Q_BOX = BQ * 128;          // bytes of a Q box column
-  static constexpr int KV_BOX = BK * 128;
-  static constexpr int Q_BYTES = BOXES * Q_BOX;
-  static constexpr int KV_BYTES = BOXES * KV_BOX; // one K or one V tile
-  static constexpr int BARS = 1 + 3 * STAGES;     // q, k, v full; empty
-  // + 1024: the dynamic base is rounded up to the swizzle atom's boundary
-  static constexpr int SMEM =
-      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
-};
-
 // P's bf16 pieces in flash_sm90's O += P.V: 2 (hi + lo, the served
 // build) or 1
 #ifndef FLASH_SM90_P_PIECES
@@ -571,10 +570,91 @@ static_assert(FLASH_SM90_P_PIECES == 1 || FLASH_SM90_P_PIECES == 2,
               "FLASH_SM90_P_PIECES must be 1 or 2");
 constexpr bool SPLIT_P = FLASH_SM90_P_PIECES == 2;
 
+template <int D>
+struct Sm90 {
+  static constexpr int BQ = 128;                  // query rows a block
+  static constexpr int WQ = 64;                   // rows a consumer warpgroup
+  // keys a kv tile: 64 at D = 256, where O alone takes 128 registers a
+  // consumer thread (S 32 and P's two pieces 32 more fit beside it)
+  static constexpr int BK = D == 256 ? 64 : 128;
+  // K/V ring depth, as deep as the 227 KB allow
+  static constexpr int STAGES = D == 128 ? 3 : D == 256 ? 2 : 4;
+  static constexpr int THREADS = 3 * 128;         // 2 consumer warpgroups
+                                                  // and the producer's
+  // registers a thread after setmaxnreg, within the 384 x 168 the block
+  // is launched with: 128 x 24 + 256 x 240 = 64,512
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+  // columns a TMA box: 64 under the 128-byte swizzle; 32 under the 64-byte
+  // one at D = 80, whose third box reads columns 64-95, TMA's zeros past
+  // 80: P.V runs at n = 80 (the third box's first 16 columns) and Q.K^T
+  // stops at k = 80
+  static constexpr int BW = D == 80 ? 32 : 64;
+  static constexpr int ROW = 2 * BW;              // bytes a box row
+  static constexpr int BOXES = (D + BW - 1) / BW;
+  static constexpr int DP = BOXES * BW;           // columns in shared memory
+  static constexpr int ON = D == 80 ? 80 : DP;    // O's columns
+  // partial maxima and sums a row in the softmax (fewer where registers
+  // are short)
+  static constexpr int NPART = BK == 128 ? 4 : 2;
+  static constexpr int KSTEPS = D / 16;           // k16 steps of Q.K^T
+  static constexpr int ATOM = 8 * ROW;            // an 8-row swizzle atom
+  static constexpr int Q_BOX = BQ * ROW;          // bytes of a Q box column
+  static constexpr int KV_BOX = BK * ROW;
+  static constexpr int Q_BYTES = BOXES * Q_BOX;
+  static constexpr int KV_BYTES = BOXES * KV_BOX; // one K or one V tile
+  static constexpr int BARS = 1 + 3 * STAGES;     // q, k, v full; empty
+  // + 1024: the dynamic base is rounded up to the swizzle atom's boundary
+  static constexpr int SMEM =
+      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * BARS;
+  static_assert(D % 16 == 0 && DP >= D, "head size");
+  static_assert(SMEM <= 232448, "past the 227 KB a block may use");
+};
+
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// x, as a value the compiler cannot compute ahead (it keeps what is
+// derived from it where it is used)
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+
+// a wgmma descriptor of the swizzle flash_sm90<D>'s boxes are laid in
+template <int D>
+__device__ __forceinline__ uint64_t sm90_desc(uint32_t addr, uint32_t lbo) {
+  return Sm90<D>::BW == 64 ? sm90::desc_sw128(addr, lbo, Sm90<D>::ATOM)
+                           : sm90::desc_sw64(addr, lbo, Sm90<D>::ATOM);
+}
+
+// 64 x n accumulators of wgmma products: S = Q.K^T at n = 64 or 128 from
+// shared memory, O += P.V at n = 64, 80, 128 or 256 (two products into
+// O's halves) with P from registers and V MN-major
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  if constexpr (N == 64) sm90::wgmma_ss_n64(d, a, b, accumulate);
+  else sm90::wgmma_ss_n128(d, a, b, accumulate);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         uint64_t b_hi) {
+  if constexpr (N == 64) {
+    sm90::wgmma_rs_n64(d, a, b, 1);
+  } else if constexpr (N == 80) {
+    sm90::wgmma_rs_n80(d, a, b, 1);
+  } else if constexpr (N == 128) {
+    sm90::wgmma_rs_n128(d, a, b, 1);
+  } else {
+    static_assert(N == 256, "n");
+    sm90::wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, b, 1);
+    sm90::wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a, b_hi,
+                        1);
+  }
 }
 
 template <int D>
@@ -585,11 +665,13 @@ flash_sm90(const __grid_constant__ CUtensorMap qm,
            const __grid_constant__ CUtensorMap om, int Sq, int Skv, int Hq,
            int Hkv, int causal, int window, float scale) {
   using P = Sm90<D>;
-  constexpr int BK = P::BK, ST = P::STAGES;
+  constexpr int BK = P::BK, ST = P::STAGES, ROW = P::ROW, ON = P::ON;
+  constexpr int NP = P::NPART;
+  constexpr int KPB = ROW / 32;                   // k16 steps a box row
   extern __shared__ __align__(1024) unsigned char raw_tma[];
   unsigned char* Qs =
       raw_tma + ((1024 - (sm90::smem_addr(raw_tma) & 1023)) & 1023);
-  unsigned char* Ks = Qs + P::Q_BYTES;              // [ST][BOXES][BK][128 B]
+  unsigned char* Ks = Qs + P::Q_BYTES;              // [ST][BOXES][BK][ROW]
   unsigned char* Vs = Ks + ST * P::KV_BYTES;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * P::KV_BYTES);
   uint64_t* k_full = q_full + 1;
@@ -631,24 +713,24 @@ flash_sm90(const __grid_constant__ CUtensorMap qm,
     // The producer: one thread keeps the ring full.  Q comes once, each
     // warpgroup's 64 rows as boxes of their own; K and V tiles each
     // arrive on a barrier of their own, so Q.K^T starts before V lands.
-    // Rows past Sq or Skv arrive as zeros.
+    // Rows past Sq or Skv, and columns past D, arrive as zeros.
     if (tid == 2 * 128) {
       sm90::bar_expect(q_full, consumers * (P::Q_BYTES / 2));
       for (int c = 0; c < P::BOXES; ++c)
         for (int w = 0; w < consumers; ++w)
-          sm90::tma_load4(Qs + c * P::Q_BOX + w * P::WQ * 128, &qm, q_full,
-                          c * 64, h, q0 + w * P::WQ, b);
+          sm90::tma_load4(Qs + c * P::Q_BOX + w * P::WQ * ROW, &qm, q_full,
+                          c * P::BW, h, q0 + w * P::WQ, b);
       for (int t = 0; t < nt; ++t) {
         const int s = t % ST, k0 = kv_begin + t * BK;
         if (t >= ST) sm90::bar_wait(&empty[s], ((t / ST) & 1) ^ 1);
         sm90::bar_expect(&k_full[s], P::KV_BYTES);
         for (int c = 0; c < P::BOXES; ++c)
           sm90::tma_load4(Ks + s * P::KV_BYTES + c * P::KV_BOX, &km,
-                          &k_full[s], c * 64, hk, k0, b);
+                          &k_full[s], c * P::BW, hk, k0, b);
         sm90::bar_expect(&v_full[s], P::KV_BYTES);
         for (int c = 0; c < P::BOXES; ++c)
           sm90::tma_load4(Vs + s * P::KV_BYTES + c * P::KV_BOX, &vm,
-                          &v_full[s], c * 64, hk, k0, b);
+                          &v_full[s], c * P::BW, hk, k0, b);
       }
     }
     return;
@@ -664,48 +746,52 @@ flash_sm90(const __grid_constant__ CUtensorMap qm,
   const int w_last = min(wq0 + P::WQ, Sq) - 1 + off;
   const int qp0 = w_first + warp * 16 + lane / 4;   // row g's position
   const float sl2 = scale * LOG2E;                  // exp2 domain
-  const uint32_t q_addr = sm90::smem_addr(Qs) + wg * P::WQ * 128;
+  const uint32_t q_addr = sm90::smem_addr(Qs) + wg * P::WQ * ROW;
   const uint32_t k_addr = sm90::smem_addr(Ks);
   const uint32_t v_addr = sm90::smem_addr(Vs);
-  float o[D / 2], sc[BK / 2];
+  float o[ON / 2], sc[BK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < ON / 2; ++i) o[i] = 0.f;
   float m[2] = {M_INIT, M_INIT}, l[2] = {0.f, 0.f};  // rows g, g + 8
   // P of the last tile as bf16 A fragments, hi = bf16(p), lo = bf16(p - hi)
   // (lo unused with one piece)
   uint32_t ph[BK / 16][4], pl[SPLIT_P ? BK / 16 : 1][4];
   sm90::bar_wait(q_full, 0);
 
-  // O += P.V for the tile in stage sp: BK / 16 steps of m64nDk16 for each
-  // of P's pieces, V read transposed (MN-major)
+  // The descriptors of this warpgroup's Q and of stage 0's K and V tiles;
+  // a stage or a k step adds its bytes / 16 to the start-address field.
+  // Each turn takes them anew (opaque): hoisted out of the loop, every k
+  // step's would hold two registers for the whole kernel.
+  const uint64_t dq0 = sm90_desc<D>(q_addr, 16);
+  const uint64_t dk0 = sm90_desc<D>(k_addr, 16);
+  const uint64_t dv0 = sm90_desc<D>(v_addr, P::KV_BOX);
+  // O += P.V for the tile in stage sp: BK / 16 steps of m64nONk16 for
+  // each of P's pieces, V read transposed (MN-major); at D = 256 two
+  // m64n128k16 a piece, into O's halves (the second two boxes on)
   auto gemm_pv = [&](int sp) {
+    const uint64_t dv = opaque(dv0) + sp * (P::KV_BYTES >> 4);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = sm90::desc_sw128(
-          v_addr + sp * P::KV_BYTES + kk * 16 * 128, P::KV_BOX, 1024);
-      if constexpr (D == 64) {
-        sm90::wgmma_rs_n64(o, ph[kk], dv, 1);
-        if constexpr (SPLIT_P) sm90::wgmma_rs_n64(o, pl[kk], dv, 1);
-      } else {
-        sm90::wgmma_rs_n128(o, ph[kk], dv, 1);
-        if constexpr (SPLIT_P) sm90::wgmma_rs_n128(o, pl[kk], dv, 1);
-      }
+      const uint64_t d = dv + ((kk * 16 * ROW) >> 4);
+      const uint64_t d_hi = d + ((2 * P::KV_BOX) >> 4);
+      wgmma_rs<ON>(o, ph[kk], d, d_hi);
+      if constexpr (SPLIT_P) wgmma_rs<ON>(o, pl[kk], d, d_hi);
     }
   };
-  // S = Q.K^T for the tile in stage s: D / 16 steps of m64n128k16, both
-  // operands K-major
+  // S = Q.K^T for the tile in stage s: D / 16 steps of m64nBKk16, both
+  // operands K-major (at D = 80 the fifth step reads the first half of
+  // the third box's rows, the zeros past it never)
   auto gemm_s = [&](int s) {
+    const uint64_t dq = opaque(dq0);
+    const uint64_t dk = opaque(dk0) + s * (P::KV_BYTES >> 4);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint64_t dq = sm90::desc_sw128(
-          q_addr + (kk / 4) * P::Q_BOX + (kk % 4) * 32, 16, 1024);
-      const uint64_t dk = sm90::desc_sw128(
-          k_addr + s * P::KV_BYTES + (kk / 4) * P::KV_BOX + (kk % 4) * 32,
-          16, 1024);
-      sm90::wgmma_ss_n128(sc, dq, dk, kk > 0);
+    for (int kk = 0; kk < P::KSTEPS; ++kk) {
+      const int box = kk / KPB, at = (kk % KPB) * 32;
+      wgmma_ss<BK>(sc, dq + ((box * P::Q_BOX + at) >> 4),
+                   dk + ((box * P::KV_BOX + at) >> 4), kk > 0);
     }
   };
-  // The online softmax of tile t's scores in sc (four partial maxima and
+  // The online softmax of tile t's scores in sc (NP partial maxima and
   // sums a row keep the dependent chains short), O rescaled, and P as
   // bf16 A fragments (hi and lo, or one piece): keys 16 kk .. 16 kk + 15
   // are the 8-column blocks 2 kk and 2 kk + 1 of the score accumulator.
@@ -727,20 +813,21 @@ flash_sm90(const __grid_constant__ CUtensorMap qm,
           if (!live) sc[4 * j + i] = -CUDART_INF_F;
         }
     }
-    float mx[2][4];
+    float mx[2][NP];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) mx[i / 4][i % 4] = -CUDART_INF_F;
+    for (int i = 0; i < 2 * NP; ++i) mx[i / NP][i % NP] = -CUDART_INF_F;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        mx[i / 2][(j % 2) * 2 + i % 2] =
-            fmaxf(mx[i / 2][(j % 2) * 2 + i % 2], sc[4 * j + i]);
+        mx[i / 2][(j % (NP / 2)) * 2 + i % 2] =
+            fmaxf(mx[i / 2][(j % (NP / 2)) * 2 + i % 2], sc[4 * j + i]);
     float m_new[2], al[2];
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
-      float x = fmaxf(fmaxf(mx[rr][0], mx[rr][1]),
-                      fmaxf(mx[rr][2], mx[rr][3]));
+      float x = mx[rr][0];
+#pragma unroll
+      for (int i = 1; i < NP; ++i) x = fmaxf(x, mx[rr][i]);
       x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
       x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
       // in the exp2 domain; m stays finite (>= M_INIT), so masked
@@ -749,21 +836,23 @@ flash_sm90(const __grid_constant__ CUtensorMap qm,
       al[rr] = exp2_approx(m[rr] - m_new[rr]);
       m[rr] = m_new[rr];
     }
-    float sum[2][4] = {};
+    float sum[2][NP] = {};
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float p = exp2_approx(fmaf(sc[4 * j + i], sl2, -m_new[i / 2]));
         sc[4 * j + i] = p;
-        sum[i / 2][(j % 2) * 2 + i % 2] += p;
+        sum[i / 2][(j % (NP / 2)) * 2 + i % 2] += p;
       }
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr)    // this thread's columns; quad sum at end
-      l[rr] = l[rr] * al[rr] + ((sum[rr][0] + sum[rr][1])
-                                + (sum[rr][2] + sum[rr][3]));
+      l[rr] = l[rr] * al[rr]
+              + (NP == 4 ? (sum[rr][0] + sum[rr][1])
+                               + (sum[rr][2 % NP] + sum[rr][3 % NP])
+                         : sum[rr][0] + sum[rr][1]);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < ON / 8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) o[4 * n + i] *= al[i / 2];
 #pragma unroll
@@ -833,8 +922,8 @@ flash_sm90(const __grid_constant__ CUtensorMap qm,
   if constexpr (SPLIT_P) sm90::fence_regs(pl);
 
   // out = acc / max(l, 1e-30) (flash_attention.py:88) in this warpgroup's
-  // Q rows, laid out as the map's 128-byte swizzle, then one TMA store a
-  // box (rows past Sq are not written)
+  // Q rows, laid out as the map's swizzle, then one TMA store a box (rows
+  // past Sq and columns past D are not written)
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
@@ -842,15 +931,19 @@ flash_sm90(const __grid_constant__ CUtensorMap qm,
     l[rr] = 1.f / fmaxf(l[rr], 1e-30f);
   }
   sm90::named_sync(1 + wg, 128);      // the warpgroup's Q reads are done
-  unsigned char* Os = Qs + wg * P::WQ * 128;
+  unsigned char* Os = Qs + wg * P::WQ * ROW;
+  constexpr int CPR = ROW / 16;       // 16-byte chunks a box row
   const int r0 = warp * 16 + lane / 4, cb = 4 * (lane % 4);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < ON / 8; ++n)
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
       const int r = r0 + 8 * rr;
-      *reinterpret_cast<uint32_t*>(Os + (n / 8) * P::Q_BOX + r * 128
-                                   + ((n % 8) ^ (r % 8)) * 16 + cb) =
+      // the 16-byte chunks of row r lie at chunk ^ (r % 8) (128-byte
+      // swizzle) or chunk ^ (r / 2 % 4) (64-byte)
+      const int swz = CPR == 8 ? r % 8 : (r / 2) % 4;
+      *reinterpret_cast<uint32_t*>(Os + (n / CPR) * P::Q_BOX + r * ROW
+                                   + ((n % CPR) ^ swz) * 16 + cb) =
           sm90::pack_bf16(o[4 * n + 2 * rr] * l[rr],
                           o[4 * n + 2 * rr + 1] * l[rr]);
     }
@@ -858,29 +951,32 @@ flash_sm90(const __grid_constant__ CUtensorMap qm,
   sm90::named_sync(1 + wg, 128);
   if (tid % 128 == 0) {
     for (int c = 0; c < P::BOXES; ++c)
-      sm90::tma_store4(&om, Os + c * P::Q_BOX, c * 64, h, wq0, b);
+      sm90::tma_store4(&om, Os + c * P::Q_BOX, c * P::BW, h, wq0, b);
     sm90::tma_store_wait();
   }
 }
 
 // (B, S, H, D) contiguous bf16 at base as a 4-D map (D, H, S, B) read in
-// boxes of 64 columns x 1 head x `rows` positions x 1 batch row, with the
-// 128-byte swizzle the wgmma descriptors name.  S is a dimension of its
-// own, so a box past a sequence's end reads zeros (and a store past it
-// writes nothing), never the next batch row.
+// boxes of `cols` columns x 1 head x `rows` positions x 1 batch row, with
+// the swizzle the wgmma descriptors name (128-byte for 64 columns,
+// 64-byte for 32).  S is a dimension of its own, so a box past a
+// sequence's end reads zeros (and a store past it writes nothing), never
+// the next batch row; so do columns past D.
 bool map_bshd(CUtensorMap* map, const void* base, int B, int S, int H,
-              int D, int rows) {
+              int D, int rows, int cols) {
   const sm90::EncodeTiled encode = sm90::encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t stride[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                 (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, stride, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -891,10 +987,10 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o, int B,
                 float scale, cudaStream_t stream) {
   using P = Sm90<D>;
   CUtensorMap qm, km, vm, om;
-  if (!map_bshd(&qm, q, B, Sq, Hq, D, P::WQ)
-      || !map_bshd(&km, k, B, Skv, Hkv, D, P::BK)
-      || !map_bshd(&vm, v, B, Skv, Hkv, D, P::BK)
-      || !map_bshd(&om, o, B, Sq, Hq, D, P::WQ))
+  if (!map_bshd(&qm, q, B, Sq, Hq, D, P::WQ, P::BW)
+      || !map_bshd(&km, k, B, Skv, Hkv, D, P::BK, P::BW)
+      || !map_bshd(&vm, v, B, Skv, Hkv, D, P::BK, P::BW)
+      || !map_bshd(&om, o, B, Sq, Hq, D, P::WQ, P::BW))
     return (int)cudaErrorNotSupported;
   static unsigned done = 0;
   cudaError_t err = sm90::set_smem_once(flash_sm90<D>, P::SMEM, done);
@@ -904,7 +1000,6 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o, int B,
       qm, km, vm, om, Sq, Skv, Hq, Hkv, causal, window, scale);
   return (int)cudaGetLastError();
 }
-
 // ---------------------------------------------------------------------------
 // float32 at D = 64 and 128: three TF32 products on wgmma
 // ---------------------------------------------------------------------------
@@ -959,13 +1054,6 @@ __device__ __forceinline__ void store_pieces(unsigned char* hi_base,
 // floats a row, one after another
 __device__ __forceinline__ int sw128(int r, int c, int rows) {
   return (c / 8) * rows * 128 + r * 128 + (((c % 8) ^ (r % 8)) * 16);
-}
-
-// x, as a value the compiler cannot compute ahead (it keeps what is
-// derived from it where it is used)
-__device__ __forceinline__ uint64_t opaque(uint64_t x) {
-  asm volatile("" : "+l"(x));
-  return x;
 }
 
 __device__ __forceinline__ float part(const float4& x, int e) {
@@ -1419,8 +1507,8 @@ enum Route {
   FLASH_KERNEL = 0, FLASH_MMA = 1, FLASH_SM90 = 2, FLASH_SM90_F32 = 3
 };
 constexpr int route(int dtype, int D) {
-  return D == 64 || D == 128 ? (dtype == 0 ? FLASH_SM90_F32 : FLASH_SM90)
-                             : (dtype == 0 ? FLASH_KERNEL : FLASH_MMA);
+  return dtype == 0 ? (D == 64 || D == 128 ? FLASH_SM90_F32 : FLASH_KERNEL)
+                    : (D == 16 || D == 32 ? FLASH_MMA : FLASH_SM90);
 }
 
 template <typename T, int D>

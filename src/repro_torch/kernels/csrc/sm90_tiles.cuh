@@ -251,6 +251,20 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
          | (uint64_t)((sbo >> 4) & 0x3FFF) << 32
          | (uint64_t)1 << 62;                       // 128-byte swizzle
 }
+// The same for the 64-byte swizzle that a TMA box of 32 bf16 columns
+// with CU_TENSOR_MAP_SWIZZLE_64B lays down: rows of 64 bytes, the 16-byte
+// chunks of row r stored at chunk ^ ((r / 2) % 4), so an 8-row atom is
+// 512 bytes (on a 512-byte boundary); K-major, sbo is 512 and a k step
+// of 32 bytes adds to the start address inside the row; MN-major, sbo is
+// the 512 bytes between groups of 8 k rows and lbo the bytes between the
+// boxes that hold successive 32-column blocks along n.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | (uint64_t)((lbo >> 4) & 0x3FFF) << 16
+         | (uint64_t)((sbo >> 4) & 0x3FFF) << 32
+         | (uint64_t)2 << 62;                       // 64-byte swizzle
+}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -284,6 +298,29 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
 // fragment of the register form is the mma.sync A fragment of the warp's
 // 16 rows, so the bf16 pairs of two neighbouring 8-column blocks of an
 // accumulator are the A of one 16-deep step.
+// d (+)= A . B, m64n64k16, A and B from shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (+)= A . B, m64n128k16, A and B from shared memory
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
                                             uint64_t b, int accumulate) {
@@ -341,6 +378,34 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d += A . B, m64n80k16, A from registers (the mma.sync A fragment of
+// this warp's 16 rows), B from shared memory as an MN-major operand
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 

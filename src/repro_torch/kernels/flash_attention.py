@@ -10,11 +10,12 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
 ``.cu`` file says what bounds the kernels on the card and how their
 designs answer that.  The wrapper's one launch takes the kernel that
 :func:`kernel_for` names (chosen in ``csrc`` by the dtype code and the
-head size alone): at head sizes 64 and 128 the warp-specialised
-``wgmma`` kernels, ``flash_sm90`` for bfloat16 (TMA-fed) and
-``flash_sm90_f32`` for float32 (each operand in TF32 hi and lo pieces,
-three TF32 products a product); at the other sizes the ``mma.sync`` kernel
-``flash_mma`` for bfloat16 and the CUDA-core ``flash_kernel`` for
+head size alone): the warp-specialised ``wgmma`` kernels
+``flash_sm90`` for bfloat16 at head sizes 64, 80, 128 and 256
+(TMA-fed) and ``flash_sm90_f32`` for float32 at 64 and 128 (each
+operand in TF32 hi and lo pieces, three TF32 products a product); at
+the other sizes the ``mma.sync`` kernel ``flash_mma`` for bfloat16 (16
+and 32, the reduced configs) and the CUDA-core ``flash_kernel`` for
 float32.
 """
 from __future__ import annotations
@@ -36,9 +37,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernels of ``csrc/flash_attention.cu``, indexed by the code its
 #: ``flash_attention_route`` returns
 KERNELS = ("flash_kernel", "flash_mma", "flash_sm90", "flash_sm90_f32")
-#: the head sizes ``flash_sm90`` (bfloat16) and ``flash_sm90_f32``
-#: (float32) serve
-SM90_HEAD_DIMS = (64, 128)
+#: the head sizes ``flash_sm90`` (bfloat16) serves
+SM90_HEAD_DIMS = (64, 80, 128, 256)
+#: the head sizes ``flash_sm90_f32`` (float32) serves
+SM90_F32_HEAD_DIMS = (64, 128)
 
 
 def _lib() -> ctypes.CDLL:
@@ -60,9 +62,10 @@ def kernel_for(dtype: torch.dtype, D: int) -> str:
     kernels do not take."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"flash_attention: no kernel for {dtype}")
-    if padded_head_dim(D) in SM90_HEAD_DIMS:
-        return "flash_sm90_f32" if dtype == torch.float32 else "flash_sm90"
-    return "flash_kernel" if dtype == torch.float32 else "flash_mma"
+    Dp = padded_head_dim(D)
+    if dtype == torch.float32:
+        return "flash_sm90_f32" if Dp in SM90_F32_HEAD_DIMS else "flash_kernel"
+    return "flash_sm90" if Dp in SM90_HEAD_DIMS else "flash_mma"
 
 
 def padded_head_dim(D: int) -> int:

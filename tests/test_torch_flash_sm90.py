@@ -1,5 +1,6 @@
-"""The flash-attention routes at head sizes 64 and 128: ``flash_sm90``
-(bf16; the float32 one, ``flash_sm90_f32``, has its card tests in
+"""The flash-attention routes of the ``wgmma`` kernels: ``flash_sm90``
+(bf16, head sizes 64, 80, 128 and 256; the float32 one,
+``flash_sm90_f32``, at 64 and 128, has its card tests in
 ``tests/test_torch_flash_sm90_f32.py``).
 
 On the CPU: which kernel a (dtype, head size) call takes
@@ -38,10 +39,11 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
     (64, "flash_sm90"), (128, "flash_sm90"),
     (40, "flash_sm90"), (33, "flash_sm90"), (100, "flash_sm90"),
     (1, "flash_mma"), (16, "flash_mma"), (32, "flash_mma"),
-    (80, "flash_mma"), (129, "flash_mma"), (256, "flash_mma")])
+    (80, "flash_sm90"), (129, "flash_sm90"), (256, "flash_sm90")])
 def test_kernel_for_bf16(D, want):
-    """bf16 takes flash_sm90 exactly where the padded head size is 64 or
-    128 (a head of 40 pads to 64), flash_mma at every other size."""
+    """bf16 takes flash_sm90 exactly where the padded head size is 64,
+    80, 128 or 256 (a head of 40 pads to 64, one of 129 to 256),
+    flash_mma at 16 and 32, the reduced configs' sizes."""
     assert tfa.kernel_for(torch.bfloat16, D) == want
     assert (want == "flash_sm90") == (tfa.padded_head_dim(D)
                                       in tfa.SM90_HEAD_DIMS)
@@ -57,7 +59,7 @@ def test_kernel_for_float32(D, want):
     64 or 128, flash_kernel at every other size."""
     assert tfa.kernel_for(torch.float32, D) == want
     assert (want == "flash_sm90_f32") == (tfa.padded_head_dim(D)
-                                          in tfa.SM90_HEAD_DIMS)
+                                          in tfa.SM90_F32_HEAD_DIMS)
 
 
 def test_kernel_for_names_only_built_kernels():
@@ -82,7 +84,8 @@ def _qkv(B=1, Sq=8, Skv=8, Hq=4, Hkv=2, D=64, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("D,want", [(64, 64), (128, 128), (40, 64),
-                                    (16, 16), (200, 256)])
+                                    (16, 16), (200, 256), (80, 80),
+                                    (256, 256)])
 def test_check_args_pads(D, want):
     q, k, v = _qkv(D=D)
     assert tfa.check_args(q, k, v, None) == want
@@ -158,6 +161,9 @@ EXTRA = (0, 70)
 MASKS = [(True, None), (True, 48), (True, 100), (False, None)]
 #: stablelm-1.6b, llama3.2-3b, dbrx-132b, qwen3-moe-235b-a22b
 HEADS = [(32, 32), (24, 8), (48, 8), (64, 4)]
+#: the card tests' heads: HEADS, recurrentgemma-9b's local layers (MQA,
+#: 16 over 1) and hubert-xlarge's encoder (16 over 16)
+CARD_HEADS = HEADS + [(16, 1), (16, 16)]
 
 
 def _draw(seed, *shapes):
@@ -222,11 +228,12 @@ def _close(got, want):
 @pytest.mark.parametrize("Sq", SQ)
 @pytest.mark.parametrize("extra", EXTRA)
 @pytest.mark.parametrize("causal,window", MASKS)
-@pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("heads", CARD_HEADS)
 @pytest.mark.parametrize("D", tfa.SM90_HEAD_DIMS)
 def test_sm90_kernel_vs_plain(cuda_device, Sq, extra, causal, window, heads,
                               D):
-    """B 2; Skv = Sq + extra (queries the last Sq positions)."""
+    """B 2; Skv = Sq + extra (queries the last Sq positions).  Sq of 63,
+    64 and 65 also sit around the 64-key kv tile of head size 256."""
     (Hq, Hkv), B, Skv = heads, 2, Sq + extra
     q, k, v = _card(cuda_device, Sq * 7 + extra, (B, Sq, Hq, D),
                     (B, Skv, Hkv, D), (B, Skv, Hkv, D))
@@ -235,6 +242,34 @@ def test_sm90_kernel_vs_plain(cuda_device, Sq, extra, causal, window, heads,
     torch.cuda.synchronize()
     assert tfa.launches == before + 1
     assert got.shape == q.shape and bool(torch.isfinite(got.float()).all())
+    _close(got, tfa.attention_torch(q, k, v, causal=causal, window=window))
+
+
+#: the served shapes at head sizes 80 and 256, (B, Sq, Hq, Hkv, D,
+#: causal, window): recurrentgemma-9b's 2300-token prompt with its 2048
+#: window and without, its 8-token prompt, hubert-xlarge's 1000 frames
+SERVED = [(1, 2300, 16, 1, 256, True, 2048), (1, 2300, 16, 1, 256, True,
+                                              None),
+          (2, 8, 16, 1, 256, True, 2048), (1, 1000, 16, 16, 80, False,
+                                           None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SERVED)
+def test_sm90_served_wide_shapes(cuda_device, case, monkeypatch):
+    """The kernel at the served shapes against ``attention_torch``, on
+    the tensors as they are: no padding copy (``pad_head`` never runs)."""
+    B, S, Hq, Hkv, D, causal, window = case
+
+    def no_pad(*_):
+        raise AssertionError("flash_attention padded the head")
+
+    monkeypatch.setattr(tfa, "pad_head", no_pad)
+    q, k, v = _card(cuda_device, S + D, (B, S, Hq, D), (B, S, Hkv, D),
+                    (B, S, Hkv, D))
+    assert tfa.kernel_for(q.dtype, D) == "flash_sm90"
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
     _close(got, tfa.attention_torch(q, k, v, causal=causal, window=window))
 
 

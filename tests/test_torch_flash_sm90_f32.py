@@ -301,7 +301,7 @@ HEADS = [(32, 32), (24, 8), (48, 8), (64, 4)]
 @pytest.mark.parametrize("extra", EXTRA)
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("heads", HEADS)
-@pytest.mark.parametrize("D", tfa.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("D", tfa.SM90_F32_HEAD_DIMS)
 def test_sm90_f32_kernel_vs_plain(cuda_device, Sq, extra, causal, window,
                                   heads, D):
     """B 2; Skv = Sq + extra (queries the last Sq positions); float32 at
@@ -355,7 +355,7 @@ def _variant_excess(dev, defines, D, seed=5):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", tfa.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("D", tfa.SM90_F32_HEAD_DIMS)
 def test_sm90_f32_planted_faults_fail(cuda_device, variants, D):
     """The served build passes; a V tile written in plain key order, and
     one TF32 product, fail the check it passes."""
@@ -365,7 +365,7 @@ def test_sm90_f32_planted_faults_fail(cuda_device, variants, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", tfa.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("D", tfa.SM90_F32_HEAD_DIMS)
 def test_tensor_cores_drop_the_low_13_bits(cuda_device, variants, D):
     """One TF32 product of x as it is and of x with its low 13 bits
     cleared agree bit for bit: the tensor cores read a float32 operand
