@@ -23,7 +23,7 @@ beside them from the start in a process of its own (``host_work``):
    for ``sm_90a``, one ``nvcc`` per source, started together; ``ptxas``'s
    registers and spills of the attention and RWKV-6 kernels are reported;
    the Hopper flash kernels (``flash_sm90``, bf16, at head sizes 64, 80,
-   128 and 256, and ``flash_sm90_f32``, float32, at 64 and 128) must hold
+   128 and 256, and ``flash_sm90_f32``, float32, at the same four) must hold
    ``wgmma`` (HGMMA) instructions in their SASS and spill nothing, and
    ``flash_sm90`` TMA (UTMALDG) ones;
 3. kernels: each kernel against its plain PyTorch version on the card
@@ -60,11 +60,15 @@ beside them from the start in a process of its own (``host_work``):
    ``torch.add(y, x, alpha=c)`` for the stream; none for the other four),
    beside the timer's launch floor (a one-element ``add_`` timed the same
    way): flash in bf16 and in float32 (``flash_sm90_f32``, an entry of
-   its own: the characterization's shape, phase 5's 1000-token prefill
-   and dbrx-132b's 48/8 heads of 128 at 513 and 2048, each held to its
-   bound at three TF32 products' rate, with the CUDA cores' float32
-   bound beside it, and, with its plain version, against a float64
-   reference), decode in
+   its own: the characterization's shape, phase 5's 1000-token prefill,
+   dbrx-132b's 48/8 heads of 128 at 513 and 2048, hubert-xlarge's 16/16
+   of 80 over 1000 frames and recurrentgemma-9b's local layer (16/1 of
+   256, 2300 tokens, window 2048), each held to its bound at three TF32
+   products' rate, with the CUDA cores' float32 bound beside it, and,
+   with its plain version, against a float64 reference), the reduced
+   configs' layer (4/2 heads of 16, a 513-token prompt) in float32 on
+   ``flash_kernel`` and in bf16 on ``flash_mma``, an entry each with the
+   launch floor beside it, decode in
    float32 at the characterization's decode group,
    both attention kernels also at llama3.2-3b's 24/8 heads of 128,
    dbrx-132b's 48/8, qwen3-moe-235b-a22b's 64/4 and qwen1.5-32b's
@@ -107,7 +111,9 @@ beside them from the start in a process of its own (``host_work``):
    qwen3-moe-235b-a22b (the MoE models at capacity factors 8.0 and 1.25)
    through the graph engine (exact launches, the same tokens as the
    eager engine), each prompt's prefill and a decode step through the
-   kernels against the plain path (<= E2E_F32_REL_TOL);
+   kernels against the plain path (<= E2E_F32_REL_TOL); then reduced
+   stablelm-1.6b in bf16 (``flash_mma``'s path) the same way, within
+   E2E_REL_TOL, the argmax reported;
 7. search: the schedule search of ``repro_torch.core`` on the card under
    the paper's PCCS surface, ``Scheduler(..., evaluator="torch").solve(
    ..., solver="anneal")``, each step replayed as CUDA graphs, on the
@@ -165,7 +171,10 @@ beside them from the start in a process of its own (``host_work``):
    F32_RECURRENT_LAYERS (8 of rwkv6-7b's 32 layers, 9 of
    recurrentgemma-9b's 38: its pattern three times): kernel path against
    plain path, and prefill(n) plus one decode step against prefill(n +
-   1), each within E2E_F32_REL_TOL with the same argmax;
+   1), each within E2E_F32_REL_TOL with the same argmax; the flash
+   launches counted (local layers x kernel-path prefills) and one
+   recurrentgemma-9b prefill profiled: ``flash_sm90_f32`` must run (head
+   size 256) and ``flash_kernel`` must not;
 11. gateway: full-width stablelm-1.6b and llama3.2-3b served together
    through ``MultiTenantGateway`` on the card (planned on the reference's
    ``v5e-4x12-split``, each engine's decode step its own CUDA graph),
@@ -344,7 +353,8 @@ beside them from the start in a process of its own (``host_work``):
    whole output within
    E2E_REL_TOL of the plain path (the share of frames whose argmax
    differs reported), float32 at 2 layers within E2E_F32_REL_TOL with
-   every frame's argmax the same; the serve CLI: ``--arch
+   every frame's argmax the same (profiled: ``flash_sm90_f32`` at head
+   size 80 must run and ``flash_kernel`` must not); the serve CLI: ``--arch
    hubert-xlarge`` exits 1 with the reference's message, ``--arch
    internvl2-2b --requests 4`` serves at full width and exits 0.
 
@@ -645,7 +655,7 @@ def sm90_sass(build) -> dict:
               for k, v in build.ptxas_report("flash_attention").items()
               if key(k)}
     want = ({f"flash_sm90 D={d}" for d in (64, 80, 128, 256)}
-            | {f"flash_sm90_f32 D={d}" for d in (64, 128)})
+            | {f"flash_sm90_f32 D={d}" for d in (64, 80, 128, 256)})
     require(set(counts) == want and all(
         c["HGMMA"] and (c["UTMALDG"] or "f32" in k)
         for k, c in counts.items()),
@@ -701,6 +711,7 @@ def flash_checks(fa, gen, dev) -> int:
               # hubert-xlarge's encoder: 16 heads of 80, bidirectional
               (1, 500, 500, 16, 16, 80, False, None),
               (1, 1000, 1000, 16, 16, 80, False, None),
+              (1, 300, 300, 16, 1, 80, True, 100),       # D 80 at MQA 16
               # a reduced config's layers: 4/2 and 4/1 heads of 16
               (2, 100, 100, 4, 2, 16, True, None),
               (1, 100, 100, 4, 1, 16, True, 32)]
@@ -1017,25 +1028,14 @@ SM90_ROWS = {
 WIDE_ROWS = {
     "at_d256": (1, 2300, 16, 1, 256, 2048),
     "at_hubert": (1, 1000, 16, 16, 80, None, torch.bfloat16, False)}
-#: the float32 layers ``flash_kernel`` (the CUDA cores) serves, timed in
-#: the ``flash_attention`` entry, whose launches count it: the float32
-#: cuts of hubert-xlarge (16 heads of 80 over 1000 frames, bidirectional)
-#: and of recurrentgemma-9b's local layer (16 over 1 of 256 at 2300
-#: tokens, window 2048)
-CUDA_CORE_ROWS = {
-    "at_f32_hubert": (1, 1000, 16, 16, 80, None, torch.float32, False),
-    "at_f32_d256": (1, 2300, 16, 1, 256, 2048, torch.float32)}
 
 
 def time_flash(fa, timer, gen, dev) -> dict:
-    """Slice shapes: SM90_ROWS and WIDE_ROWS (bf16, on ``flash_sm90``)
-    and CUDA_CORE_ROWS (float32, on ``flash_kernel``).  ``kernel`` names
-    the kernel that served each row."""
+    """Slice shapes: SM90_ROWS and WIDE_ROWS (bf16, on ``flash_sm90``).
+    ``kernel`` names the kernel that served each row."""
     rows = {k: flash_timing(fa, timer, gen, dev, *shape)
-            for k, shape in {**SM90_ROWS, **WIDE_ROWS,
-                             **CUDA_CORE_ROWS}.items()}
-    require(all(r["kernel"] == ("flash_kernel" if k in CUDA_CORE_ROWS
-                                else "flash_sm90") for k, r in rows.items()),
+            for k, shape in {**SM90_ROWS, **WIDE_ROWS}.items()}
+    require(all(r["kernel"] == "flash_sm90" for r in rows.values()),
             f"flash rows not on their kernels: {rows}")
     return dict(
         name="flash_attention", route="cuda",
@@ -1044,16 +1044,41 @@ def time_flash(fa, timer, gen, dev) -> dict:
         **rows.pop(""), **rows)
 
 
-#: the causal float32 layers ``flash_sm90_f32`` is timed at, (B, S, Hq,
-#: Hkv, D, window, dtype) by row: the characterization's attention group
-#: (stablelm-1.6b, batch 2, seq 256; the kernel's own row), phase 5's
-#: stablelm-1.6b prefill at 1000 tokens, and dbrx-132b's 48 over 8 heads
-#: of 128 at phase 14's 513 and phase 17's 2048
+#: the float32 layers ``flash_sm90_f32`` is timed at, (B, S, Hq, Hkv, D,
+#: window, dtype[, causal]) by row: the characterization's attention
+#: group (stablelm-1.6b, batch 2, seq 256; the kernel's own row), phase
+#: 5's stablelm-1.6b prefill at 1000 tokens, dbrx-132b's 48 over 8 heads
+#: of 128 at phase 14's 513 and phase 17's 2048, and the float32 cuts of
+#: hubert-xlarge (16 heads of 80 over 1000 frames, bidirectional) and of
+#: recurrentgemma-9b's local layer (16 over 1 of 256 at 2300 tokens,
+#: window 2048)
 F32_ROWS = {
     "": (2, 256, 32, 32, 64, None, torch.float32),
     "at_f32_stablelm_1000": (1, 1000, 32, 32, 64, None, torch.float32),
     "at_f32_dbrx_513": (1, 513, 48, 8, 128, None, torch.float32),
-    "at_f32_dbrx_2048": (1, 2048, 48, 8, 128, None, torch.float32)}
+    "at_f32_dbrx_2048": (1, 2048, 48, 8, 128, None, torch.float32),
+    "at_f32_hubert": (1, 1000, 16, 16, 80, None, torch.float32, False),
+    "at_f32_d256": (1, 2300, 16, 1, 256, 2048, torch.float32)}
+#: the reduced configs' layer (4 query heads over 2 kv heads of 16,
+#: causal) at a 513-token prompt, by the kernel that serves it: float32
+#: (phase 6) on ``flash_kernel``, bf16 on ``flash_mma``
+REDUCED_ROWS = {
+    "flash_kernel": (1, 513, 4, 2, 16, None, torch.float32),
+    "flash_mma": (1, 513, 4, 2, 16, None, torch.bfloat16)}
+
+
+def time_reduced(fa, timer, gen, dev) -> list:
+    """REDUCED_ROWS, each an entry of its own in the kernels line (its
+    launches are the reduced configs' paths in phase 6)."""
+    out = []
+    for name, shape in REDUCED_ROWS.items():
+        row = flash_timing(fa, timer, gen, dev, *shape)
+        require(row["kernel"] == name, f"{name}'s row on {row['kernel']}")
+        out.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:113", **row))
+    return out
 
 
 def time_flash_f32(fa, timer, gen, dev) -> dict:
@@ -2026,21 +2051,35 @@ def e2e_f32(dev, arch: str = "stablelm-1.6b") -> dict:
     return dict(logits_rel_err=rels, flash=flash)
 
 
-def f32_prefill_flash(model, batch) -> dict:
-    """One float32 prefill's device ms and its attention's, by the
-    profiler's kernel names.  Fatal if it ran ``flash_kernel`` or no
-    ``flash_sm90_f32`` (every served model's heads are of 64 or 128)."""
-    kernels = prefill_kernels(model, batch, None)
+def f32_flash_profiled(run, label: str) -> dict:
+    """One float32 call's device ms and its attention's, by the profiler's
+    kernel names (``run`` makes the call).  Fatal if it ran
+    ``flash_kernel`` or no ``flash_sm90_f32``: every head size of a
+    full-width model (64, 80, 128, 256) is ``flash_sm90_f32``'s, and
+    ``flash_kernel`` serves only the reduced configs' 16 (and 32)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels, _ = device_ms_by_kernel(prof)
     if not kernels:
         return {"device_ms": "not measured", "attention_ms": "not measured"}
     ms = {k: sum(v for n, v in kernels.items() if k in n)
           for k in ("flash_sm90_f32", "flash_kernel")}
     require(ms["flash_sm90_f32"] > 0 and ms["flash_kernel"] == 0,
-            f"the float32 prefill's attention kernels: {ms}")
-    print(f"  f32 {model.cfg.name} prefill profiled: flash_sm90_f32 "
-          f"{ms['flash_sm90_f32']:.3f} ms")
+            f"{label}: the float32 attention kernels: {ms}")
+    print(f"  {label} profiled: flash_sm90_f32 {ms['flash_sm90_f32']:.3f} "
+          f"ms, no flash_kernel")
     return {"device_ms": sum(kernels.values()),
             "attention_ms": ms["flash_sm90_f32"]}
+
+
+def f32_prefill_flash(model, batch) -> dict:
+    """``f32_flash_profiled`` of one prefill of ``batch``."""
+    return f32_flash_profiled(lambda: model.prefill(batch),
+                              f"f32 {model.cfg.name} prefill")
 
 
 def engine_tokens(eng) -> dict:
@@ -2449,10 +2488,14 @@ def serve_recurrent(arch, mods, dev) -> dict:
 #: the reduced configs phase 6 serves, each with the capacity factors of
 #: its experts (None: no experts): the reduced configs' own 8.0, which
 #: drops nothing, and the full configs' 1.25
-REDUCED_SERVED = (("stablelm-1.6b", None), ("recurrentgemma-9b", None),
-                  ("dbrx-132b", 8.0), ("dbrx-132b", 1.25),
-                  ("qwen3-moe-235b-a22b", 8.0),
-                  ("qwen3-moe-235b-a22b", 1.25))
+#: (arch, MoE capacity factor, dtype): float32 runs ``flash_kernel``,
+#: bf16 ``flash_mma`` (head size 16)
+REDUCED_SERVED = (("stablelm-1.6b", None, "float32"),
+                  ("recurrentgemma-9b", None, "float32"),
+                  ("dbrx-132b", 8.0, "float32"), ("dbrx-132b", 1.25, "float32"),
+                  ("qwen3-moe-235b-a22b", 8.0, "float32"),
+                  ("qwen3-moe-235b-a22b", 1.25, "float32"),
+                  ("stablelm-1.6b", None, "bfloat16"))
 
 
 def serve_cli_obs(serve_main, argv, work: Path) -> dict:
@@ -2471,7 +2514,8 @@ def serve_cli_obs(serve_main, argv, work: Path) -> dict:
 
 
 def serve_reduced(mods, dev) -> dict:
-    """The reduced (smoke) configs on the card: head size 16, float32.
+    """The reduced (smoke) configs on the card: head size 16, float32
+    (and reduced stablelm-1.6b in bf16).
 
     The port's serve CLI with ``--reduced`` on its default device, for
     stablelm-1.6b and dbrx-132b, and once with ``--trace-out`` and
@@ -2479,7 +2523,8 @@ def serve_reduced(mods, dev) -> dict:
     engine (the eager engine's tokens must equal its tokens, every kernel
     of the path launches exactly), and each prompt's prefill and one
     decode step through the kernels against the plain path (relative
-    logits error <= E2E_F32_REL_TOL, same argmax)."""
+    logits error <= E2E_F32_REL_TOL, same argmax; in bf16 <= E2E_REL_TOL,
+    the argmax reported)."""
     from repro_torch import configs
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.serve.engine import ServingEngine
@@ -2496,14 +2541,16 @@ def serve_reduced(mods, dev) -> dict:
                          "dbrx-132b", "--reduced", "--requests", "2"],
             Path(tmp))
     lens = (8, 40, 100)
-    for arch, cf in REDUCED_SERVED:
-        cfg = configs.get(arch).reduced()
+    for arch, cf, dtype in REDUCED_SERVED:
+        cfg = configs.get(arch).reduced(dtype=dtype, param_dtype=dtype,
+                                        kv_cache_dtype=dtype)
         if cf is not None:
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=cf))
-        name = cfg.name + ("" if cf is None else f" cf {cf:g}")
-        require(cfg.d_head == 16 and cfg.dtype == "float32",
-                f"{cfg.name}: head {cfg.d_head}, {cfg.dtype}")
+        name = (cfg.name + ("" if cf is None else f" cf {cf:g}")
+                + ("" if dtype == "float32" else f" {dtype}"))
+        tol = E2E_F32_REL_TOL if dtype == "float32" else E2E_REL_TOL
+        require(cfg.d_head == 16, f"{cfg.name}: head {cfg.d_head}")
         model = build_recurrent(cfg, "auto", dev)
         prompts = make_prompts(cfg.vocab, lens)
         eng = ServingEngine(model, max_slots=4, capacity=128)
@@ -2530,13 +2577,14 @@ def serve_reduced(mods, dev) -> dict:
         eager.run_until_drained()
         same = engine_tokens(eager) == graph_tokens
         require(same, f"{name}: graph and eager tokens differ")
-        rels, step_rels = [], []
+        rels, step_rels, same_argmax = [], [], []
         for p in prompts:
             batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
-            g = last_logits(model, "cuda", batch, None)
-            w = last_logits(model, "torch", batch, None)
+            g = last_logits(model, "cuda", batch, None).float()
+            w = last_logits(model, "torch", batch, None).float()
             require(bool(torch.isfinite(g).all()), "non-finite logits")
-            require(int(g.argmax()) == int(w.argmax()),
+            same_argmax.append(int(g.argmax()) == int(w.argmax()))
+            require(same_argmax[-1] or dtype != "float32",
                     f"{name} S={len(p)}: argmax differs")
             rels.append(rel_err(g, w))
             # one decode step after prefill(n - 1), kernel vs plain path
@@ -2557,19 +2605,21 @@ def serve_reduced(mods, dev) -> dict:
                           if isinstance(v, dict) else v.clone())
                       for k, v in c.items()} for c in caches], step)
             model.backend = "auto"
-            step_rels.append(rel_err(logits["cuda"][0, -1],
-                                     logits["torch"][0, -1]))
-        print(f"  {name} (head {cfg.d_head}, {cfg.dtype}): "
+            step_rels.append(rel_err(logits["cuda"][0, -1].float(),
+                                     logits["torch"][0, -1].float()))
+        kernel = mods["flash_attention"].kernel_for(getattr(torch, dtype),
+                                                    cfg.d_head)
+        print(f"  {name} (head {cfg.d_head}, {cfg.dtype}, {kernel}): "
               f"{m['steps']} graph steps, tokens identical to eager "
               f"{same}, launches {launches}; kernel-vs-plain logits rel err "
-              f"prefill {max(rels):.3e}, decode {max(step_rels):.3e}")
-        require(max(rels) <= E2E_F32_REL_TOL
-                and max(step_rels) <= E2E_F32_REL_TOL,
-                f"{name}: rel err {max(rels)}/{max(step_rels)} > "
-                f"{E2E_F32_REL_TOL}")
-        out[name] = dict(prompt_lens=list(lens), launches=launches,
-                         decode_steps=m["steps"], tokens_identical=same,
-                         prefill_rel_err=rels, decode_rel_err=step_rels)
+              f"prefill {max(rels):.3e}, decode {max(step_rels):.3e}, same "
+              f"argmax {same_argmax}")
+        require(max(rels) <= tol and max(step_rels) <= tol,
+                f"{name}: rel err {max(rels)}/{max(step_rels)} > {tol}")
+        out[name] = dict(dtype=dtype, kernel=kernel, prompt_lens=list(lens),
+                         launches=launches, decode_steps=m["steps"],
+                         tokens_identical=same, prefill_rel_err=rels,
+                         decode_rel_err=step_rels, same_argmax=same_argmax)
         del model, eager
         torch.cuda.empty_cache()
     return out
@@ -2606,6 +2656,7 @@ def e2e_f32_recurrent(arch, dev) -> dict:
     and caches; TF32 off): each prompt's prefill logits, and prefill(n +
     1) against prefill(n) and one decode step through the kernels."""
     from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
 
     full = configs.get(arch)
     cfg = dataclasses.replace(full, dtype="float32",
@@ -2615,6 +2666,7 @@ def e2e_f32_recurrent(arch, dev) -> dict:
     lens = RG_PROMPT_LENS if "rglru" in cfg.layer_kinds else PROMPT_LENS
     model = build_recurrent(cfg, "cuda", dev)
     rels, same, step_rels = [], [], []
+    before, prefills = fa.launches, 0
     for p in make_prompts(cfg.vocab, lens):
         batch = {"token_ids": torch.as_tensor(p[None], device=dev)}
         g = last_logits(model, "cuda", batch, None)
@@ -2622,6 +2674,7 @@ def e2e_f32_recurrent(arch, dev) -> dict:
         require(bool(torch.isfinite(g).all()), "non-finite f32 logits")
         rels.append(rel_err(g, w))
         same.append(int(g.argmax()) == int(w.argmax()))
+        prefills += 1 + (len(p) > 1)        # the kernel path's prefills
         # prefill(n) then one decode step, against the prefill of n + 1
         n = len(p) - 1
         if n >= 1:
@@ -2639,6 +2692,11 @@ def e2e_f32_recurrent(arch, dev) -> dict:
               f"rel err {rels[-1]:.3e}, same argmax {same[-1]}"
               + (f"; prefill({n}) + decode vs prefill({n + 1}) rel err "
                  f"{step_rels[-1]:.3e}" if n >= 1 else ""))
+    flash = f32_flash(cfg, before, prefills)
+    if flash["launches"]:
+        model.backend = "cuda"
+        flash["profiled"] = f32_prefill_flash(model, batch)
+        model.backend = "auto"
     del model
     torch.cuda.empty_cache()
     require(all(same), f"f32 {arch}: argmax differs")
@@ -2649,7 +2707,7 @@ def e2e_f32_recurrent(arch, dev) -> dict:
             f"{E2E_F32_REL_TOL}")
     return dict(n_layers=f"{cfg.n_layers} of {full.n_layers}",
                 prompt_lens=list(lens), logits_rel_err=rels,
-                prefill_decode_rel_err=step_rels)
+                prefill_decode_rel_err=step_rels, flash=flash)
 
 
 # ---------------------------------------------------------------------------
@@ -4538,6 +4596,8 @@ def encoder(mods, dev) -> dict:
     before = fa.launches
     g32 = model(batch)
     f32_launches = fa.launches - before
+    profiled = f32_flash_profiled(lambda: model(batch),
+                                  f"encoder f32 ({SLICE_F32_LAYERS} layers)")
     model.backend = "torch"
     w32 = model(batch)
     rel32 = rel_err(g32, w32)
@@ -4559,7 +4619,7 @@ def encoder(mods, dev) -> dict:
                 device=device, memory=mem, held_before_build=held,
                 f32=dict(n_layers=f"{SLICE_F32_LAYERS} of {cfg.n_layers}",
                          launches=f32_launches, rel_err=rel32,
-                         same_argmax=same))
+                         same_argmax=same, profiled=profiled))
 
 
 def slice_cli() -> dict:
@@ -6462,8 +6522,8 @@ def flash_turn(args: list) -> int:
     """One turn of a comparison call on the flash routes.  ``args``:
     ``[ROOT] [-DNAME=VALUE ...]``.  The package under ``ROOT/src`` (this
     checkout's by default) builds its flash source with those nvcc
-    defines added, times its kernels at SM90_ROWS and WIDE_ROWS (bf16),
-    F32_ROWS and CUDA_CORE_ROWS (float32) beside the library call
+    defines added, times its kernels at SM90_ROWS and WIDE_ROWS (bf16)
+    and F32_ROWS (float32) beside the library call
     (``flash_timing``: L2 flushed, the median of 15; each row names the
     kernel that served it), and prefills full-width stablelm-1.6b and
     llama3.2-3b with the weights of their served checks (phase 4's and
@@ -6494,7 +6554,7 @@ def flash_turn(args: list) -> int:
     rows = {k or "stablelm": flash_timing(fa, timer, gen, dev, *shape)
             for k, shape in {**SM90_ROWS, **WIDE_ROWS}.items()}
     rows.update({k or "f32": flash_timing(fa, timer, gen, dev, *shape)
-                 for k, shape in {**F32_ROWS, **CUDA_CORE_ROWS}.items()})
+                 for k, shape in F32_ROWS.items()})
     prefills = {arch: turn_prefills(arch, seed, dev)
                 for arch, seed in (("stablelm-1.6b", 0), ("llama3.2-3b", 1))}
     print(card_line())
@@ -6766,6 +6826,7 @@ def run_phases(host) -> int:
     # the orin fixture's search: 4096 chains x 2 workloads x 32 groups
     kernels = [time_flash(fa, timer, gen, dev),
                time_flash_f32(fa, timer, gen, dev),
+               *time_reduced(fa, timer, gen, dev),
                time_decode(da, timer, gen, dev),
                time_slowdown(sd, timer, gen, dev, n=4096 * 2),
                time_select(se, timer, gen, dev, P=4096, L=2 * 32),
@@ -6776,6 +6837,9 @@ def run_phases(host) -> int:
     floor_ms = launch_floor(timer, dev)
     print(f"  timer launch floor (one-element add_, as every row is "
           f"timed): {floor_ms:.4f} ms")
+    for kr in kernels:
+        if kr["name"] in REDUCED_ROWS:
+            kr["launch_floor_ms"] = floor_ms
     for kr in kernels:
         for row in [kr] + [v for k, v in kr.items() if k.startswith("at_")]:
             lib = ("none" if row["library_ms"] is None
@@ -6866,17 +6930,26 @@ def run_phases(host) -> int:
                         "rglru_scan"],
                     rwkv6_scan=recurrent["rwkv6-7b"]["launches"][
                         "rwkv6_scan"],
-                    flash_sm90_f32=measured["launches"]["flash_attention"])
+                    flash_sm90_f32=measured["launches"]["flash_attention"],
+                    # phase 6: the reduced configs (head size 16) in
+                    # float32, and reduced stablelm-1.6b in bf16
+                    **{kernel: sum(
+                        r["launches"]["flash_attention"]
+                        for r in reduced.values()
+                        if isinstance(r, dict) and r.get("kernel") == kernel)
+                       for kernel in REDUCED_ROWS})
     for kr in kernels:
         kr["launches"] = launches[kr["name"]]
         if kr["name"] in ptxas:
             kr["ptxas"] = ptxas[kr["name"]]
     kernels[0]["sass_flash_sm90"] = sm90
-    # every float32 flash launch at head size 64 or 128 is flash_sm90_f32's
-    # (route by dtype and head size alone; phase 5's profile shows it):
-    # the characterization's (float32 operands, heads of 64), and the
-    # float32 end-to-end phases'
+    # every float32 flash launch at head size 64, 80, 128 or 256 is
+    # flash_sm90_f32's (route by dtype and head size alone; the profiles
+    # of phases 5, 10 and 20 show it): the characterization's (float32
+    # operands, heads of 64), and the float32 end-to-end phases'
     f32 = next(kr for kr in kernels if kr["name"] == "flash_sm90_f32")
+    rg32 = recurrent["recurrentgemma-9b"]["e2e_f32"]
+    enc = sliced[ENCODER_ARCH]
     f32["launches_by_path"] = {
         "characterize": measured["launches"]["flash_attention"],
         **{f"float32 end to end {name}": run["flash"]["launches"]
@@ -6887,7 +6960,11 @@ def run_phases(host) -> int:
            for arch, r in moe_served.items()},
         **{f"float32 end to end {arch} ({sliced[arch]['e2e_f32']['n_layers']}"
            f" layers)": sliced[arch]["e2e_f32"]["flash"]["launches"]
-           for arch in SLICE_ARCHS}}
+           for arch in SLICE_ARCHS},
+        f"float32 end to end recurrentgemma-9b ({rg32['n_layers']} "
+        f"layers)": rg32["flash"]["launches"],
+        f"float32 encode {ENCODER_ARCH} ({enc['f32']['n_layers']} layers)":
+            enc["f32"]["launches"]}
     for name in ("flash_attention", "decode_attention"):
         row = next(kr for kr in kernels if kr["name"] == name)
         row["launches_by_path"] = {
@@ -6904,7 +6981,6 @@ def run_phases(host) -> int:
             **{f"serve {arch} ({sliced[arch]['n_layers']} layers)":
                sliced[arch]["launches"][name] for arch in SLICE_ARCHS}}
         if name == "flash_attention":
-            enc = sliced[ENCODER_ARCH]
             row["launches_by_path"].update({
                 f"expert-parallel {EP_ARCH} prefill, rank {r['rank']}":
                 r["prefill_flash_launches"]
@@ -6913,9 +6989,7 @@ def run_phases(host) -> int:
                 "internvl2-2b prefix prefill":
                     sliced["internvl2-2b"]["prefix"]["flash_launches"],
                 f"encode {ENCODER_ARCH} ({enc['n_layers']} layers)":
-                    enc["launches"],
-                f"float32 encode {ENCODER_ARCH} ({enc['f32']['n_layers']} "
-                f"layers, flash_kernel)": enc["f32"]["launches"]})
+                    enc["launches"]})
     for name in ("flash_attention", "decode_attention_partials",
                  "decode_attention_combine", "rglru_scan", "rwkv6_scan"):
         row = next(kr for kr in kernels if kr["name"] == name)

@@ -92,9 +92,11 @@
 //   are evaluated only on tiles that cut the diagonal, the window edge
 //   or the kv tail.  Under a causal mask the q tiles with the most live
 //   kv tiles launch first (blockIdx.x reversed).
-// * float32 at D = 64 and 128 (the characterization's groups, every
-//   float32 check of a served model): flash_sm90_f32, three TF32
-//   products on wgmma.  What bounds it: the CUDA cores give 67 TFLOP/s of
+// * float32 at D = 64, 80, 128 and 256 (every head size of a full-width
+//   model: the characterization's groups, every float32 check of a
+//   served model, hubert-xlarge's encoder, recurrentgemma-9b's local
+//   layers): flash_sm90_f32, three TF32 products on wgmma.  What bounds
+//   it: the CUDA cores give 67 TFLOP/s of
 //   float32, the tensor cores 495 of TF32, and float32 products come from
 //   them as a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (~2^-21 of |a||b|;
 //   a_hi.b_hi alone, ~2^-11, misses the reference's 2e-5 by ~50x).  At
@@ -141,17 +143,57 @@
 //   peeled.  What holds it back: a turn holds the softmax and a wait for
 //   the producer beside its products, and the S = Q.K^T products from
 //   shared memory at n = 64 or 32 read 3-4 KB a wgmma, about what the
-//   shared-memory port gives at the TF32 rate.
-// * float32 at the other head sizes (16, 32, 80, 256): flash_kernel, the
+//   shared-memory port gives at the TF32 rate.  The tiles by head size
+//   (Sm90F32<D>), where D = 80 and 256 differ:
+//   - D = 80: a row is 2.5 boxes of 32 floats, so Q and K take three,
+//     their columns 80-95 never written and never read (Q.K^T stops at k
+//     = 80, ten k steps); V^T is 80 rows of 32 keys and P.V one m64n80k8
+//     product a piece, no padding copy.  32-key tiles, two K and two V^T
+//     stages (Q's pieces 96 KB, a K tile 24 KB, a V^T tile 20 KB: 185 KB
+//     with the ring).  The producer holds two K and two V tiles in
+//     registers (setmaxnreg 160, the consumers 168), so a tile's loads
+//     are in flight while the last one is split and stored: 10% faster
+//     than one.  hubert-xlarge's 16 heads x 8 q tiles are 128 blocks, one
+//     wave of 32 tiles each, so nothing hides the first tile's load and
+//     split.  What bounds it, measured with copies of this kernel built
+//     without the products and without the producer's stores (PERF.md
+//     §6): each takes over four fifths of the served time, so the
+//     producer's staging and the products each nearly fill it.
+//   - D = 256: Q's pieces for 128 rows would take 256 KB, so a block owns
+//     64 query rows on one consumer warpgroup (Q's pieces 128 KB, O 128
+//     registers a thread).  16-key tiles (a K tile 32 KB, a V^T tile 32
+//     KB, V^T in 64-byte rows of 16 keys under the 64-byte swizzle), two
+//     K stages and one V^T stage (224 KB).  S is m64n16k8 from shared
+//     memory (96 products a tile); P.V is four m64n64k8 products a piece,
+//     one 64-column pv at a time.  With no second warpgroup to take
+//     turns with, a tile's S goes in four parts, each queued behind one
+//     of P.V's parts, so the tensor cores run S while a part's pv is
+//     added to O.  The 256 threads may hold 255 registers each (the
+//     consumer takes ~250), so the producer holds two tiles as at D = 80
+//     without setmaxnreg.  What bounds it, measured as at D = 80: the copy
+//     without the products takes seven tenths of the served time, the
+//     copy without the producer's stores four fifths; they share the
+//     shared-memory port (S at n = 16 reads 2.5 KB a wgmma; the producer
+//     writes 64 KB of pieces a tile), and a copy that also skips the
+//     producer's loads was no faster than one without its stores, so the
+//     L2 stream of the one kv head is not what bounds it.  Tried and
+//     dropped: Q stored once in float32 with its A fragments loaded
+//     (ldmatrix) and split in registers at each k step (the register
+//     form of TF32 wgmma), which halves Q's shared memory and S's reads
+//     but must wait on the fragments in flight every k step: slower, and
+//     it spilled at 3-4 steps in flight; one K stage with two V^T stages
+//     (slower); P.V at n = 128 (no faster, 64 registers more).  Two
+//     consumer warpgroups with Q stored once would leave the producer
+//     under 80 registers.
+// * float32 at D = 16 and 32 (the reduced configs): flash_kernel, the
 //   first version, on the CUDA cores.  One block owns one (b, q-head,
 //   64-query tile) and loops over kv tiles itself, with m, l and the
 //   64 x D accumulator in registers.  128 threads form a 16 x 8 grid:
 //   thread (ty, tx) holds query rows ty + 16i (i < 4), score columns
 //   tx + 8j (j < 8) and output columns tx + 8j (j < D/8), so each row's
-//   max and sum reduce over 8 neighbouring lanes with shuffles.  Q (scaled in f32), the K and V tiles, and the
-//   probabilities live in shared memory as f32, padded so no warp reads
-//   two rows in one bank.  At D = 256 the accumulator is 4 x 32 floats a
-//   thread and the block takes 215.6 KB of shared memory.
+//   max and sum reduce over 8 neighbouring lanes with shuffles.  Q
+//   (scaled in f32), the K and V tiles, and the probabilities live in
+//   shared memory as f32, padded so no warp reads two rows in one bank.
 // Head sizes 16 (every reduced config), 32, 64, 80 (hubert-xlarge), 128
 // and 256 (recurrentgemma-9b's local layers): multiples of 16, so the
 // kernels' tilings hold (the k16 step of mma and wgmma, the 16-column
@@ -1001,7 +1043,7 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 // ---------------------------------------------------------------------------
-// float32 at D = 64 and 128: three TF32 products on wgmma
+// float32 at D = 64, 80, 128 and 256: three TF32 products on wgmma
 // ---------------------------------------------------------------------------
 // The keys of each 8-key group of a transposed V tile: 0 (served) in the
 // order 0, 2, 4, 6, 1, 3, 5, 7 that P's A fragments take (sm90_tiles.cuh,
@@ -1067,27 +1109,53 @@ __device__ __forceinline__ float4 load4(const float* p, bool ok) {
 
 template <int D>
 struct Sm90F32 {
-  static constexpr int BQ = 128;                  // query rows a block
+  static_assert(D == 64 || D == 80 || D == 128 || D == 256, "head size");
+  // consumer warpgroups a block, 64 query rows each: one at D = 256, where
+  // Q's hi and lo pieces for 128 rows would take 256 KB
+  static constexpr int WGS = D == 256 ? 1 : 2;
   static constexpr int WQ = 64;                   // rows a consumer warpgroup
-  static constexpr int BK = D == 64 ? 64 : 32;    // keys a kv tile
+  static constexpr int BQ = WGS * WQ;             // query rows a block
+  static constexpr int BK = D == 64 ? 64 : D == 256 ? 16 : 32;  // keys a tile
   static constexpr int KS = 2;                    // K ring stages
-  static constexpr int VS = D == 64 ? 2 : 1;      // V^T ring stages
-  static constexpr int THREADS = 3 * 128;         // 2 consumer warpgroups
-                                                  // and the producer's
-  // after setmaxnreg, within the 384 x 168 the block is launched with
-  // (64,512): 128 x 136 + 256 x 184 at D = 64, 128 x 128 + 256 x 184 at
-  // D = 128 (a producer of 104 spilled at both sizes, of 120 at D = 128)
-  static constexpr int PRODUCER_REGS = D == 64 ? 136 : 128;
-  static constexpr int CONSUMER_REGS = 184;
-  static constexpr int Q_PIECE = WQ * D * 4;      // a warpgroup's Q hi or lo
-  static constexpr int KV_PIECE = BK * D * 4;     // a K or V^T tile's hi or lo
+  static constexpr int VS = D == 128 || D == 256 ? 1 : 2;  // V^T stages
+  static constexpr int THREADS = (WGS + 1) * 128; // and the producer's
+  // K and V tiles the producer holds in registers: two of each at D = 80
+  // and 256, so a tile's loads are in flight while the last one is
+  // stored (at D = 64 and 128 the second pair, 64 registers, would not
+  // fit the producer's 128-136)
+  static constexpr int LA = D == 80 || D == 256 ? 2 : 1;
+  // Two consumer warpgroups take registers from the producer's by
+  // setmaxnreg, within the 384 x 168 the block is launched with (64,512):
+  // 128 x 136 + 256 x 184 at D = 64, 128 x 128 + 256 x 184 at D = 128 (a
+  // producer of 104 spilled at both sizes, of 120 at D = 128), 128 x 160
+  // + 256 x 168 at D = 80 (its two tiles).  With one (D = 256) a thread
+  // may hold 255 of the 65,536 and nothing is handed over.
+  static constexpr int PRODUCER_REGS = D == 64 ? 136 : D == 80 ? 160 : 128;
+  static constexpr int CONSUMER_REGS = D == 80 ? 168 : 184;
+  static constexpr int QB = (D + 31) / 32;        // 32-float boxes a row
+  static constexpr int Q_PIECE = QB * WQ * 128;   // a warpgroup's Q hi or lo
+  static constexpr int K_PIECE = QB * BK * 128;   // a K tile's hi or lo
+  // V^T: D rows of the tile's keys, in rows of 32 keys (128 bytes, the
+  // 128-byte swizzle), or of 16 at D = 256 (64 bytes, the 64-byte swizzle)
+  static constexpr int VROW = BK >= 32 ? 128 : 64;
+  static constexpr int GPR = VROW / 32;           // 8-key groups a V^T row
+  static constexpr int V_PIECE = BK * D * 4;      // a V^T tile's hi or lo
+  // O's columns a P.V product covers: the tile's P.V is D / PN products
+  // into one fresh accumulator of PN columns
+  static constexpr int PN = D == 80 ? 80 : 64;
   static constexpr int KG = BK / 8;               // 8-key groups a tile
-  // one (8-key group, 4-column chunk) of V a producer thread
-  static_assert(KG * (D / 4) == 128, "V's groups x chunks != 128");
+  // one (8-key group, 4-column chunk) of V a producer thread (at D = 80,
+  // 80 of them)
+  static_assert(KG * (D / 4) <= 128, "V's groups x chunks > 128");
   static constexpr int KCH = BK * D / 4 / 128;    // K's chunks a thread
+  static_assert(KCH * 128 == BK * D / 4, "K's chunks");
+  static_assert(D % PN == 0, "P.V's products");
+  static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 64512,
+                "registers");
   // + 1024: the dynamic base is rounded up to the swizzle atom's boundary
-  static constexpr int SMEM = 1024 + 4 * Q_PIECE
-                              + 2 * (KS + VS) * KV_PIECE + 16 * (KS + VS);
+  static constexpr int SMEM = 1024 + 2 * WGS * Q_PIECE + 2 * KS * K_PIECE
+                              + 2 * VS * V_PIECE + 16 * (KS + VS);
+  static_assert(SMEM <= 232448, "past the 227 KB a block may use");
 };
 
 template <int D>
@@ -1097,16 +1165,16 @@ flash_sm90_f32(const float* __restrict__ q, const float* __restrict__ k,
                int Skv, int Hq, int Hkv, int causal, int window,
                float scale) {
   using P = Sm90F32<D>;
-  constexpr int BK = P::BK, KS = P::KS, VS = P::VS;
+  constexpr int BK = P::BK, KS = P::KS, VS = P::VS, PN = P::PN;
   extern __shared__ __align__(1024) unsigned char raw_f32[];
-  // [hi, lo][warpgroup][D / 32 boxes][64 rows][128 B]
+  // [hi, lo][warpgroup][QB boxes][64 rows][128 B]
   unsigned char* Qs =
       raw_f32 + ((1024 - (sm90::smem_addr(raw_f32) & 1023)) & 1023);
-  // K: [KS][hi, lo][D / 32 boxes][BK keys][128 B]; V^T: [VS][hi, lo]
-  // [BK / 32 boxes][D rows][128 B]
-  unsigned char* Ks = Qs + 4 * P::Q_PIECE;
-  unsigned char* Vs = Ks + 2 * KS * P::KV_PIECE;
-  uint64_t* k_full = reinterpret_cast<uint64_t*>(Vs + 2 * VS * P::KV_PIECE);
+  // K: [KS][hi, lo][QB boxes][BK keys][128 B]; V^T: [VS][hi, lo]
+  // [BK / (VROW / 4) boxes][D rows][VROW B]
+  unsigned char* Ks = Qs + 2 * P::WGS * P::Q_PIECE;
+  unsigned char* Vs = Ks + 2 * KS * P::K_PIECE;
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(Vs + 2 * VS * P::V_PIECE);
   uint64_t* k_empty = k_full + KS;
   uint64_t* v_full = k_empty + KS;
   uint64_t* v_empty = v_full + VS;
@@ -1126,7 +1194,7 @@ flash_sm90_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int nt = (kv_end - kv_begin + BK - 1) / BK;
   const int tid = threadIdx.x;
   // a tile of at most 64 query rows runs on consumer warpgroup 0 alone
-  const bool solo = Sq - q0 <= P::WQ;
+  const bool solo = P::WGS == 1 || Sq - q0 <= P::WQ;
   const int consumers = solo ? 1 : 2;
   const size_t q_stride = (size_t)Hq * D, kv_stride = (size_t)Hkv * D;
 
@@ -1143,86 +1211,125 @@ flash_sm90_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();
 
-  if (tid >= 2 * 128) {
-    sm90::regs_dec<P::PRODUCER_REGS>();
+  if (tid >= P::WGS * 128) {
+    if constexpr (P::WGS == 2) sm90::regs_dec<P::PRODUCER_REGS>();
     // The producer warpgroup loads each K and V tile into registers,
     // makes its TF32 lo piece, and stores both pieces in the layout
     // wgmma reads: K as it is (keys by rows, D contiguous), V transposed
     // (D by rows, keys contiguous, each 8-key group in P's fragment
     // order).  Rows past Skv are zeros.  K runs one tile ahead of V, as
     // the consumers' turns take tile t's K beside tile t - 1's V.
-    const int pt = tid - 2 * 128, lane = pt % 32;
-    const int rest = (lane >> 3) | ((pt / 32) << 2);        // 0 .. 15
+    const int pt = tid - P::WGS * 128, lane = pt % 32;
     // this thread's V: keys 8 kg .. 8 kg + 7, columns 4 dc .. 4 dc + 3;
-    // the 8 lanes of a store phase take 4 groups x 2 chunks
-    const int kg = (lane & 3) + 4 * (rest % (P::KG / 4));
-    const int dc = ((lane >> 2) & 1) + 2 * (rest / (P::KG / 4));
+    // the 8 lanes of a store phase take 4 groups x 2 chunks (2 x 4 at
+    // two groups a tile)
+    int kg, dc;
+    if constexpr (P::KG >= 4) {
+      const int rest = (lane >> 3) | ((pt / 32) << 2);      // 0 .. 15
+      kg = (lane & 3) + 4 * (rest % (P::KG / 4));
+      dc = ((lane >> 2) & 1) + 2 * (rest / (P::KG / 4));
+    } else {
+      kg = lane & 1;
+      dc = (lane >> 1) + 16 * (pt / 32);
+    }
+    // (known at compile time where every thread has a unit: tested at run
+    // time at D = 64 and 128, it cost their rows 4-10%)
+    const bool has_v = P::KG * (D / 4) == 128 || dc < D / 4;
     const float* kb = k + (size_t)b * Skv * kv_stride + (size_t)hk * D;
     const float* vb = v + (size_t)b * Skv * kv_stride + (size_t)hk * D;
-    float4 kr[P::KCH], vr[8];
-    auto load_k = [&](int t) {
+    // the tiles in registers: one K and one V, or two of each (LA = 2),
+    // so each tile's loads are in flight a whole tile ahead of its stores
+    float4 kr[P::LA][P::KCH], vr[P::LA][8];
+    auto load_k = [&](int t, float4 (&r)[P::KCH]) {
       const int k0 = kv_begin + t * BK;
 #pragma unroll
       for (int j = 0; j < P::KCH; ++j) {
-        const int i = pt + 128 * j, r = i / (D / 4), c = i % (D / 4);
-        kr[j] = load4(kb + (size_t)(k0 + r) * kv_stride + 4 * c,
-                      k0 + r < Skv);
+        const int i = pt + 128 * j, row = i / (D / 4), c = i % (D / 4);
+        r[j] = load4(kb + (size_t)(k0 + row) * kv_stride + 4 * c,
+                     k0 + row < Skv);
       }
     };
-    auto load_v = [&](int t) {
+    auto load_v = [&](int t, float4 (&r)[8]) {
       const int k0 = kv_begin + t * BK + 8 * kg;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        vr[j] = load4(vb + (size_t)(k0 + j) * kv_stride + 4 * dc,
-                      k0 + j < Skv);
+        r[j] = load4(vb + (size_t)(k0 + j) * kv_stride + 4 * dc,
+                     has_v && k0 + j < Skv);
     };
-    auto put_k = [&](int t) {
+    auto put_k = [&](int t, const float4 (&kr)[P::KCH]) {
       const int s = t % KS;
       if (t >= KS) sm90::bar_wait(&k_empty[s], ((t / KS) & 1) ^ 1);
-      unsigned char* kh = Ks + s * 2 * P::KV_PIECE;
+      unsigned char* kh = Ks + s * 2 * P::K_PIECE;
 #pragma unroll
       for (int j = 0; j < P::KCH; ++j) {
         const int i = pt + 128 * j;
-        store_pieces(kh, kh + P::KV_PIECE, sw128(i / (D / 4), i % (D / 4),
-                                                 BK), kr[j]);
+        store_pieces(kh, kh + P::K_PIECE, sw128(i / (D / 4), i % (D / 4),
+                                                BK), kr[j]);
       }
       sm90::fence_async_shared();     // visible to wgmma (the async proxy)
       sm90::bar_arrive(&k_full[s]);
     };
-    auto put_v = [&](int t) {
+    auto put_v = [&](int t, const float4 (&vr)[8]) {
       const int s = t % VS;
       if (t >= VS) sm90::bar_wait(&v_empty[s], ((t / VS) & 1) ^ 1);
-      unsigned char* vh = Vs + s * 2 * P::KV_PIECE;
+      unsigned char* vh = Vs + s * 2 * P::V_PIECE;
+      if (has_v) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 4 * dc + e;
+        for (int e = 0; e < 4; ++e) {
+          const int d = 4 * dc + e;
+          // row d's 16-byte chunks lie at chunk ^ (d % 8) (128-byte
+          // swizzle) or chunk ^ (d / 2 % 4) (64-byte)
+          const int swz = P::VROW == 128 ? d % 8 : (d / 2) % 4;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          // chunk `half` of the group: its keys 0, 2, 4, 6 or 1, 3, 5, 7
-          const int a = FLASH_SM90_F32_PLAIN_V ? 4 * half : half;
-          const int st = FLASH_SM90_F32_PLAIN_V ? 1 : 2;
-          const float4 x = make_float4(
-              part(vr[a], e), part(vr[a + st], e), part(vr[a + 2 * st], e),
-              part(vr[a + 3 * st], e));
-          store_pieces(vh, vh + P::KV_PIECE,
-                       (kg / 4) * D * 128 + d * 128
-                           + (((2 * (kg % 4) + half) ^ (d % 8)) * 16),
-                       x);
+          for (int half = 0; half < 2; ++half) {
+            // chunk `half` of the group: its keys 0, 2, 4, 6 or 1, 3, 5, 7
+            const int a = FLASH_SM90_F32_PLAIN_V ? 4 * half : half;
+            const int st = FLASH_SM90_F32_PLAIN_V ? 1 : 2;
+            const float4 x = make_float4(
+                part(vr[a], e), part(vr[a + st], e),
+                part(vr[a + 2 * st], e), part(vr[a + 3 * st], e));
+            store_pieces(vh, vh + P::V_PIECE,
+                         (kg / P::GPR) * D * P::VROW + d * P::VROW
+                             + (((2 * (kg % P::GPR) + half) ^ swz) * 16),
+                         x);
+          }
         }
       }
       sm90::fence_async_shared();
       sm90::bar_arrive(&v_full[s]);
     };
-    load_k(0);
-    put_k(0);
-    if (nt > 1) load_k(1);
-    load_v(0);
-    for (int t = 0; t < nt; ++t) {
-      if (t + 1 < nt) put_k(t + 1);
-      put_v(t);
-      // the next tiles' loads in flight while this thread waits for slots
-      if (t + 2 < nt) load_k(t + 2);
-      if (t + 1 < nt) load_v(t + 1);
+    if constexpr (P::LA == 2) {
+      // K(t) in kr[t % 2], V(t) in vr[t % 2]; a step issues the loads of
+      // K(t + 2) and V(t + 1), then stores K(t + 1) and V(t), loaded a
+      // step before
+      load_k(0, kr[0]);
+      if (nt > 1) load_k(1, kr[1]);
+      load_v(0, vr[0]);
+      put_k(0, kr[0]);
+      auto step = [&](int t, auto parity) {
+        constexpr int a = decltype(parity)::value;
+        if (t + 2 < nt) load_k(t + 2, kr[a]);
+        if (t + 1 < nt) load_v(t + 1, vr[a ^ 1]);
+        if (t + 1 < nt) put_k(t + 1, kr[a ^ 1]);
+        put_v(t, vr[a]);
+      };
+      for (int t = 0; t < nt; t += 2) {
+        step(t, std::integral_constant<int, 0>());
+        if (t + 1 < nt) step(t + 1, std::integral_constant<int, 1>());
+      }
+    } else {
+      load_k(0, kr[0]);
+      put_k(0, kr[0]);
+      if (nt > 1) load_k(1, kr[0]);
+      load_v(0, vr[0]);
+      for (int t = 0; t < nt; ++t) {
+        if (t + 1 < nt) put_k(t + 1, kr[0]);
+        put_v(t, vr[0]);
+        // the next tiles' loads in flight while this thread waits for
+        // slots
+        if (t + 2 < nt) load_k(t + 2, kr[0]);
+        if (t + 1 < nt) load_v(t + 1, vr[0]);
+      }
     }
     return;
   }
@@ -1231,16 +1338,17 @@ flash_sm90_f32(const float* __restrict__ q, const float* __restrict__ k,
   // + 8 of them (g = lane / 4), the layout of every accumulator below.
   const int wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
   if (wg >= consumers) return;
-  sm90::regs_inc<P::CONSUMER_REGS>();
+  if constexpr (P::WGS == 2) sm90::regs_inc<P::CONSUMER_REGS>();
   const int wq0 = q0 + wg * P::WQ;
   const int w_first = wq0 + off;                    // its positions
   const int w_last = min(wq0 + P::WQ, Sq) - 1 + off;
   const int qp0 = w_first + warp * 16 + lane / 4;   // row g's position
 
   // Q: the warpgroup's rows scaled in f32 (flash_attention.py:44), stored
-  // with their TF32 lo pieces; rows past Sq are zeros
+  // with their TF32 lo pieces; rows past Sq are zeros (at D = 80 the
+  // third box's columns 80-95 are never written, and never read)
   unsigned char* qh = Qs + wg * P::Q_PIECE;
-  unsigned char* ql = Qs + (2 + wg) * P::Q_PIECE;
+  unsigned char* ql = Qs + (P::WGS + wg) * P::Q_PIECE;
   const float* qb = q + (size_t)b * Sq * q_stride + (size_t)h * D;
 #pragma unroll
   for (int i = wt; i < P::WQ * D / 4; i += 128) {
@@ -1256,11 +1364,11 @@ flash_sm90_f32(const float* __restrict__ q, const float* __restrict__ k,
   sm90::named_sync(1 + wg, 128);
 
   const uint32_t k_addr = sm90::smem_addr(Ks), v_addr = sm90::smem_addr(Vs);
-  // O in f32 registers.  Each turn's P.V lands in pv first, 64 columns
-  // at a time, then is added to O in f32: accumulated in place by the
-  // tensor cores, whose adds do not round to nearest, O drifted with the
+  // O in f32 registers.  Each turn's P.V lands in pv first, PN columns at
+  // a time, then is added to O in f32: accumulated in place by the tensor
+  // cores, whose adds do not round to nearest, O drifted with the
   // prefill's length
-  float o_acc[D / 2], pv[32], sc[BK / 2];
+  float o_acc[D / 2], pv[PN / 2], sc[BK / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
   float m[2] = {M_INIT, M_INIT}, l[2] = {0.f, 0.f};  // rows g, g + 8
@@ -1272,57 +1380,76 @@ flash_sm90_f32(const float* __restrict__ q, const float* __restrict__ k,
   // / 16 to the start-address field (shared addresses stay below 256 KB,
   // so the field never carries)
   auto desc = [](uint32_t addr) { return sm90::desc_sw128(addr, 16, 1024); };
+  auto vdesc = [](uint32_t addr) {
+    return P::VROW == 128 ? sm90::desc_sw128(addr, 16, 1024)
+                          : sm90::desc_sw64(addr, 16, 512);
+  };
   const uint64_t dqh = desc(sm90::smem_addr(qh));
   const uint64_t dql = desc(sm90::smem_addr(ql));
-  // S = Q.K^T for the K tile in slot s: D / 8 steps of m64nBKk8, three
-  // products each (the small ones first), both operands K-major
-  auto gemm_s = [&](int s) {
+  // d = S = Q.K^T for the K tile in slot s: D / 8 steps of m64nBKk8,
+  // three products each (the small ones first), both operands K-major
+  // (at D = 80 the last two steps read the third box's first 16
+  // columns); or d = part `part` of `parts` of those steps
+  auto gemm_s = [&](float (&d)[BK / 2], int s, int part = 0,
+                    int parts = 1) {
     // Q's descriptors anew in each turn: hoisted out of the loop, each k
     // step's would hold two registers for the whole kernel
     const uint64_t qh_d = opaque(dqh), ql_d = opaque(dql);
-    const uint64_t dkh = desc(k_addr + s * 2 * P::KV_PIECE);
-    const uint64_t dkl = dkh + P::KV_PIECE / 16;
+    const uint64_t dkh = desc(k_addr + s * 2 * P::K_PIECE);
+    const uint64_t dkl = dkh + P::K_PIECE / 16;
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
+      if (kk * parts / (D / 8) != part) continue;
+      const int first = kk == part * (D / 8) / parts;
       const uint32_t oq = ((kk / 4) * P::WQ * 128 + (kk % 4) * 32) / 16;
       const uint32_t ok = ((kk / 4) * BK * 128 + (kk % 4) * 32) / 16;
       auto mma = [&](uint64_t a, uint64_t bb, int acc) {
         if constexpr (BK == 64)
-          sm90::wgmma_tf32_ss_n64(sc, a, bb, acc);
+          sm90::wgmma_tf32_ss_n64(d, a, bb, acc);
+        else if constexpr (BK == 32)
+          sm90::wgmma_tf32_ss_n32(d, a, bb, acc);
         else
-          sm90::wgmma_tf32_ss_n32(sc, a, bb, acc);
+          sm90::wgmma_tf32_ss_n16(d, a, bb, acc);
       };
       if constexpr (THREE_TF32) {
-        mma(ql_d + oq, dkh + ok, kk > 0);
+        mma(ql_d + oq, dkh + ok, !first);
         mma(qh_d + oq, dkl + ok, 1);
         mma(qh_d + oq, dkh + ok, 1);
       } else {
-        mma(qh_d + oq, dkh + ok, kk > 0);
+        mma(qh_d + oq, dkh + ok, !first);
       }
     }
   };
-  // pv = P.V for columns 64 h .. 64 h + 63 of the V^T tile in slot s:
-  // BK / 8 steps of m64n64k8, three products each, P from registers, V^T
-  // K-major (its rows are O's columns)
+  // pv = P.V for O's columns PN h .. PN h + PN - 1 from the V^T tile in
+  // slot s: BK / 8 steps of m64nPNk8, three products each, P from
+  // registers, V^T K-major (its rows are O's columns)
   auto gemm_pv = [&](int s, int h) {
-    const uint64_t dvh = desc(v_addr + s * 2 * P::KV_PIECE) + h * 64 * 8;
-    const uint64_t dvl = dvh + P::KV_PIECE / 16;
+    const uint64_t dvh =
+        vdesc(v_addr + s * 2 * P::V_PIECE) + h * PN * P::VROW / 16;
+    const uint64_t dvl = dvh + P::V_PIECE / 16;
 #pragma unroll
     for (int kk = 0; kk < BK / 8; ++kk) {
-      const uint32_t ov = ((kk / 4) * D * 128 + (kk % 4) * 32) / 16;
+      const uint32_t ov =
+          ((kk / P::GPR) * D * P::VROW + (kk % P::GPR) * 32) / 16;
+      auto mma = [&](const uint32_t(&a)[4], uint64_t bb, int acc) {
+        if constexpr (PN == 64)
+          sm90::wgmma_tf32_rs_n64(pv, a, bb, acc);
+        else
+          sm90::wgmma_tf32_rs_n80(pv, a, bb, acc);
+      };
       if constexpr (THREE_TF32) {
-        sm90::wgmma_tf32_rs_n64(pv, pl[kk], dvh + ov, kk > 0);
-        sm90::wgmma_tf32_rs_n64(pv, ph[kk], dvl + ov, 1);
-        sm90::wgmma_tf32_rs_n64(pv, ph[kk], dvh + ov, 1);
+        mma(pl[kk], dvh + ov, kk > 0);
+        mma(ph[kk], dvl + ov, 1);
+        mma(ph[kk], dvh + ov, 1);
       } else {
-        sm90::wgmma_tf32_rs_n64(pv, ph[kk], dvh + ov, kk > 0);
+        mma(ph[kk], dvh + ov, kk > 0);
       }
     }
   };
-  // O's columns 64 h .. 64 h + 63 += pv, in f32
+  // O's columns PN h .. PN h + PN - 1 += pv, in f32
   auto add_pv = [&](int h) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o_acc[32 * h + i] += pv[i];
+    for (int i = 0; i < PN / 2; ++i) o_acc[PN / 2 * h + i] += pv[i];
   };
   // The online softmax of tile t's scores in sc (scaled already: the
   // scale went into Q), O rescaled, and P as TF32 A fragments: the
@@ -1398,52 +1525,124 @@ flash_sm90_f32(const float* __restrict__ q, const float* __restrict__ k,
   // other's products do.  A turn issues tile t's S = Q.K^T and tile
   // t - 1's O += P.V together, then waits; the softmax of tile t follows
   // outside the turn.  Warpgroup 0 goes first; warpgroup 1 skips the
-  // hand-over after its last turn; a warpgroup alone takes no turns.  The
-  // first and last turns are peeled off, so every wgmma is issued on a
-  // path the whole warpgroup takes.
+  // hand-over after its last turn; a warpgroup alone (every block at D =
+  // 256) takes no turns.  The first and last turns are peeled off, so
+  // every wgmma is issued on a path the whole warpgroup takes.
   constexpr int TURN = 3;
   const int mine = TURN + wg, other = TURN + 1 - wg;
   auto take_turn = [&] { if (!solo) sm90::named_sync(mine, 256); };
   auto pass_turn = [&] { if (!solo) sm90::named_arrive(other, 256); };
-  // O's second 64 columns (D = 128) take a product of their own after
-  // the turn's wait, into the same pv
+  // O's other columns (D = 128; D = 256's last tile) take products of
+  // their own after the turn's wait, PN columns at a time into the same
+  // pv
   auto rest_pv = [&](int sp) {
-    if constexpr (D == 128) {
+#pragma unroll
+    for (int c = 1; c < D / PN; ++c) {
       sm90::wgmma_fence();
-      gemm_pv(sp, 1);
+      gemm_pv(sp, c);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(pv);
-      add_pv(1);
+      add_pv(c);
+    }
+  };
+  // One warpgroup (D = 256) takes no turns, and its tensor cores would
+  // idle while each 64 columns of P.V are added to O: so tile t's S =
+  // Q.K^T goes in four parts of eight k steps, part c + 1 queued behind
+  // P.V's part c (V's wait after S's first part), and the tensor cores
+  // run it while part c's pv is added.  Each part of S lands in a fresh
+  // accumulator (sc, sa, sb, sa), summed into sc in f32: accumulated
+  // across all 32 k steps the tensor cores' adds, which do not round to
+  // nearest, missed 2e-5 at 2300 tokens with q scaled by 4.
+  float sa[P::WGS == 1 ? BK / 2 : 1], sb[P::WGS == 1 ? BK / 2 : 1];
+  auto add_s = [&](const float (&part)[BK / 2]) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] += part[i];
+  };
+  // tile t's S in slot s, with tile t - 1's P.V from V^T slot sp (phase
+  // vph) unless t is 0
+  auto solo_turn = [&](int s, bool with_pv, int sp, int vph) {
+    if constexpr (P::WGS == 1) {
+      auto pv_part = [&](int c) {       // P.V's part c - 1 is done
+        if (!with_pv) return;
+        if (c > 0) {
+          sm90::fence_regs(pv);
+          add_pv(c - 1);
+        }
+        sm90::wgmma_fence();
+        gemm_pv(sp, c);
+        sm90::wgmma_commit();
+      };
+      sm90::wgmma_fence();
+      gemm_s(sc, s, 0, 4);
+      sm90::wgmma_commit();
+      if (with_pv) sm90::bar_wait(&v_full[sp], vph);
+      pv_part(0);
+      sm90::wgmma_fence();
+      gemm_s(sa, s, 1, 4);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      pv_part(1);
+      sm90::wgmma_fence();
+      gemm_s(sb, s, 2, 4);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(sa);
+      add_s(sa);
+      pv_part(2);
+      sm90::wgmma_fence();
+      gemm_s(sa, s, 3, 4);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(sb);
+      add_s(sb);
+      pv_part(3);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sa);
+      add_s(sa);
+      if (with_pv) {
+        sm90::fence_regs(pv);
+        add_pv(3);
+      }
     }
   };
   if (wg == 1) sm90::named_arrive(TURN, 256);
   sm90::bar_wait(&k_full[0], 0);
-  take_turn();
-  sm90::wgmma_fence();
-  gemm_s(0);
-  sm90::wgmma_commit();
-  pass_turn();
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(sc);
+  if constexpr (P::WGS == 1) {
+    solo_turn(0, false, 0, 0);
+  } else {
+    take_turn();
+    sm90::wgmma_fence();
+    gemm_s(sc, 0);
+    sm90::wgmma_commit();
+    pass_turn();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+  }
   sm90::bar_arrive(&k_empty[0]);
   softmax(0);
   for (int t = 1; t < nt; ++t) {
     const int s = t % KS, sp = (t - 1) % VS;
     sm90::bar_wait(&k_full[s], (t / KS) & 1);
-    sm90::bar_wait(&v_full[sp], ((t - 1) / VS) & 1);
-    take_turn();
-    sm90::wgmma_fence();
-    gemm_s(s);
-    gemm_pv(sp, 0);
-    sm90::wgmma_commit();
-    pass_turn();
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(sc);
-    sm90::fence_regs(pv);
-    add_pv(0);
-    sm90::bar_arrive(&k_empty[s]);    // this thread is done with K
-    rest_pv(sp);
+    if constexpr (P::WGS == 1) {
+      solo_turn(s, true, sp, ((t - 1) / VS) & 1);
+      sm90::bar_arrive(&k_empty[s]);
+    } else {
+      sm90::bar_wait(&v_full[sp], ((t - 1) / VS) & 1);
+      take_turn();
+      sm90::wgmma_fence();
+      gemm_s(sc, s);
+      gemm_pv(sp, 0);
+      sm90::wgmma_commit();
+      pass_turn();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(pv);
+      add_pv(0);
+      sm90::bar_arrive(&k_empty[s]);  // this thread is done with K
+      rest_pv(sp);
+    }
     sm90::fence_regs(ph);
     sm90::fence_regs(pl);
     sm90::bar_arrive(&v_empty[sp]);   // and with V
@@ -1507,8 +1706,8 @@ enum Route {
   FLASH_KERNEL = 0, FLASH_MMA = 1, FLASH_SM90 = 2, FLASH_SM90_F32 = 3
 };
 constexpr int route(int dtype, int D) {
-  return dtype == 0 ? (D == 64 || D == 128 ? FLASH_SM90_F32 : FLASH_KERNEL)
-                    : (D == 16 || D == 32 ? FLASH_MMA : FLASH_SM90);
+  return D == 16 || D == 32 ? (dtype == 0 ? FLASH_KERNEL : FLASH_MMA)
+                            : (dtype == 0 ? FLASH_SM90_F32 : FLASH_SM90);
 }
 
 template <typename T, int D>

@@ -448,8 +448,9 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 
 // TF32 (PTX ISA: wgmma with .tf32 operands, k = 8): both operands
 // K-major only (the transpose bits exist for 16-bit types alone), so a
-// row of the 128-byte swizzle holds 32 floats and a k step of 8 floats
-// adds 32 bytes to the start address, as a bf16 k16 step does.  The
+// row of the 128-byte swizzle holds 32 floats (of the 64-byte swizzle,
+// 16) and a k step of 8 floats adds 32 bytes to the start address, as a
+// bf16 k16 step does.  The
 // accumulator layout is the bf16 one above.  The A fragment of the
 // register form is the mma.m16n8k8 TF32 one: with g = lane / 4 and
 // t = lane % 4, a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
@@ -458,6 +459,20 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 // d[4j + 3]} is the A of a k step whose k index t is column 2t and
 // t + 4 is 2t + 1: B's 8 rows of that step must come in the order
 // 0, 2, 4, 6, 1, 3, 5, 7.
+
+// d (+)= A . B, m64n16k8 TF32, A and B from shared memory
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 // d (+)= A . B, m64n32k8 TF32, A and B from shared memory
 __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a,
@@ -520,6 +535,33 @@ __device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A . B, m64n80k8 TF32, A from registers (the fragment above)
+__device__ __forceinline__ void wgmma_tf32_rs_n80(float (&d)[40],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 

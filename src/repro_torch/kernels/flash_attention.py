@@ -11,11 +11,12 @@ Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
 designs answer that.  The wrapper's one launch takes the kernel that
 :func:`kernel_for` names (chosen in ``csrc`` by the dtype code and the
 head size alone): the warp-specialised ``wgmma`` kernels
-``flash_sm90`` for bfloat16 at head sizes 64, 80, 128 and 256
-(TMA-fed) and ``flash_sm90_f32`` for float32 at 64 and 128 (each
-operand in TF32 hi and lo pieces, three TF32 products a product); at
-the other sizes the ``mma.sync`` kernel ``flash_mma`` for bfloat16 (16
-and 32, the reduced configs) and the CUDA-core ``flash_kernel`` for
+``flash_sm90`` for bfloat16 and ``flash_sm90_f32`` for float32 at
+head sizes 64, 80, 128 and 256, every full-width model's (the first
+TMA-fed; the second with each operand in TF32 hi and lo pieces, three
+TF32 products a product, on 64-row blocks of one consumer warpgroup at
+256); at 16 and 32, the reduced configs' sizes, the ``mma.sync`` kernel
+``flash_mma`` for bfloat16 and the CUDA-core ``flash_kernel`` for
 float32.
 """
 from __future__ import annotations
@@ -40,7 +41,7 @@ KERNELS = ("flash_kernel", "flash_mma", "flash_sm90", "flash_sm90_f32")
 #: the head sizes ``flash_sm90`` (bfloat16) serves
 SM90_HEAD_DIMS = (64, 80, 128, 256)
 #: the head sizes ``flash_sm90_f32`` (float32) serves
-SM90_F32_HEAD_DIMS = (64, 128)
+SM90_F32_HEAD_DIMS = (64, 80, 128, 256)
 
 
 def _lib() -> ctypes.CDLL:

@@ -53,10 +53,12 @@ def test_kernel_for_bf16(D, want):
     (64, "flash_sm90_f32"), (128, "flash_sm90_f32"),
     (40, "flash_sm90_f32"), (33, "flash_sm90_f32"), (100, "flash_sm90_f32"),
     (1, "flash_kernel"), (16, "flash_kernel"), (32, "flash_kernel"),
-    (80, "flash_kernel"), (129, "flash_kernel"), (256, "flash_kernel")])
+    (80, "flash_sm90_f32"), (129, "flash_sm90_f32"),
+    (256, "flash_sm90_f32")])
 def test_kernel_for_float32(D, want):
     """float32 takes flash_sm90_f32 exactly where the padded head size is
-    64 or 128, flash_kernel at every other size."""
+    64, 80, 128 or 256 (a head of 129 pads to 256), flash_kernel at 16
+    and 32, the reduced configs' sizes."""
     assert tfa.kernel_for(torch.float32, D) == want
     assert (want == "flash_sm90_f32") == (tfa.padded_head_dim(D)
                                           in tfa.SM90_F32_HEAD_DIMS)

@@ -1,4 +1,4 @@
-"""The float32 flash-attention route at head sizes 64 and 128:
+"""The float32 flash-attention route at head sizes 64, 80, 128 and 256:
 ``flash_sm90_f32``, three TF32 products on ``wgmma``.
 
 On the CPU: TF32 rounding as ``cvt.rna.tf32.f32`` rounds
@@ -9,18 +9,21 @@ operand fragments (the plain order must fail); and the kernel's
 arithmetic in plain PyTorch (``attention_tf32x3``: every operand in TF32
 hi and lo, three products) against ``repro``'s attention through the
 JAX package's own CPU route, within the reference's ``2e-5`` at the
-characterization's group shape and at head size 128 under GQA, where
-one TF32 product (hi.hi alone) misses.
+characterization's group shape, at head size 128 under GQA, and at
+hubert-xlarge's (80, bidirectional) and recurrentgemma-9b's local
+layers' (256, MQA, a window) heads, where one TF32 product (hi.hi
+alone) misses.
 
 Marked ``cuda`` (skipped without a card): the kernel against
-``attention_torch`` at ``2e-5`` around its 128-row q tile (Sq 1 to
-1000, Skv = Sq and Sq + 70, causal / windows 48, 100 / bidirectional,
-GQA ratios 1, 3, 6 and 16), one launch a call; builds of the same source
-with a V tile in plain key order and with one TF32 product, which must
-fail that check; the kernel at 2048 and 4096 tokens, where O accumulated
-in place by the tensor cores drifted past it; and that the tensor cores
-read a float32 operand by dropping its low 13 bits.  The card tests
-import nothing of JAX.
+``attention_torch`` at ``2e-5`` around its q tile (128 rows, 64 at head
+size 256; Sq 1 to 1000, Skv = Sq and Sq + 70, causal / windows 48, 100 /
+bidirectional, GQA ratios 1, 3, 6 and 16), one launch a call; builds of
+the same source with a V tile in plain key order and with one TF32
+product, which must fail that check; the kernel at 2048 and 4096
+tokens, where O accumulated in place by the tensor cores drifted past
+it, and at recurrentgemma-9b's 2300-token local layer and hubert-xlarge's
+1000 frames; and that the tensor cores read a float32 operand by
+dropping its low 13 bits.  The card tests import nothing of JAX.
 """
 import ctypes
 import math
@@ -41,7 +44,7 @@ F32_TOL = dict(atol=2e-5, rtol=2e-5)
 ULP = 2.0 ** -10            # a TF32 unit in the last place at 1
 #: keys a kv tile of ``flash_sm90_f32`` by head size (the tile of its
 #: online softmax; csrc/flash_attention.cu)
-BLOCK_KV = {64: 64, 128: 32}
+BLOCK_KV = {64: 64, 80: 32, 128: 32, 256: 16}
 
 
 def tf32_round(x):
@@ -184,12 +187,17 @@ def test_p_fragment_key_order(order):
 
 #: the characterization's attention group (stablelm-1.6b: B 2, S 256,
 #: 32/32 heads of 64, causal) and dbrx-132b's 48/8 heads of 128 (GQA 6)
-#: at a served prompt, with a window and a bidirectional case beside
+#: at a served prompt, with a window and a bidirectional case beside;
+#: hubert-xlarge's encoder layer (heads of 80, bidirectional) and
+#: recurrentgemma-9b's local layer (MQA, heads of 256, a window) cut to
+#: 4 query heads and a few hundred positions
 TWIN_CASES = {
     "characterization": (2, 256, 256, 32, 32, 64, True, None),
     "dbrx_d128_gqa": (1, 513, 513, 48, 8, 128, True, None),
     "window_d64": (1, 300, 300, 8, 2, 64, True, 100),
     "bidirectional_d128_offset": (1, 129, 200, 6, 1, 128, False, None),
+    "hubert_d80_bidirectional": (1, 200, 200, 4, 4, 80, False, None),
+    "recurrentgemma_d256_mqa_window": (1, 300, 300, 4, 1, 256, True, 100),
 }
 
 
@@ -291,17 +299,22 @@ SQ = (1, 63, 64, 65, 127, 128, 129, 1000)
 EXTRA = (0, 70)
 #: causal, local windows of 48 and 100, bidirectional
 MASKS = [(True, None), (True, 48), (True, 100), (False, None)]
-#: GQA ratios 1, 3, 6, 16: stablelm-1.6b, llama3.2-3b, dbrx-132b,
-#: qwen3-moe-235b-a22b
-HEADS = [(32, 32), (24, 8), (48, 8), (64, 4)]
+#: (query heads, kv heads) by head size: GQA ratios 1, 3, 6, 16 at 64 and
+#: 128 (stablelm-1.6b, llama3.2-3b, dbrx-132b, qwen3-moe-235b-a22b);
+#: hubert-xlarge's 16/16 at 80 and recurrentgemma-9b's MQA 16/1 at 256,
+#: each beside the other ratios
+HEADS = {64: [(32, 32), (24, 8), (48, 8), (64, 4)],
+         80: [(16, 16), (24, 8), (48, 8), (16, 1)],
+         128: [(32, 32), (24, 8), (48, 8), (64, 4)],
+         256: [(16, 1), (16, 16), (24, 8), (64, 4)]}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Sq", SQ)
 @pytest.mark.parametrize("extra", EXTRA)
 @pytest.mark.parametrize("causal,window", MASKS)
-@pytest.mark.parametrize("heads", HEADS)
-@pytest.mark.parametrize("D", tfa.SM90_F32_HEAD_DIMS)
+@pytest.mark.parametrize("D,heads", [(D, h) for D in tfa.SM90_F32_HEAD_DIMS
+                                     for h in HEADS[D]])
 def test_sm90_f32_kernel_vs_plain(cuda_device, Sq, extra, causal, window,
                                   heads, D):
     """B 2; Skv = Sq + extra (queries the last Sq positions); float32 at
@@ -340,13 +353,19 @@ def _variant_launch(defines, q, k, v):
     return out
 
 
+#: (query heads, kv heads) of the variant checks by head size: the
+#: characterization's 32/32, hubert-xlarge's 16/16 at 80,
+#: recurrentgemma-9b's 16/1 at 256
+VARIANT_HEADS = {64: (32, 32), 80: (16, 16), 128: (32, 32), 256: (16, 1)}
+
+
 def _variant_excess(dev, defines, D, seed=5):
-    """The characterization's group shape (B 2, S 256, 32/32 heads) at
-    head size D through the build with ``defines`` (the served wrapper
-    without any): the largest error over the 2e-5 tolerance against
-    ``attention_torch``, and the output."""
-    q, k, v = _card(dev, seed, (2, 256, 32, D), (2, 256, 32, D),
-                    (2, 256, 32, D))
+    """B 2, S 256 at head size D (VARIANT_HEADS) through the build with
+    ``defines`` (the served wrapper without any): the largest error over
+    the 2e-5 tolerance against ``attention_torch``, and the output."""
+    Hq, Hkv = VARIANT_HEADS[D]
+    q, k, v = _card(dev, seed, (2, 256, Hq, D), (2, 256, Hkv, D),
+                    (2, 256, Hkv, D))
     got = (_variant_launch(defines, q, k, v) if defines
            else tfa.flash_attention(q, k, v))
     want = tfa.attention_torch(q, k, v, causal=True)
@@ -378,20 +397,30 @@ def test_tensor_cores_drop_the_low_13_bits(cuda_device, variants, D):
     assert not torch.equal(cleared, _variant_excess(cuda_device, (), D)[1])
 
 
+#: (S, D, (query heads, kv heads), causal, window): causal prefills of
+#: 2048 and 4096 tokens at 64 and 128, recurrentgemma-9b's local layer
+#: at its 2300-token prompt (window 2048) and hubert-xlarge's encoder
+#: layer over 1000 frames (bidirectional)
+LONG = [(S, D, heads, True, None) for S in (2048, 4096)
+        for D, heads in ((64, (32, 32)), (128, (48, 8)))] + [
+    (2300, 256, (16, 1), True, 2048), (1000, 80, (16, 16), False, None)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", (2048, 4096))
 @pytest.mark.parametrize("scale", (1.0, 2.0, 4.0))
-@pytest.mark.parametrize("D,heads", [(64, (32, 32)), (128, (48, 8))])
-def test_sm90_f32_long_prefill_vs_plain(cuda_device, S, scale, D, heads):
-    """B 1, causal, q scaled by 1, 2 and 4 (peakier softmax): each turn's
-    P.V is added to O in float32, so the error does not grow with the
-    prefill's length."""
+@pytest.mark.parametrize("S,D,heads,causal,window", LONG)
+def test_sm90_f32_long_prefill_vs_plain(cuda_device, S, D, heads, causal,
+                                        window, scale):
+    """B 1, q scaled by 1, 2 and 4 (peakier softmax): each turn's P.V is
+    added to O in float32, so the error does not grow with the prefill's
+    length."""
     Hq, Hkv = heads
     q, k, v = _card(cuda_device, S + D, (1, S, Hq, D), (1, S, Hkv, D),
                     (1, S, Hkv, D))
     q = q * scale
-    got = tfa.flash_attention(q, k, v)
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(),
-                               tfa.attention_torch(q, k, v).cpu().numpy(),
-                               **F32_TOL)
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        tfa.attention_torch(q, k, v, causal=causal,
+                            window=window).cpu().numpy(), **F32_TOL)
